@@ -1,0 +1,168 @@
+"""Gradient/hessian histograms: the plain PyTorch version and its helpers.
+
+Port of ``lightgbm_tpu/ops/histogram.py``. The JAX package builds the
+histogram as a chunked one-hot bf16 matmul because a TPU has no fast
+scatter; on the card the histogram is a scatter-add, which
+``ops/cuda_histogram.py`` runs as a hand-written kernel. This module holds
+the plain version of that kernel (a scatter-add with ``index_add_``) — the
+CPU tests run it, and ``chip_smoke.py`` holds the kernel against it — plus
+the small helpers the grower shares with the kernel's wrapper.
+
+Output layout is the JAX package's: ``[S, F, B, 3]`` f32 holding
+(sum_g, sum_h, count) per (slot, feature, bin).
+
+Arithmetic (shared bit for bit with the kernel): g and h are f32, with no
+bf16 hi/lo split. They are added as 64-bit fixed-point integers,
+``q = round_half_even(x * scale)``, with one power-of-two ``scale`` per
+tree for g and one for h (:func:`fixed_point_scale`), so that integer
+atomics on the card make the sums independent of the order rows arrive in:
+training is bit-identical run to run. A bin's result is ``float32(sum(q) /
+scale)``; its error against the exact sum is at most half an f32 ulp of the
+result plus ``rows_in_bin / (2 * scale)`` (the quantisation). Counts are
+exact integers.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+# bound on |sum of quantised values| over every row of a pass: 2**62 keeps
+# int64 accumulation clear of overflow with a factor two to spare
+_FIXED_POINT_BITS = 62
+# cap on the scale exponent, so that a tiny max|x| never drives the scale
+# past the f64 range
+_MAX_SCALE_EXP = 200
+
+
+def fixed_point_scale(max_abs: float, n_rows: int) -> float:
+    """Largest power of two ``s`` with ``n_rows * max_abs * s < 2**62``.
+
+    Called once per tree with the largest |g| (or |h|) over its rows, so no
+    sum over any subset of them can leave the int64 range."""
+    bound = float(max_abs) * max(int(n_rows), 1)
+    if not (bound > 0.0 and math.isfinite(bound)):
+        return 1.0
+    _, e = math.frexp(bound)                     # bound < 2**e
+    return math.ldexp(1.0, min(_FIXED_POINT_BITS - e, _MAX_SCALE_EXP))
+
+
+def histogram_scales(grad: torch.Tensor, hess: torch.Tensor
+                     ) -> Tuple[float, float]:
+    """Per-tree fixed-point scales for g and h (one host sync)."""
+    n = grad.shape[0]
+    mg = float(grad.abs().max()) if n else 0.0
+    mh = float(hess.abs().max()) if n else 0.0
+    return fixed_point_scale(mg, n), fixed_point_scale(mh, n)
+
+
+def slot_from_position(pos: torch.Tensor, slot_cum: torch.Tensor
+                       ) -> torch.Tensor:
+    """Slot of each compacted position when rows are slot-grouped: slot s
+    spans positions [cum[s-1], cum[s]); positions past the last slot get
+    ``S``."""
+    return torch.searchsorted(slot_cum, pos, right=True)
+
+
+def slot_position_base(raw_slot: torch.Tensor, slot_cum: torch.Tensor,
+                       slot_starts: torch.Tensor) -> torch.Tensor:
+    """Additive base mapping a slot-grouped virtual position into the
+    leaf-contiguous permutation: ``src = pos + base[raw_slot]`` (base 0 for
+    positions past the last slot, ``raw_slot == S``)."""
+    cum_before = torch.cat([slot_cum.new_zeros(1), slot_cum[:-1]])
+    base = torch.cat([slot_starts.to(slot_cum.dtype) - cum_before,
+                      slot_cum.new_zeros(1)])
+    return base[raw_slot]
+
+
+def table_lookup(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` — a plain index gather. (The JAX package's one-hot
+    MXU matmul is a TPU workaround for slow gathers.)"""
+    return table[idx]
+
+
+def root_sums(grad: torch.Tensor, hess: torch.Tensor, included: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Total (sum_g, sum_h, count) over included rows — root LeafSplits
+    init (reference src/treelearner/leaf_splits.hpp Init); f64 sums
+    rounded once to f32."""
+    return (grad.double().sum().float(), hess.double().sum().float(),
+            included.double().sum().float())
+
+
+def pass_rows(leaf_id: torch.Tensor, slot_of_leaf: torch.Tensor,
+              row_idx: Optional[torch.Tensor], n_active: Optional[int],
+              slot_counts: Optional[torch.Tensor],
+              slot_starts: Optional[torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rows, slot) of every row a histogram pass adds, in pass order.
+
+    Full pass (``row_idx`` None): every row whose leaf is pending, its slot
+    ``slot_of_leaf[leaf_id[r]]``. Compacted pass: positions ``[0,
+    n_active)`` read through ``row_idx``, slot-grouped by ``slot_counts`` (required);
+    with ``slot_starts`` the rows of slot s sit at ``row_idx[slot_starts[s]
+    :][:slot_counts[s]]`` (the grower's incremental partition)."""
+    if row_idx is None:
+        slot = slot_of_leaf[leaf_id.long()]
+        rows = torch.nonzero(slot >= 0).flatten()
+        return rows, slot[rows].long()
+    if slot_counts is None:
+        raise ValueError("a compacted pass needs slot_counts")
+    pos = torch.arange(int(n_active), device=row_idx.device)
+    slot_cum = torch.cumsum(slot_counts.long(), 0)
+    slot = slot_from_position(pos, slot_cum)
+    src = pos
+    if slot_starts is not None:
+        src = pos + slot_position_base(slot, slot_cum, slot_starts.long())
+    return row_idx[src].long(), slot
+
+
+def build_histograms(
+    X: torch.Tensor,            # [N, F] uint8 bin codes
+    grad: torch.Tensor,         # [N] f32
+    hess: torch.Tensor,         # [N] f32
+    included: torch.Tensor,     # [N] f32 0/1: count channel mask
+    leaf_id: torch.Tensor,      # [N] i32 current leaf of each row
+    slot_of_leaf: torch.Tensor,  # [L+1] i32 leaf -> slot, -1 = not pending
+    num_slots: int,
+    num_bins_padded: int,
+    row_idx: Optional[torch.Tensor] = None,   # [N] i32 compacted pass rows
+    n_active: Optional[int] = None,           # rows of the compacted pass
+    slot_counts: Optional[torch.Tensor] = None,  # [S] i32 slot-grouped rows
+    slot_starts: Optional[torch.Tensor] = None,  # [S] i32 segment starts
+    scales: Optional[Tuple[float, float]] = None,  # per-tree (g, h) scales
+) -> torch.Tensor:
+    """Plain version of the histogram kernel: ``[S, F, B, 3]`` f32.
+
+    A scatter-add of the fixed-point g/h and the 0/1 counts into
+    ``[S, F, B]`` int64 bins, then one conversion to f32 — the kernel's
+    arithmetic exactly (module docstring), so the kernel must agree with it
+    bit for bit."""
+    N, F = X.shape
+    S, B = num_slots, num_bins_padded
+    if scales is None:
+        scales = histogram_scales(grad, hess)
+    rows, slot = pass_rows(leaf_id, slot_of_leaf, row_idx, n_active,
+                           slot_counts, slot_starts)
+    codes = X[rows].long()                                          # [n, F]
+    # the kernel device-asserts on the same inputs (ops/cuda_histogram.py)
+    if rows.numel() and int(slot.max()) >= S:
+        raise ValueError(f"slot {int(slot.max())} >= num_slots={S} (or "
+                         f"n_active past the compacted segments)")
+    if rows.numel() and int(codes.max()) >= B:
+        raise ValueError(f"bin code {int(codes.max())} >= "
+                         f"num_bins_padded={B}")
+    feat = torch.arange(F, device=X.device)
+    flat = ((slot[:, None] * F + feat[None, :]) * B + codes).reshape(-1)
+    qg = torch.round(grad[rows].double() * scales[0]).long()
+    qh = torch.round(hess[rows].double() * scales[1]).long()
+    qc = (included[rows] != 0).long()
+    out = []
+    for q in (qg, qh, qc):
+        acc = torch.zeros(S * F * B, dtype=torch.int64, device=X.device)
+        acc.index_add_(0, flat, q.repeat_interleave(F))
+        out.append(acc)
+    g = (out[0].double() * (1.0 / scales[0])).float()
+    h = (out[1].double() * (1.0 / scales[1])).float()
+    return torch.stack([g, h, out[2].float()], dim=-1).reshape(S, F, B, 3)
