@@ -22,6 +22,7 @@ from ..dataset import ConstructedDataset
 from ..grower import GrowerSpec, TreeArrays, grow_tree
 from ..metrics import create_metrics
 from ..objectives import create_objective
+from ..ops.cuda_histogram import feature_groups
 from ..ops.predict import add_tree_scores
 from ..parallel.comm import SerialComm
 from ..tree import Tree, tree_from_device_arrays
@@ -74,8 +75,19 @@ class GBDT:
         self.comm = SerialComm(F)
 
         dev = self.device
-        self.Xb = torch.as_tensor(np.ascontiguousarray(train_set.X_binned),
-                                  device=dev)
+        if dev.type == "cuda":
+            try:            # the histogram kernel's shared-memory limit
+                feature_groups(F, Bpad)
+            except ValueError as e:
+                Log.fatal("max_bin=%d: %s; not ported to lightgbm_tpu_torch "
+                          "yet (ROADMAP B1)", config.max_bin, e)
+        codes = np.ascontiguousarray(train_set.X_binned)
+        if codes.dtype == np.uint16:
+            # PyTorch gathers int16 but not uint16. On the card every code is
+            # below the kernel's bin limit (checked above), far below 2**15;
+            # on the CPU the plain version refuses a code of 2**15 or more.
+            codes = codes.view(np.int16)
+        self.Xb = torch.as_tensor(codes, device=dev)
         md = train_set.metadata
         self.label = torch.as_tensor(md.label, dtype=torch.float32,
                                      device=dev)

@@ -9,50 +9,75 @@
 // slot-weight columns on the MXU because it has no fast scatter; here the
 // histogram is a scatter into shared memory.
 //
-// One kernel serves both passes of the grower:
-//   - full pass (perm == nullptr): rows 0..n_work-1, slot
-//     slot_of_leaf[leaf_id[r]], rows with slot < 0 skipped;
-//   - compacted pass (perm != nullptr): positions 0..n_work-1 are
-//     slot-grouped by slot_counts; the slot of position p is the first s
-//     with p < cumsum(slot_counts)[s] and its row is
-//     perm[p - cum_before[s] + slot_starts[s]] (slot_starts == nullptr:
-//     base 0). Each block loads its own row indices; there is no packed-row
-//     gather buffer.
+// Rows of a pass: slot-grouped positions 0..n_active-1 over a partition.
+// Slot s holds positions [cum[s-1], cum[s]) with cum the inclusive prefix
+// sum of slot_counts, and position p of slot s reads row
+// perm[p - cum[s-1] + slot_starts[s]] (slot_starts == nullptr: perm[p]).
+// The grower passes its leaf-contiguous partition on every wave, so a pass
+// reads only the pending leaves' rows; the wrapper derives such positions on
+// the device when the caller gives no partition.
 //
-// Design: grid (row blocks, F). A block owns one feature and one range of
-// rows and accumulates a shared-memory sub-histogram [S, B] of 64-bit g, 64-bit
-// h and 32-bit counts (S*B*20 bytes: 128,000 at S=25, B=256, hence the
-// dynamic shared memory opt-in above 48 KB). At the end the block adds its
-// non-zero bins into the global [S, F, B] integer accumulators, and a
-// second launch converts them into the [S, F, B, 3] f32 output. One pass
-// is three operations on the stream: a memset of the accumulators,
-// hist_kernel and finalize_kernel.
+// Arithmetic: g and h are added as 64-bit fixed-point integers,
+// q = __double2ll_rn(x * scale), with one power-of-two scale per tree chosen
+// by the wrapper so that n_rows * max|x| * scale < 2^62; counts are 32-bit.
+// Integer addition is associative, so the order in which atomics land does
+// not change a bit of the result: two launches are bit-identical and
+// training is bit-identical run to run. Error per bin against the exact f64
+// sum: |rows_in_bin| / (2 * scale) from the rounding of each q, plus half an
+// f32 ulp from the final conversion. The plain version in ops/histogram.py
+// does the same arithmetic, so the two agree bit for bit.
 //
-// Malformed input (a bin code >= B, a full-pass slot >= S, a compacted
-// position past the last segment) is not added and fails a device assert
-// at the end of the thread's rows, as PyTorch's own index kernels assert:
-// it is reported at the next synchronisation as a device-side assert,
-// never silently dropped. The plain version raises on the same inputs.
+// Bound at N = 2M rows, F = 28, S = 25, B = 256: every row read once is
+// N * (F code bytes + 12 bytes of g/h/inc + 4 bytes of perm), 88 MB, plus
+// the 2 MB output: about 27 us at 3.35 TB/s. The work is 1.7e8 (row,
+// feature, channel) additions, far below any operation bound, so the kernel
+// is bound by bytes in principle; in practice by its shared-memory atomics
+// on contiguous rows and by sector-wasting row gathers through perm
+// (PERF.md: copies of this file that each left out one cost, timed on the
+// card).
 //
-// Determinism: g and h are added as 64-bit fixed-point integers,
-// q = __double2ll_rn(x * scale), with one power-of-two scale per tree
-// chosen by the wrapper so that n_rows * max|x| * scale < 2^62. Integer
-// addition is associative, so the order in which atomics land does not
-// change a bit of the result: training is bit-identical run to run. Error
-// bound per bin against the exact f64 sum: |rows_in_bin| / (2 * scale) from
-// the rounding of each q, plus half an f32 ulp from the final conversion.
-// The plain version in ops/histogram.py does the same arithmetic, so the
-// two agree bit for bit.
+// Design, against each cost of the first version (grid row blocks x F, one
+// feature per block, shared memory for all S slots, 64-bit shared atomics):
+//   1. A block takes a contiguous run of positions and a group of fg
+//      features, all F when they fit: a sub-histogram [fg, B] of ONE slot,
+//      20 bytes a bin (143,360 at F = 28, B = 256, under the 232,448 bytes
+//      a block may opt into). The features that do not fit (large F, or
+//      B = 512 from uint16 codes) form further groups on the grid's y axis.
+//      A row's fg codes are read once, contiguously, as 32-bit words
+//      (seven for 28 uint8 codes; a row that does not start on a word is
+//      shifted into place), and its
+//      g, h and inc are read and quantised once per row and group, not once
+//      per feature.
+//   2. Block b takes positions [b * R, (b + 1) * R) and splits them where
+//      they cross a slot boundary, found from the per-slot prefix in shared
+//      memory once per range, not per row. At the end of each slot's range
+//      the block adds its non-zero bins into the global [S, F, B] integer
+//      accumulators and zeroes them. R comes from the host's plan
+//      (ops/cuda_histogram.py:plan_ranges), sized from n_active, which the
+//      grower reads on the host anyway: no added sync. A root wave (one
+//      slot) zeroes and flushes one slot's bins per block, not S.
+//   3. Lanes over rows: each thread adds whole rows, a loop over the
+//      features of its row, so that a row's adds are independent of each
+//      other. Lanes over features (a warp adding one staged row at a time,
+//      lane f taking feature f in a layout where no two lanes share a bank)
+//      measured 3.4x slower on the card and is not kept (PERF.md).
+//   4. No asynchronous copies: a two-stage cp.async ring (each thread
+//      copying its next row into shared memory while it adds the current
+//      one) gave the same bits but measured slower on every pass, and is
+//      not kept (PERF.md).
+//   5. No tensor cores: the TPU's one-hot contraction stands in for a
+//      scatter the TPU lacks, and the result here is an exact 64-bit
+//      fixed-point sum, which no tensor-core format accumulates (int8 MMA
+//      accumulates in int32).
+//   6. A pass is three operations on the stream: a memset of the
+//      accumulators, hist_kernel and finalize_kernel (integer sums to the
+//      [S, F, B, 3] f32 output).
 //
-// Bound at the slice's shapes (N = 2M rows, F = 28, S = 25, B = 256): the
-// full pass must read N*F bytes of codes plus N*16 bytes of g/h/inc/leaf id
-// once, about 88 MB, i.e. about 26 us at 3.35 TB/s; the output is 2 MB. The
-// design is memory-bound in principle but does not reach that bound: each
-// block re-reads g/h/inc/leaf id for its feature (F times in all, mostly
-// from L2) and reads its feature's code bytes at a stride of F. Its shared
-// memory atomics and the flush of S*B bins per block are the other costs.
-// Making it fast (TMA loads of row tiles, several features per block, a
-// warp-private sub-histogram) is later work.
+// Malformed input (a bin code >= B, a row index outside [0, N), positions
+// past the last slot's segment) is not added and fails a device assert at
+// the end of the thread's rows, as PyTorch's own index kernels assert: it is
+// reported at the next synchronisation as a device-side assert, never
+// silently dropped. The plain version raises on the same inputs.
 
 #include <assert.h>
 #include <cuda_runtime.h>
@@ -62,100 +87,188 @@ namespace {
 
 constexpr int kMaxSlots = 64;
 constexpr int kThreads = 1024;
+constexpr int kWordsPerLoad = 8;     // code words a thread loads at once
 
-// 1024 threads a block: __launch_bounds__ holds the kernel to 64 registers
-__global__ void __launch_bounds__(kThreads)
-hist_kernel(const uint8_t* __restrict__ codes,
-            int num_features,
+// A block's sub-histogram of one slot, feature-major (word f * B + bin):
+// for each (feature, bin), g and h as 64-bit integers held in two 32-bit
+// words each, and a 32-bit count. Hopper has no native 64-bit
+// shared-memory atomic add (nvcc emits a compare-and-swap loop,
+// ATOMS.CAST.SPIN.64), so a 64-bit add is a native 32-bit add of the low
+// word whose returned old value gives the carry, and a 32-bit add of the
+// high word plus that carry when it is not zero. The words wrap mod 2^32;
+// hi * 2^32 + lo is the exact sum mod 2^64, which is the sum itself, since
+// it fits in an int64.
+struct SubHist {
+  unsigned int* g_lo;
+  unsigned int* g_hi;
+  unsigned int* h_lo;
+  unsigned int* h_hi;
+  unsigned int* c;
+  int num_bins;
+
+  __device__ __forceinline__ static void add64(unsigned int* lo,
+                                               unsigned int* hi, int i,
+                                               unsigned long long q) {
+    const unsigned int q_lo = static_cast<unsigned int>(q);
+    const unsigned int old = atomicAdd(&lo[i], q_lo);
+    const unsigned int up =
+        static_cast<unsigned int>(q >> 32) + (old + q_lo < old ? 1u : 0u);
+    if (up != 0u) atomicAdd(&hi[i], up);
+  }
+
+  // adds one (feature, code) of a row; false for a code out of range
+  __device__ __forceinline__ bool add(int f, unsigned int code,
+                                      unsigned long long qg,
+                                      unsigned long long qh,
+                                      bool counted) const {
+    if (code >= static_cast<unsigned int>(num_bins)) return false;
+    const int i = f * num_bins + static_cast<int>(code);
+    add64(g_lo, g_hi, i, qg);
+    add64(h_lo, h_hi, i, qh);
+    if (counted) atomicAdd(&c[i], 1u);
+    return true;
+  }
+};
+
+// Adds the rows of positions [p0, p1) of one slot (row perm[q + base]),
+// lanes over rows: each thread adds whole rows, every feature of the group,
+// so that the adds of a row are independent of each other. A row's codes
+// are read as aligned 32-bit words, up to kWordsPerLoad at once. kAligned:
+// every row and group starts on a word (F * sizeof(CodeT) a multiple of 4).
+// Otherwise (e.g. 27 uint8 codes) the words around the row's codes are read
+// and shifted into place with a funnel shift (done for aligned rows too, it
+// made the 25-slot pass a quarter slower: PERF.md); the first and last words
+// may hold bytes of the neighbouring rows, which are not added, and an
+// aligned word that holds a byte of the tensor lies inside its allocation,
+// whose size the allocator rounds up to a multiple of 4 or more.
+template <typename CodeT, bool kAligned>
+__device__ __forceinline__ void add_rows(
+    const SubHist& sub, const CodeT* __restrict__ codes, long long num_rows,
+    int num_features, int f0, int fg,
+    const float* __restrict__ grad, const float* __restrict__ hess,
+    const float* __restrict__ inc, const int32_t* __restrict__ perm,
+    long long base, long long p0, long long p1, double scale_g,
+    double scale_h, bool& bad) {
+  constexpr int kPerWord = 4 / sizeof(CodeT);
+  constexpr unsigned int kMask = (1u << (8 * sizeof(CodeT))) - 1u;
+  const int nwords = (fg + kPerWord - 1) / kPerWord;  // words of codes
+  for (long long q = p0 + threadIdx.x; q < p1; q += blockDim.x) {
+    const long long row = perm[q + base];
+    if (row < 0 || row >= num_rows) {
+      bad = true;
+      continue;
+    }
+    const unsigned long long qg = static_cast<unsigned long long>(
+        __double2ll_rn(static_cast<double>(grad[row]) * scale_g));
+    const unsigned long long qh = static_cast<unsigned long long>(
+        __double2ll_rn(static_cast<double>(hess[row]) * scale_h));
+    const bool counted = inc[row] != 0.0f;
+    const uintptr_t at =
+        reinterpret_cast<uintptr_t>(codes + row * num_features + f0);
+    const unsigned int lead =
+        kAligned ? 0u : static_cast<unsigned int>(at & 3u);
+    const uint32_t* wp = reinterpret_cast<const uint32_t*>(at - lead);
+    // aligned words holding the group's codes
+    const int nload =
+        kAligned ? nwords
+                 : static_cast<int>((lead + fg * sizeof(CodeT) + 3u) / 4u);
+    for (int w0 = 0; w0 < nwords; w0 += kWordsPerLoad) {
+      uint32_t wv[kWordsPerLoad + 1];
+#pragma unroll
+      for (int k = 0; k < kWordsPerLoad + (kAligned ? 0 : 1); ++k)
+        wv[k] = w0 + k < nload ? __ldg(wp + w0 + k) : 0u;
+#pragma unroll
+      for (int k = 0; k < kWordsPerLoad; ++k) {
+        const uint32_t w =
+            kAligned ? wv[k] : __funnelshift_r(wv[k], wv[k + 1], 8u * lead);
+#pragma unroll
+        for (int j = 0; j < kPerWord; ++j) {
+          const int f = (w0 + k) * kPerWord + j;
+          if (f < fg &&
+              !sub.add(f, (w >> (8 * sizeof(CodeT) * j)) & kMask, qg, qh,
+                       counted))
+            bad = true;
+        }
+      }
+    }
+  }
+}
+
+// 1024 threads and one block an SM: __launch_bounds__ allows 64 registers
+template <typename CodeT, bool kAligned>
+__global__ void __launch_bounds__(kThreads, 1)
+hist_kernel(const CodeT* __restrict__ codes, long long num_rows,
+            int num_features, int group_features,
             const float* __restrict__ grad,
             const float* __restrict__ hess,
             const float* __restrict__ inc,
-            const int32_t* __restrict__ leaf_id,
-            const int32_t* __restrict__ slot_of_leaf,
             const int32_t* __restrict__ perm,
             const int32_t* __restrict__ slot_counts,
             const int32_t* __restrict__ slot_starts,
-            long long n_work, long long rows_per_block,
-            int num_slots, int num_bins,
-            double scale_g, double scale_h,
+            long long n_active, long long rows_per_block, int num_slots,
+            int num_bins, double scale_g, double scale_h,
             unsigned long long* __restrict__ acc_g,
             unsigned long long* __restrict__ acc_h,
             unsigned int* __restrict__ acc_c) {
-  extern __shared__ unsigned long long smem[];
-  const int SB = num_slots * num_bins;
-  unsigned long long* sg = smem;
-  unsigned long long* sh = smem + SB;
-  unsigned int* sc = reinterpret_cast<unsigned int*>(smem + 2 * SB);
-  __shared__ long long s_cum[kMaxSlots];
-  __shared__ long long s_base[kMaxSlots];
+  extern __shared__ unsigned int smem[];
+  const int f0 = blockIdx.y * group_features;
+  const int fg = min(group_features, num_features - f0);
+  const int GB = fg * num_bins;              // words of one array
+  const SubHist sub{smem,          smem + GB,     smem + 2 * GB,
+                    smem + 3 * GB, smem + 4 * GB, num_bins};
+  __shared__ long long s_cum[kMaxSlots];    // inclusive prefix of slot_counts
+  __shared__ long long s_base[kMaxSlots];   // perm index - position, per slot
 
-  const int f = blockIdx.y;
-  for (int i = threadIdx.x; i < SB; i += blockDim.x) {
-    sg[i] = 0ull;
-    sh[i] = 0ull;
-    sc[i] = 0u;
-  }
-  if (perm != nullptr && threadIdx.x == 0) {
+  for (int i = threadIdx.x; i < 5 * GB; i += blockDim.x) smem[i] = 0u;
+  if (threadIdx.x == 0) {
     long long cum = 0;
     for (int s = 0; s < num_slots; ++s) {
       const long long before = cum;
       cum += slot_counts[s];
       s_cum[s] = cum;
-      s_base[s] = (slot_starts != nullptr ? slot_starts[s] : 0) - before;
+      s_base[s] = slot_starts != nullptr ? slot_starts[s] - before : 0;
     }
   }
   __syncthreads();
 
   const long long start = static_cast<long long>(blockIdx.x) * rows_per_block;
-  long long end = start + rows_per_block;
-  if (end > n_work) end = n_work;
+  const long long end = min(start + rows_per_block, n_active);
   // set by malformed input; such a row is not added, and the thread fails
-  // the assert after the loop (an assert inside it costs a stack frame)
+  // the assert after its rows (an assert inside the loop costs a stack frame)
   bool bad = false;
-  for (long long p = start + threadIdx.x; p < end; p += blockDim.x) {
-    long long row;
-    int slot;
-    if (perm != nullptr) {
-      slot = 0;
-      while (slot < num_slots - 1 && p >= s_cum[slot]) ++slot;
-      if (p >= s_cum[num_slots - 1]) {  // n_active > sum(slot_counts)
-        bad = true;
-        continue;
-      }
-      row = perm[p + s_base[slot]];
-    } else {
-      row = p;
-      slot = slot_of_leaf[leaf_id[row]];
-      if (slot < 0) continue;
-      if (slot >= num_slots) {
-        bad = true;
-        continue;
-      }
-    }
-    const int code = codes[row * num_features + f];
-    if (code >= num_bins) {
+  int s = 0;
+  while (s < num_slots && s_cum[s] <= start) ++s;
+  // the range splits at slot boundaries; s, p and seg_end are block-uniform
+  for (long long p = start; p < end; ++s) {
+    if (s >= num_slots) {                // n_active > sum(slot_counts)
       bad = true;
-      continue;
+      break;
     }
-    const int bin = slot * num_bins + code;
-    const long long qg = __double2ll_rn(static_cast<double>(grad[row]) * scale_g);
-    const long long qh = __double2ll_rn(static_cast<double>(hess[row]) * scale_h);
-    atomicAdd(&sg[bin], static_cast<unsigned long long>(qg));
-    atomicAdd(&sh[bin], static_cast<unsigned long long>(qh));
-    if (inc[row] != 0.0f) atomicAdd(&sc[bin], 1u);
+    const long long seg_end = min(end, s_cum[s]);
+    if (seg_end <= p) continue;          // an empty slot
+    add_rows<CodeT, kAligned>(sub, codes, num_rows, num_features, f0, fg,
+                              grad, hess, inc, perm, s_base[s], p, seg_end,
+                              scale_g, scale_h, bad);
+    __syncthreads();
+    for (int i = threadIdx.x; i < GB; i += blockDim.x) {
+      const int f = i / num_bins;
+      const int b = i - f * num_bins;
+      const unsigned long long g =
+          (static_cast<unsigned long long>(sub.g_hi[i]) << 32) | sub.g_lo[i];
+      const unsigned long long h =
+          (static_cast<unsigned long long>(sub.h_hi[i]) << 32) | sub.h_lo[i];
+      const unsigned int c = sub.c[i];
+      sub.g_lo[i] = sub.g_hi[i] = sub.h_lo[i] = sub.h_hi[i] = sub.c[i] = 0u;
+      const long long o =
+          (static_cast<long long>(s) * num_features + f0 + f) * num_bins + b;
+      if (g != 0ull) atomicAdd(&acc_g[o], g);
+      if (h != 0ull) atomicAdd(&acc_h[o], h);
+      if (c != 0u) atomicAdd(&acc_c[o], c);
+    }
+    __syncthreads();
+    p = seg_end;
   }
   assert(!bad);
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < SB; i += blockDim.x) {
-    const int s = i / num_bins;
-    const int b = i - s * num_bins;
-    const long long o =
-        (static_cast<long long>(s) * num_features + f) * num_bins + b;
-    if (sg[i] != 0ull) atomicAdd(&acc_g[o], sg[i]);
-    if (sh[i] != 0ull) atomicAdd(&acc_h[o], sh[i]);
-    if (sc[i] != 0u) atomicAdd(&acc_c[o], sc[i]);
-  }
 }
 
 __global__ void finalize_kernel(const unsigned long long* __restrict__ acc_g,
@@ -173,71 +286,101 @@ __global__ void finalize_kernel(const unsigned long long* __restrict__ acc_g,
   out[3 * i + 2] = static_cast<float>(acc_c[i]);
 }
 
+template <typename CodeT, bool kAligned>
+cudaError_t launch(const void* codes, long long num_rows, int num_features,
+                   int group_features, const float* grad,
+                   const float* hess, const float* inc, const int32_t* perm,
+                   const int32_t* slot_counts, const int32_t* slot_starts,
+                   long long n_active, long long rows_per_block,
+                   int num_slots, int num_bins, double scale_g,
+                   double scale_h, unsigned long long* acc_g,
+                   unsigned long long* acc_h, unsigned int* acc_c,
+                   dim3 grid, long long smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      hist_kernel<CodeT, kAligned>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  hist_kernel<CodeT, kAligned><<<grid, kThreads, smem, stream>>>(
+      static_cast<const CodeT*>(codes), num_rows, num_features,
+      group_features, grad, hess, inc, perm, slot_counts,
+      slot_starts, n_active, rows_per_block, num_slots, num_bins, scale_g,
+      scale_h, acc_g, acc_h, acc_c);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory bytes one block needs for S slots and B bins.
-long long gbdt_hist_smem_bytes(int num_slots, int num_bins) {
-  return static_cast<long long>(num_slots) * num_bins *
-         (2 * sizeof(unsigned long long) + sizeof(unsigned int));
+// Dynamic shared memory bytes of one block: a [group_features, B]
+// sub-histogram, 20 bytes a bin.
+long long gbdt_hist_smem_bytes(int group_features, int num_bins) {
+  return 20LL * group_features * num_bins;
 }
 
 // Bytes of the scratch gbdt_hist_build takes: the [S, F, B] accumulators
 // of g (u64), h (u64) and counts (u32), in that order.
 long long gbdt_hist_scratch_bytes(int num_slots, int num_features,
                                   int num_bins) {
-  return static_cast<long long>(num_features) *
-         gbdt_hist_smem_bytes(num_slots, num_bins);
+  return static_cast<long long>(num_slots) *
+         gbdt_hist_smem_bytes(num_features, num_bins);
 }
 
 int gbdt_hist_max_slots() { return kMaxSlots; }
 
-// Builds hist[S, F, B, 3] (f32) on `stream`: zeroes `scratch`
-// (gbdt_hist_scratch_bytes), then launches hist_kernel and finalize_kernel.
-// Returns cudaGetLastError() after the launches (0 = cudaSuccess).
-int gbdt_hist_build(const uint8_t* codes, int num_features,
-                    const float* grad, const float* hess, const float* inc,
-                    const int32_t* leaf_id, const int32_t* slot_of_leaf,
-                    const int32_t* perm, const int32_t* slot_counts,
-                    const int32_t* slot_starts, long long n_work,
-                    int num_slots, int num_bins, double scale_g,
-                    double scale_h, void* scratch, float* out,
-                    void* stream_ptr) {
+int gbdt_hist_threads() { return kThreads; }
+
+// Builds hist[S, F, B, 3] (f32) on `stream` from the slot-grouped positions
+// [0, n_active) of `perm`: zeroes `scratch` (gbdt_hist_scratch_bytes), then
+// launches hist_kernel on a (blocks_x, ceil(F / group_features)) grid, block
+// b taking positions [b * rows_per_block, (b + 1) * rows_per_block) (the
+// wrapper's plan, ops/cuda_histogram.py:plan_ranges), and finalize_kernel.
+// code_bytes is 1 (uint8 codes) or 2 (uint16 codes, which may be stored as
+// int16: every code the kernel accepts is below 2^15).
+// Returns cudaGetLastError() after the launches (0 = cudaSuccess), or
+// cudaErrorInvalidValue for arguments the kernel does not take.
+int gbdt_hist_build(const void* codes, int code_bytes, long long num_rows,
+                    int num_features, const float* grad, const float* hess,
+                    const float* inc, const int32_t* perm,
+                    const int32_t* slot_counts, const int32_t* slot_starts,
+                    long long n_active, int num_slots, int num_bins,
+                    int group_features, int blocks_x,
+                    long long rows_per_block, double scale_g, double scale_h,
+                    void* scratch, float* out, void* stream_ptr) {
+  if ((code_bytes != 1 && code_bytes != 2) || num_slots < 1 ||
+      num_slots > kMaxSlots || group_features < 1 ||
+      group_features > num_features || num_bins < 1 || blocks_x < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const long long smem = gbdt_hist_smem_bytes(num_slots, num_bins);
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n = static_cast<long long>(num_slots) * num_features * num_bins;
+  const long long n =
+      static_cast<long long>(num_slots) * num_features * num_bins;
   unsigned long long* acc_g = static_cast<unsigned long long*>(scratch);
   unsigned long long* acc_h = acc_g + n;
   unsigned int* acc_c = reinterpret_cast<unsigned int*>(acc_h + n);
-  err = cudaMemsetAsync(scratch, 0,
-                        gbdt_hist_scratch_bytes(num_slots, num_features,
-                                                num_bins), stream);
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, gbdt_hist_scratch_bytes(num_slots, num_features, num_bins),
+      stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  int device = 0, sms = 132;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  // about two resident waves of blocks (one block per SM at this shared
-  // memory size), with at least 4096 rows per block
-  long long blocks_x = (2LL * sms + num_features - 1) / num_features;
-  const long long by_rows = (n_work + 4095) / 4096;
-  if (blocks_x > by_rows) blocks_x = by_rows;
-  if (blocks_x < 1) blocks_x = 1;
-  const long long rows_per_block = (n_work + blocks_x - 1) / blocks_x;
-
-  if (n_work > 0) {
-    dim3 grid(static_cast<unsigned int>(blocks_x),
-              static_cast<unsigned int>(num_features));
-    hist_kernel<<<grid, kThreads, smem, stream>>>(
-        codes, num_features, grad, hess, inc, leaf_id, slot_of_leaf, perm,
-        slot_counts, slot_starts, n_work, rows_per_block, num_slots,
-        num_bins, scale_g, scale_h, acc_g, acc_h, acc_c);
-    err = cudaGetLastError();
+  if (n_active > 0 && blocks_x > 0) {
+    const int groups = (num_features + group_features - 1) / group_features;
+    const dim3 grid(static_cast<unsigned int>(blocks_x),
+                    static_cast<unsigned int>(groups));
+    const long long smem = gbdt_hist_smem_bytes(group_features, num_bins);
+    // whole 32-bit words per row and per group start
+    const bool aligned =
+        reinterpret_cast<uintptr_t>(codes) % 4 == 0 &&
+        (static_cast<long long>(num_features) * code_bytes) % 4 == 0 &&
+        (static_cast<long long>(group_features) * code_bytes) % 4 == 0;
+    auto* fn = code_bytes == 1
+                   ? (aligned ? launch<uint8_t, true> : launch<uint8_t, false>)
+                   : (aligned ? launch<uint16_t, true>
+                              : launch<uint16_t, false>);
+    err = fn(codes, num_rows, num_features, group_features, grad, hess, inc,
+             perm, slot_counts, slot_starts, n_active, rows_per_block,
+             num_slots, num_bins, scale_g, scale_h, acc_g, acc_h, acc_c, grid,
+             smem, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int threads = 256;

@@ -3,12 +3,12 @@
 Reference counterpart: include/LightGBM/dataset.h:280 (Dataset),
 dataset.h:36-248 (Metadata), src/io/dataset_loader.cpp (construction flow).
 
-The whole training matrix becomes ONE dense ``uint8 [num_data,
-num_features]`` code matrix, binned on the host feature by feature through
-the copied :mod:`binning` mappers, and moved to the device once by the
-booster. Left out of this slice (they raise): sparse input, categorical
-features, ``uint16`` codes (``max_bin`` above 255), deferred device ingest
-and EFB.
+The whole training matrix becomes ONE dense ``[num_data, num_features]``
+code matrix — ``uint8``, or ``uint16`` when a feature has more than 256
+bins, as the JAX package picks (``lightgbm_tpu/dataset.py:504``) — binned on
+the host feature by feature through the copied :mod:`binning` mappers, and
+moved to the device once by the booster. Left out of this slice (they
+raise): sparse input, categorical features, deferred device ingest and EFB.
 """
 from __future__ import annotations
 
@@ -69,7 +69,8 @@ class FeatureInfo:
 class ConstructedDataset:
     """The binned dataset (reference Dataset, dataset.h:280).
 
-    ``X_binned`` is the ``uint8 [num_data, num_features]`` code matrix of
+    ``X_binned`` is the ``uint8`` (or ``uint16``) ``[num_data,
+    num_features]`` code matrix of
     the used (non-trivial) features; ``mappers`` holds one BinMapper per
     used feature and ``real_feature_idx`` maps a used feature back to its
     raw column (reference dataset.h:552)."""
@@ -197,13 +198,13 @@ def construct_dataset(
         Log.warning("There are no meaningful features, as all feature "
                     "values are constant.")
     assert all(f.mapper.bin_type != BIN_CATEGORICAL for f in features)
-    if any(f.mapper.num_bin > 256 for f in features):
-        Log.fatal("max_bin=%d needs uint16 bin codes, which are not ported "
-                  "to lightgbm_tpu_torch yet (ROADMAP B1)", config.max_bin)
+    dtype = (np.uint8 if all(f.mapper.num_bin <= 256 for f in features)
+             else np.uint16)
 
     X_binned = bin_dense_host(
         data, [f.mapper for f in features],
-        np.array([f.real_index for f in features], np.int64), num_data)
+        np.array([f.real_index for f in features], np.int64), num_data,
+        dtype)
 
     metadata = Metadata(num_data)
     if label is not None:
@@ -215,12 +216,12 @@ def construct_dataset(
 
 
 def bin_dense_host(data: np.ndarray, mappers, real_indices: np.ndarray,
-                   num_data: int) -> np.ndarray:
+                   num_data: int, dtype=np.uint8) -> np.ndarray:
     """Dense host binning: one ``value_to_bin`` pass per column, written
-    straight into the uint8 output (``out=``), on a thread pool for large
-    matrices (numpy releases the GIL in the heavy passes)."""
+    straight into the ``dtype`` output (``out=``), on a thread pool for
+    large matrices (numpy releases the GIL in the heavy passes)."""
     F = max(len(real_indices), 1)
-    X_binned = np.zeros((num_data, F), dtype=np.uint8)
+    X_binned = np.zeros((num_data, F), dtype=dtype)
     big = num_data * F > 8_000_000
 
     def _bin_column(inner: int):

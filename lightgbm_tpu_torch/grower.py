@@ -11,9 +11,10 @@ covers, and the splits the wave applied). Each wave:
 
 1. gives every leaf that needs a histogram a slot, in ascending leaf order;
 2. builds the pending slots' histograms in one pass of the hand-written
-   kernel (``ops/cuda_histogram.py``) — a full pass over all rows, or, once
-   fewer than ``compact_frac`` of the rows are pending, a compacted pass
-   over the pending leaves' segments of the carried partition ``perm``;
+   kernel (``ops/cuda_histogram.py``) over the pending leaves' segments of
+   the carried partition ``perm``: on the card on every wave, on the CPU
+   (as in the JAX package, which avoids row gathers on a TPU) once fewer
+   than ``compact_frac`` of the rows are pending, a full pass before;
 3. derives each sibling's histogram by parent-minus-smaller-child
    subtraction from the ``[L+1, F, B, 3]`` cache (serial_tree_learner.cpp
    :354-362);
@@ -111,8 +112,9 @@ class GrowerSpec:
     min_data_in_leaf: float
     min_sum_hessian_in_leaf: float
     min_gain_to_split: float
-    row_compact: bool = True      # compacted passes over pending segments
-    compact_frac: float = 0.25    # ...when fewer than this share is pending
+    row_compact: bool = True      # passes over the pending segments
+    compact_frac: float = 0.25    # ...on the CPU, when fewer than this
+                                  # share is pending (always on the card)
 
     def hyperparams(self) -> Dict[str, float]:
         return dict(lambda_l1=self.lambda_l1, lambda_l2=self.lambda_l2,
@@ -354,7 +356,7 @@ def _partition(state: GrowState, f_row, go_left, right_row, p, q,
 
 
 def grow_tree(
-    X: torch.Tensor,              # [N, F] uint8 bin codes
+    X: torch.Tensor,              # [N, F] uint8 codes, or uint16 as int16
     grad: torch.Tensor,           # [N] f32
     hess: torch.Tensor,           # [N] f32
     included: torch.Tensor,       # [N] f32 0/1
@@ -426,8 +428,11 @@ def grow_tree(
         # ---- 2. one pass builds the S histograms ------------------------
         with record_function("wave.histogram"):
             slot_counts = state.seg_rows[leaf_of_slot]          # [S]
-            n_active = int(slot_counts.sum())   # host sync: pass choice
-            if spec.row_compact and n_active < compact_rows:
+            n_active = int(slot_counts.sum())   # host sync: pass size
+            # on the card the partition pass reads only the pending rows and
+            # is never more work; on the CPU the JAX package's choice stays
+            if spec.row_compact and (dev.type == "cuda"
+                                     or n_active < compact_rows):
                 new_hist = build_histograms_cuda(
                     X_hist, grad, hess, included, state.leaf_id,
                     slot_of_leaf, S, B, row_idx=state.perm,

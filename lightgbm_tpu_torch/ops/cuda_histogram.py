@@ -1,12 +1,13 @@
 """Wrapper of the hand-written Hopper histogram kernel (``csrc/histogram.cu``).
 
-Port of ``lightgbm_tpu/ops/pallas_histogram.py`` (kernel B1): one kernel
-serves the grower's full pass (each row's slot from
-``slot_of_leaf[leaf_id[r]]``) and its compacted pass (rows read through the
-incremental partition ``perm`` with the per-slot segment tables). The
-source note in ``csrc/histogram.cu`` states the arithmetic, its error
-bound, the memory bound at the slice's shapes and what the design does
-about it.
+Port of ``lightgbm_tpu/ops/pallas_histogram.py`` (kernel B1). The kernel
+reads the slot-grouped positions ``[0, n_active)`` of a partition: the
+grower passes its leaf-contiguous partition ``perm`` with the per-slot
+segment tables on every wave; a call without a partition (``row_idx`` None)
+gets such positions derived on the device by
+:func:`ops.histogram.pass_positions` (one host sync). The source note in
+``csrc/histogram.cu`` states the arithmetic, its error bound, the bound at
+the slice's shapes and what the design does about each cost.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles the source
 into a shared library with a plain C interface at first use, into
@@ -19,6 +20,12 @@ it never falls back. ``build_histograms_cuda.launches`` counts passes
 launched on the card, one per call (plain calls are not counted); each pass
 puts three operations on the stream: a memset of the integer accumulators,
 ``hist_kernel`` and ``finalize_kernel``.
+
+Codes: ``uint8``, or ``int16`` holding ``uint16`` codes (``max_bin`` above
+255; the dataset stores ``uint16`` on the host as the JAX package does, and
+the booster views it as ``int16`` on the card, where PyTorch indexes
+``int16`` but not ``uint16``). Every code the kernel takes is below
+:data:`MAX_BINS`, far below ``2**15``, so both readings agree.
 
 Malformed input (a bin code at or above ``num_bins_padded``, a slot at or
 above ``num_slots``, ``n_active`` past the compacted segments) makes the
@@ -34,11 +41,11 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .histogram import build_histograms, histogram_scales
+from .histogram import build_histograms, histogram_scales, pass_positions
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "histogram.cu")
@@ -46,7 +53,22 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
+# Hopper's shared memory: a block may opt into 232,448 bytes; this leaves
+# 2 KB of it for the kernel's static segment tables (1 KB). An SM has
+# 233,472 bytes and 2048 threads; the runtime reserves 1 KB per block.
+SMEM_BLOCK_LIMIT = 232448 - 2048
+SMEM_PER_SM = 233472
+THREADS_PER_SM = 2048
+BLOCK_THREADS = 1024               # kThreads of the source
+BYTES_PER_BIN = 20                 # 64-bit g and h, 32-bit count (SubHist)
+# the largest padded bin count whose histogram of one feature fits a block
+MAX_BINS = SMEM_BLOCK_LIMIT // BYTES_PER_BIN // 8 * 8
+# the fewest positions a block takes: its fixed cost is zeroing and
+# flushing its sub-histogram
+MIN_ROWS_PER_BLOCK = 2048
+
 _lib = None            # the loaded ctypes library, once built
+_num_sms = {}          # device index -> multiprocessor count
 
 
 def find_nvcc() -> str:
@@ -103,29 +125,87 @@ def _library():
         p, i, ll, d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_double)
         lib.gbdt_hist_build.argtypes = [
-            p, i, p, p, p, p, p, p, p, p, ll, i, i, d, d, p, p, p]
+            p, i, ll, i, p, p, p, p, p, p, ll, i, i, i, i, ll, d, d, p, p, p]
         lib.gbdt_hist_build.restype = i
-        lib.gbdt_hist_smem_bytes.argtypes = [i, i]
-        lib.gbdt_hist_smem_bytes.restype = ll
         lib.gbdt_hist_scratch_bytes.argtypes = [i, i, i]
         lib.gbdt_hist_scratch_bytes.restype = ll
         lib.gbdt_hist_max_slots.argtypes = []
         lib.gbdt_hist_max_slots.restype = i
+        lib.gbdt_hist_threads.argtypes = []
+        lib.gbdt_hist_threads.restype = i
+        if lib.gbdt_hist_threads() != BLOCK_THREADS:
+            raise RuntimeError("csrc/histogram.cu's block size differs from "
+                               "BLOCK_THREADS")
         _lib = lib
     return _lib
 
 
-# shared memory one block may use on Hopper (232,448 bytes, less the
-# kernel's static segment tables)
-_SMEM_LIMIT = 232448 - 1024
+class HistPlan(NamedTuple):
+    """Launch plan of one pass (see :func:`plan_ranges`)."""
+    group_features: int     # features per block (grid y: feature groups)
+    groups: int
+    smem: int               # dynamic shared memory bytes of a block
+    blocks: int             # grid x
+    rows_per_block: int     # block b takes positions [b*R, (b+1)*R)
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape=None,
-           dtype_hint: str = "") -> None:
+def feature_groups(num_features: int, num_bins: int,
+                   code_bytes: int = 1) -> Tuple[int, int]:
+    """``(group_features, groups)``: the fewest balanced feature groups
+    whose ``[group_features, B]`` sub-histogram fits a block's shared
+    memory, a group whole 32-bit words of codes where that costs no group.
+    Raises ``ValueError`` when one feature does not fit."""
+    per_feature = num_bins * BYTES_PER_BIN
+    fg_max = SMEM_BLOCK_LIMIT // per_feature
+    if fg_max < 1:
+        raise ValueError(
+            f"num_bins_padded={num_bins}: one feature's histogram needs "
+            f"{per_feature} bytes of shared memory, above the "
+            f"{SMEM_BLOCK_LIMIT} a block may use (at most {MAX_BINS} bins)")
+    groups = -(-num_features // fg_max)
+    fg = -(-num_features // groups)
+    per_word = 4 // code_bytes
+    if groups > 1 and -(-fg // per_word) * per_word <= fg_max:
+        fg = -(-fg // per_word) * per_word
+    return fg, -(-num_features // fg)
+
+
+def plan_ranges(n_active: int, num_features: int, num_bins: int,
+                code_bytes: int, num_sms: int) -> HistPlan:
+    """The kernel's grid for a pass over ``n_active`` slot-grouped
+    positions.
+
+    Grid: feature groups on y; on x, ``min(ceil(k * num_sms / groups),
+    ceil(n_active / MIN_ROWS_PER_BLOCK))`` blocks of equal runs of
+    positions, ``k`` the blocks an SM holds at this shared memory size (no
+    blocks when ``n_active`` is 0). ``hist_kernel`` splits each block's run
+    where it crosses a slot boundary, from the slot counts on the card."""
+    fg, groups = feature_groups(num_features, num_bins, code_bytes)
+    smem = fg * num_bins * BYTES_PER_BIN
+    per_sm = max(1, min(THREADS_PER_SM // BLOCK_THREADS,
+                        SMEM_PER_SM // (smem + 2048)))
+    cap = max(1, -(-per_sm * num_sms // groups))
+    n_active = int(n_active)
+    blocks = min(cap, -(-n_active // MIN_ROWS_PER_BLOCK))
+    rows = -(-n_active // blocks) if blocks else 0
+    blocks = -(-n_active // rows) if rows else 0
+    return HistPlan(fg, groups, smem, blocks, rows)
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _num_sms:
+        _num_sms[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _num_sms[idx]
+
+
+def _check(name: str, t: torch.Tensor, dtypes, shape=None) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}{dtype_hint}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, "
+                        f"got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
@@ -134,7 +214,7 @@ def _check(name: str, t: torch.Tensor, dtype, shape=None,
 
 
 def build_histograms_cuda(
-    X: torch.Tensor,            # [N, F] uint8 bin codes
+    X: torch.Tensor,            # [N, F] uint8 codes, or uint16 ones as int16
     grad: torch.Tensor,         # [N] f32
     hess: torch.Tensor,         # [N] f32
     included: torch.Tensor,     # [N] f32 0/1
@@ -142,7 +222,7 @@ def build_histograms_cuda(
     slot_of_leaf: torch.Tensor,  # [L+1] i32, -1 = not pending
     num_slots: int,
     num_bins_padded: int,
-    row_idx: Optional[torch.Tensor] = None,    # [N] i32 partition (compacted)
+    row_idx: Optional[torch.Tensor] = None,    # [N] i32 partition
     n_active: Optional[int] = None,
     slot_counts: Optional[torch.Tensor] = None,   # [S] i32
     slot_starts: Optional[torch.Tensor] = None,   # [S] i32
@@ -159,34 +239,31 @@ def build_histograms_cuda(
                                 slot_starts=slot_starts, scales=scales)
     N, F = X.shape
     S, B = int(num_slots), int(num_bins_padded)
-    _check("X", X, torch.uint8, dtype_hint=" (uint16 bin codes are not "
-           "ported to the histogram kernel yet: ROADMAP B1)")
+    _check("X", X, (torch.uint8, torch.int16))
     for name, t in (("grad", grad), ("hess", hess), ("included", included)):
-        _check(name, t, torch.float32, (N,))
-    _check("leaf_id", leaf_id, torch.int32, (N,))
-    _check("slot_of_leaf", slot_of_leaf, torch.int32)
+        _check(name, t, (torch.float32,), (N,))
+    _check("leaf_id", leaf_id, (torch.int32,), (N,))
+    _check("slot_of_leaf", slot_of_leaf, (torch.int32,))
     lib = _library()
     if S > lib.gbdt_hist_max_slots():
         raise ValueError(f"num_slots={S} exceeds the kernel's "
                          f"{lib.gbdt_hist_max_slots()}")
-    smem = lib.gbdt_hist_smem_bytes(S, B)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"S={S} x B={B} needs {smem} bytes of shared "
-                         f"memory per block, above {_SMEM_LIMIT}")
-    compact = row_idx is not None
-    if compact:
+    if row_idx is not None:
         if slot_counts is None or n_active is None:
             raise ValueError("a compacted pass needs slot_counts and n_active")
-        _check("row_idx", row_idx, torch.int32, (N,))
-        _check("slot_counts", slot_counts, torch.int32, (S,))
+        _check("row_idx", row_idx, (torch.int32,), (N,))
+        _check("slot_counts", slot_counts, (torch.int32,), (S,))
         if slot_starts is not None:
-            _check("slot_starts", slot_starts, torch.int32, (S,))
-        n_work = int(n_active)
+            _check("slot_starts", slot_starts, (torch.int32,), (S,))
     else:
-        n_work = N
+        row_idx, slot_counts, n_active = pass_positions(leaf_id,
+                                                        slot_of_leaf, S)
+        slot_starts = None
+    cb = X.element_size()
+    dev = X.device
+    plan = plan_ranges(n_active, F, B, cb, _sm_count(dev))
     if scales is None:
         scales = histogram_scales(grad, hess)
-    dev = X.device
     # the kernel's integer accumulators; the C entry zeroes them on the stream
     scratch = torch.empty(lib.gbdt_hist_scratch_bytes(S, F, B),
                           dtype=torch.uint8, device=dev)
@@ -198,12 +275,10 @@ def build_histograms_cuda(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gbdt_hist_build(
-            ptr(X), F, ptr(grad), ptr(hess), ptr(included),
-            ptr(leaf_id), ptr(slot_of_leaf),
-            ptr(row_idx) if compact else None,
-            ptr(slot_counts) if compact else None,
-            ptr(slot_starts) if compact else None,
-            n_work, S, B, float(scales[0]), float(scales[1]),
+            ptr(X), cb, N, F, ptr(grad), ptr(hess), ptr(included),
+            ptr(row_idx), ptr(slot_counts), ptr(slot_starts), int(n_active),
+            S, B, plan.group_features, plan.blocks, plan.rows_per_block,
+            float(scales[0]), float(scales[1]),
             ptr(scratch), ptr(out), stream)
     if err != 0:
         raise RuntimeError(f"histogram kernel launch failed: CUDA error {err}")

@@ -118,8 +118,24 @@ def pass_rows(leaf_id: torch.Tensor, slot_of_leaf: torch.Tensor,
     return row_idx[src].long(), slot
 
 
+def pass_positions(leaf_id: torch.Tensor, slot_of_leaf: torch.Tensor,
+                   num_slots: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Slot-grouped positions of a pass given without a partition:
+    ``(perm, slot_counts, n_active)``, ``perm`` holding the pending rows
+    slot by slot, ascending inside each slot — what the grower's partition
+    gives, derived on the rows' device (one host sync, for ``n_active``).
+    A slot at or above ``num_slots`` sorts past the last segment, where the
+    kernel and :func:`pass_rows` refuse it."""
+    slot = slot_of_leaf[leaf_id.long()]
+    rows = torch.nonzero(slot >= 0).flatten()
+    key = slot[rows].long()
+    perm = rows[torch.sort(key, stable=True).indices].to(torch.int32)
+    counts = torch.bincount(key, minlength=num_slots)[:num_slots]
+    return perm, counts.to(torch.int32), int(rows.numel())
+
+
 def build_histograms(
-    X: torch.Tensor,            # [N, F] uint8 bin codes
+    X: torch.Tensor,            # [N, F] uint8 codes, or uint16 ones as int16
     grad: torch.Tensor,         # [N] f32
     hess: torch.Tensor,         # [N] f32
     included: torch.Tensor,     # [N] f32 0/1: count channel mask
@@ -150,9 +166,10 @@ def build_histograms(
     if rows.numel() and int(slot.max()) >= S:
         raise ValueError(f"slot {int(slot.max())} >= num_slots={S} (or "
                          f"n_active past the compacted segments)")
-    if rows.numel() and int(codes.max()) >= B:
+    # an int16 code below 0 is a uint16 code of 2**15 or more
+    if rows.numel() and (int(codes.max()) >= B or int(codes.min()) < 0):
         raise ValueError(f"bin code {int(codes.max())} >= "
-                         f"num_bins_padded={B}")
+                         f"num_bins_padded={B} (or a uint16 code >= 2**15)")
     feat = torch.arange(F, device=X.device)
     flat = ((slot[:, None] * F + feat[None, :]) * B + codes).reshape(-1)
     qg = torch.round(grad[rows].double() * scales[0]).long()

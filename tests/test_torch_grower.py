@@ -27,21 +27,21 @@ from lightgbm_tpu_torch.interop import (binned_dataset, to_numpy, to_torch,
 N, F, L = 2048, 6, 31
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, max_bin=63):
     rng = np.random.RandomState(seed)
     X = rng.rand(N, F)
     X[rng.rand(N) < 0.2, 1] = np.nan
     X[rng.rand(N) < 0.1, 4] = np.nan
     X[:, 5] = np.round(X[:, 5] * 4)                 # few distinct values
-    cd = construct_dataset(X, None, Config(max_bin=63, verbose=-1))
+    cd = construct_dataset(X, None, Config(max_bin=max_bin, verbose=-1))
     data = binned_dataset(cd)
     g = (rng.randint(-128, 128, N) / 256.0).astype(np.float32)
     h = (rng.randint(1, 64, N) / 256.0).astype(np.float32)
     return data, g, h
 
 
-def _grow_both(wave_size, compact_frac, seed=0, max_depth=-1):
-    data, g, h = _inputs(seed)
+def _grow_both(wave_size, compact_frac, seed=0, max_depth=-1, max_bin=63):
+    data, g, h = _inputs(seed, max_bin)
     B = int(max(8, -(-data["num_bins"].max() // 8) * 8))
     S = min(25, L - 1)
     common = dict(num_leaves=L, num_features=F, num_bins_padded=B,
@@ -58,8 +58,11 @@ def _grow_both(wave_size, compact_frac, seed=0, max_depth=-1):
         jnp.asarray(inc), jnp.asarray(ok), jnp.asarray(cat),
         *[jnp.asarray(m) for m in meta],
         JaxSpec(chunk_rows=512, **common))
+    codes = data["X_binned"]
+    if codes.dtype == np.uint16:
+        codes = codes.view(np.int16)        # the booster's device form
     tt, tleaf = grow_tree(
-        to_torch(data["X_binned"]), to_torch(g), to_torch(h), to_torch(inc),
+        to_torch(codes), to_torch(g), to_torch(h), to_torch(inc),
         to_torch(ok), to_torch(cat), *[to_torch(m) for m in meta],
         GrowerSpec(**common))
     return jt, jleaf, tt, tleaf
@@ -84,6 +87,27 @@ def test_grow_tree_matches_jax_bitwise(wave_size, compact_frac):
             to_numpy(getattr(tt, name))[:L], np.asarray(getattr(jt, name))[:L],
             err_msg=name)
     np.testing.assert_array_equal(to_numpy(tleaf), np.asarray(jleaf))
+
+
+@pytest.mark.parametrize("compact_frac", [0.25, 1.0])
+def test_grow_tree_uint16_codes_match_jax_bitwise(compact_frac):
+    """max_bin 511: uint16 codes, B = 512 through the histogram, the split
+    scan and the routing, unchanged; bit-equal to JAX as above."""
+    data, _, _ = _inputs(seed=2, max_bin=511)
+    assert data["X_binned"].dtype == np.uint16
+    assert data["num_bins"].max() > 256
+    jt, jleaf, tt, tleaf = _grow_both(0, compact_frac, seed=2, max_bin=511)
+    nl = int(jt.num_leaves)
+    assert int(tt.num_leaves) == nl > 10
+    for name in ("split_feature", "threshold_bin", "default_left",
+                 "split_gain", "internal_value"):
+        np.testing.assert_array_equal(
+            to_numpy(getattr(tt, name))[:L - 1],
+            np.asarray(getattr(jt, name))[:L - 1], err_msg=name)
+    np.testing.assert_array_equal(to_numpy(tt.leaf_value)[:L],
+                                  np.asarray(jt.leaf_value)[:L])
+    np.testing.assert_array_equal(to_numpy(tleaf), np.asarray(jleaf))
+    assert int(to_numpy(tt.threshold_bin)[:nl - 1].max()) > 0
 
 
 def test_grow_tree_max_depth_matches_jax():

@@ -12,9 +12,15 @@ Tolerances:
   1e-12 here), so the bound is 2^-16 relative to the bin's sum of |x| plus
   1e-6 absolute (observed: a quarter of that);
 - counts are always exact.
-The kernel itself (CUDA tensors) is held against this plain version on the
-card by ``chip_smoke.py``; on CPU tensors the wrapper runs the plain version
-and counts no launch.
+``uint16`` codes (``max_bin`` above 255) go to the port as ``int16`` (the
+booster's device form) and to the JAX package as ``uint16``, with the same
+bars. The kernel's launch plan (``plan_ranges``, with the walk
+``hist_kernel`` makes over it written out here as ``_kernel_ranges``) and
+the positions the wrapper derives for a call without a partition
+(``pass_positions``) are plain Python and torch, checked here. The kernel
+itself (CUDA tensors) is held against this plain version on the card by
+``chip_smoke.py``; on CPU tensors the wrapper runs the plain version and
+counts no launch.
 """
 import math
 
@@ -27,10 +33,13 @@ import jax.numpy as jnp
 from lightgbm_tpu.ops import pallas_histogram as ph
 from lightgbm_tpu.ops.histogram import build_histograms as jax_hist
 from lightgbm_tpu_torch.interop import to_torch
-from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+from lightgbm_tpu_torch.ops.cuda_histogram import (MAX_BINS, SMEM_BLOCK_LIMIT,
+                                                   build_histograms_cuda,
+                                                   feature_groups, plan_ranges)
 from lightgbm_tpu_torch.ops.histogram import (build_histograms,
                                               fixed_point_scale,
-                                              histogram_scales, root_sums)
+                                              histogram_scales, pass_positions,
+                                              root_sums)
 
 N, F, B, S, LEAVES = 4096, 6, 32, 4, 9
 
@@ -40,9 +49,10 @@ def _interpret_mode(monkeypatch):
     monkeypatch.setattr(ph, "_INTERPRET", True)
 
 
-def _data(seed=0, quantised=True):
+def _data(seed=0, quantised=True, num_bins=B):
     rng = np.random.RandomState(seed)
-    X = rng.randint(0, B, size=(N, F)).astype(np.uint8)
+    X = rng.randint(0, num_bins, size=(N, F)).astype(
+        np.uint8 if num_bins <= 256 else np.uint16)
     if quantised:
         g = (rng.randint(-255, 256, N) / 256.0).astype(np.float32)
         h = (rng.randint(0, 256, N) / 256.0).astype(np.float32)
@@ -74,19 +84,21 @@ def _partition(leaf_id, pending):
     return perm, slot_counts, slot_starts
 
 
-def _port(X, g, h, inc, leaf_id, sol, **kw):
+def _port(X, g, h, inc, leaf_id, sol, num_bins=B, **kw):
     t = {k: to_torch(v) for k, v in kw.items() if not np.isscalar(v)}
     t.update({k: v for k, v in kw.items() if np.isscalar(v)})
+    if X.dtype == np.uint16:
+        X = X.view(np.int16)                # the booster's device form
     return build_histograms(to_torch(X), to_torch(g), to_torch(h),
                             to_torch(inc), to_torch(leaf_id), to_torch(sol),
-                            S, B, **t).numpy()
+                            S, num_bins, **t).numpy()
 
 
-def _jax(fn, X, g, h, inc, leaf_id, sol, **kw):
+def _jax(fn, X, g, h, inc, leaf_id, sol, num_bins=B, **kw):
     args = [jnp.asarray(a) for a in (X, g, h, inc, leaf_id, sol)]
     kw = {k: (v if k == "max_rows" else jnp.asarray(v))
           for k, v in kw.items()}
-    return np.asarray(fn(*args, num_slots=S, num_bins_padded=B,
+    return np.asarray(fn(*args, num_slots=S, num_bins_padded=num_bins,
                          chunk_rows=1024, **kw))
 
 
@@ -145,6 +157,175 @@ def test_arbitrary_floats_within_hilo_tolerance(compacted):
                                        atol=1e-9)
 
 
+B16 = 512                        # max_bin 511: uint16 codes
+
+
+@pytest.mark.parametrize("compacted", [False, True])
+def test_uint16_codes_bit_equal_to_jax_and_pallas(compacted):
+    X, g, h, inc, leaf_id = _data(seed=30 + compacted, num_bins=B16)
+    assert X.dtype == np.uint16 and X.max() >= 256
+    pending = (1, 4, 6)
+    sol = _slot_of_leaf(pending)
+    kw = {}
+    if compacted:
+        perm, counts, starts = _partition(leaf_id, pending)
+        kw = dict(row_idx=perm, n_active=int(counts.sum()),
+                  slot_counts=counts, slot_starts=starts)
+    ours = _port(X, g, h, inc, leaf_id, sol, num_bins=B16, **kw)
+    assert ours[..., 2].sum() == inc[sol[leaf_id] >= 0].sum() * F
+    np.testing.assert_array_equal(
+        ours, _jax(jax_hist, X, g, h, inc, leaf_id, sol, num_bins=B16, **kw))
+    pallas_kw = dict(kw, max_rows=N) if compacted else kw
+    np.testing.assert_array_equal(
+        ours, _jax(ph.build_histograms_pallas, X, g, h, inc, leaf_id, sol,
+                   num_bins=B16, **pallas_kw))
+
+
+def test_uint16_arbitrary_floats_within_hilo_tolerance():
+    X, g, h, inc, leaf_id = _data(seed=32, quantised=False, num_bins=B16)
+    sol = _slot_of_leaf((0, 5))
+    ours = _port(X, g, h, inc, leaf_id, sol, num_bins=B16)
+    ref = _jax(jax_hist, X, g, h, inc, leaf_id, sol, num_bins=B16)
+    absum = _port(X, np.abs(g), np.abs(h), inc, leaf_id, sol, num_bins=B16)
+    np.testing.assert_array_equal(ours[..., 2], ref[..., 2])
+    bound = 2.0 ** -16 * absum[..., :2] + 1e-6
+    assert (np.abs(ours[..., :2] - ref[..., :2]) <= bound).all()
+
+
+@pytest.mark.parametrize("pending", [(0,), (1, 3, 5), (0, 2, 4, 7)])
+def test_derived_positions_give_the_plain_histogram(pending):
+    """The positions the wrapper derives for a call without a partition
+    (slot by slot, rows ascending) give the histogram of the plain call."""
+    X, g, h, inc, leaf_id = _data(seed=40 + len(pending))
+    sol = _slot_of_leaf(pending)
+    perm, counts, n_active = pass_positions(to_torch(leaf_id), to_torch(sol),
+                                            S)
+    slot = sol[leaf_id]
+    assert n_active == int((slot >= 0).sum())
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.bincount(slot[slot >= 0], minlength=S))
+    expect = np.concatenate([np.flatnonzero(slot == s) for s in range(S)])
+    np.testing.assert_array_equal(perm.numpy(), expect)
+    derived = build_histograms(to_torch(X), to_torch(g), to_torch(h),
+                               to_torch(inc), to_torch(leaf_id),
+                               to_torch(sol), S, B, row_idx=perm,
+                               n_active=n_active, slot_counts=counts)
+    np.testing.assert_array_equal(derived.numpy(),
+                                  _port(X, g, h, inc, leaf_id, sol))
+
+
+def test_derived_positions_refuse_a_slot_past_num_slots():
+    X, g, h, inc, leaf_id = _data(seed=44)
+    sol = _slot_of_leaf((0, 2))
+    sol[2] = S
+    perm, counts, n_active = pass_positions(to_torch(leaf_id), to_torch(sol),
+                                            S)
+    assert int(counts.sum()) < n_active          # the bad rows sort last
+    with pytest.raises(ValueError, match="num_slots"):
+        build_histograms(to_torch(X), to_torch(g), to_torch(h),
+                         to_torch(inc), to_torch(leaf_id), to_torch(sol), S,
+                         B, row_idx=perm, n_active=n_active,
+                         slot_counts=counts)
+
+
+def _kernel_ranges(plan, counts, n_active):
+    """(block, slot, first position, length) of every range the blocks of
+    ``plan`` add: the walk ``hist_kernel`` makes on the card, block b taking
+    positions [b * R, (b + 1) * R) and splitting them at slot boundaries."""
+    cum = np.cumsum(counts)
+    ranges = []
+    for b in range(plan.blocks):
+        p = b * plan.rows_per_block
+        end = min(p + plan.rows_per_block, n_active)
+        s = 0
+        while s < len(cum) and cum[s] <= p:
+            s += 1
+        while p < end and s < len(cum):
+            seg_end = min(end, cum[s])
+            if seg_end > p:
+                ranges.append((b, s, p, seg_end - p))
+                p = seg_end
+            s += 1
+    return ranges
+
+
+def _check_plan(plan, n_active, counts, num_features, num_bins, code_bytes,
+                num_sms):
+    # every position of [0, n_active) once, no range across a slot
+    cum = np.cumsum(counts)
+    seen = np.zeros(n_active, np.int64)
+    ranges = _kernel_ranges(plan, counts, n_active)
+    for b, s, p, n in ranges:
+        assert n > 0 and 0 <= b < plan.blocks
+        assert b * plan.rows_per_block <= p
+        assert p + n <= min((b + 1) * plan.rows_per_block, n_active)
+        assert (cum[s] - counts[s]) <= p and p + n <= cum[s]
+        seen[p:p + n] += 1
+    assert (seen == 1).all()
+    # ranges are in order: a block walks its slots upwards
+    assert [r[2] for r in ranges] == sorted(r[2] for r in ranges)
+    # the grid bound: at most k blocks per SM (one SM's 233,472 bytes of
+    # shared memory and 2048 threads), ceil(n_active / 2048) in all
+    per_sm = 2 if plan.smem + 2048 <= 233472 // 2 else 1
+    assert plan.blocks <= -(-per_sm * num_sms // plan.groups)
+    assert plan.blocks <= -(-n_active // 2048)
+    assert plan.blocks == 0 or plan.rows_per_block * (plan.blocks - 1) \
+        < n_active <= plan.rows_per_block * plan.blocks
+    # feature groups fit a block (a [group_features, B] sub-histogram, 20
+    # bytes a bin, beside the kernel's 1 KB of segment tables) and cover
+    # every feature
+    assert plan.smem == plan.group_features * num_bins * 20
+    assert plan.smem <= SMEM_BLOCK_LIMIT <= 232448 - 1024
+    assert plan.group_features * plan.groups >= num_features
+    assert plan.group_features * (plan.groups - 1) < num_features
+    return ranges
+
+
+@pytest.mark.parametrize("counts,num_features,num_bins,code_bytes,num_sms", [
+    ([2_000_000] + [0] * 24, 28, 256, 1, 132),     # root wave, S=25
+    ([80_000] * 25, 28, 256, 1, 132),              # 25 slots, every row
+    ([0, 9000, 0, 0, 120_001, 7, 0, 63_000], 28, 256, 1, 132),  # empties
+    ([0] * 25, 28, 256, 1, 132),                   # n_active = 0
+    ([5, 1, 0, 3], 6, 32, 1, 132),                 # tiny pass
+    ([400_000, 300_000, 1], 28, 512, 2, 132),      # uint16, two groups
+    ([70_000] * 3, 100, 256, 1, 7),                # three groups, few SMs
+    ([1_000_003, 999_997], 28, MAX_BINS, 2, 132),  # one feature per block
+])
+def test_plan_ranges_cover_every_position_once(counts, num_features,
+                                               num_bins, code_bytes,
+                                               num_sms):
+    n_active = int(sum(counts))
+    plan = plan_ranges(n_active, num_features, num_bins, code_bytes, num_sms)
+    ranges = _check_plan(plan, n_active, np.asarray(counts), num_features,
+                         num_bins, code_bytes, num_sms)
+    if n_active == 0:
+        assert plan.blocks == 0 and ranges == []
+    # a root wave's blocks each see one slot: one flush per block
+    if sum(c > 0 for c in counts) == 1:
+        assert len(ranges) == plan.blocks
+
+
+def test_plan_ranges_random_slot_counts():
+    rng = np.random.RandomState(7)
+    for _ in range(50):
+        S_ = int(rng.randint(1, 65))
+        counts = rng.randint(0, 60_000, S_) * (rng.rand(S_) < 0.7)
+        plan = plan_ranges(int(counts.sum()), 28, 256, 1, 132)
+        _check_plan(plan, int(counts.sum()), counts, 28, 256, 1, 132)
+
+
+def test_feature_groups_fit_shared_memory():
+    # all 28 features of a B=256 row in one block (143,360 bytes); uint16
+    # at B=512 in two groups of 14 (whole 32-bit words of codes)
+    assert feature_groups(28, 256, 1) == (28, 1)
+    assert feature_groups(28, 512, 2) == (14, 2)
+    assert feature_groups(100, 256, 1) == (36, 3)
+    assert feature_groups(28, MAX_BINS, 2) == (1, 28)
+    assert MAX_BINS == 11_520
+    with pytest.raises(ValueError, match="shared memory"):
+        feature_groups(28, MAX_BINS + 8, 2)
+
+
 def test_wrapper_runs_plain_version_on_cpu_without_counting():
     X, g, h, inc, leaf_id = _data(seed=4)
     sol = _slot_of_leaf((0, 1))
@@ -157,17 +338,22 @@ def test_wrapper_runs_plain_version_on_cpu_without_counting():
                                   _port(X, g, h, inc, leaf_id, sol))
 
 
-@pytest.mark.parametrize("fault", ["code", "slot", "n_active"])
+@pytest.mark.parametrize("fault", ["code", "slot", "n_active", "code16"])
 def test_wrapper_raises_on_out_of_range_input(fault):
     """A code >= B, a slot >= S or n_active past the compacted segments
     raises (the kernel device-asserts on the same input); no row is
-    silently dropped."""
+    silently dropped. A uint16 code of 2**15 or more reads as a negative
+    int16 and is refused the same way."""
     X, g, h, inc, leaf_id = _data(seed=5)
     pending = (0, 2)
     sol = _slot_of_leaf(pending)
     kw = {}
     if fault == "code":
         X[np.flatnonzero(sol[leaf_id] >= 0)[0], 3] = B
+    elif fault == "code16":
+        X = X.astype(np.uint16)
+        X[np.flatnonzero(sol[leaf_id] >= 0)[0], 3] = 40_000
+        X = X.view(np.int16)
     elif fault == "slot":
         sol[2] = S
     else:
