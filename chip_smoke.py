@@ -11,14 +11,17 @@ Phases (any failure exits non-zero and prints no result line):
 2. build: compile ``lightgbm_tpu_torch/csrc/histogram.cu`` with nvcc
    (``-Xptxas -v``) and report the seconds;
 3. kernel against its plain version at the slice's shapes (N=2,000,000
-   rows, F=28, S=25 slots), in six cases: ``full`` (25 slots holding every
+   rows, F=28, S=25 slots), in seven cases: ``full`` (25 slots holding every
    row, read through a leaf-contiguous partition: the grower's full wave),
    ``wrapper`` (the same histogram asked for without a partition: the
    wrapper derives the positions on the card), ``root`` (one slot, ``perm =
    arange``: the grower's first wave), ``compact`` (about 10% of the rows
    in 25 of 250 leaves), ``uint16`` (the ``full`` case with uint16 codes
-   at B=512; B=256 elsewhere) and ``f27`` (the ``full`` case with 27
-   features, so that rows do not start on a 32-bit word). In each, counts
+   at B=512; B=256 elsewhere), ``f27`` (the ``full`` case with 27
+   features, so that rows do not start on a 32-bit word) and ``sampled``
+   (the ``full`` case on the sampled path's input: 80% of the rows in the
+   bag with g = h = 0 outside it, a tenth of those with g and h scaled by
+   8, as GOSS scales; required bit-equal). In each, counts
    must be equal, g/h within
    the stated tolerance (the two do the same fixed-point arithmetic, so they
    are expected bit-equal), and two launches bit-identical. Times (device
@@ -45,7 +48,23 @@ Phases (any failure exits non-zero and prints no result line):
    all memsets, one per pass among them), the check that the wrapper's
    launch count equals the passes in the profile, and the kernels that
    take the most device time.
-   ``--trace DIR`` also writes the Chrome trace there.
+   ``--trace DIR`` also writes the Chrome trace there;
+6. the sampled and validated path at full width: phase 4's data and
+   parameters plus the reference binary example's sampling
+   (``feature_fraction=0.8, bagging_fraction=0.8, bagging_freq=5``), a
+   500,000-row valid set (``higgs_like(500_000, SEED + 1)``), AUC and
+   logloss every round, early stopping after 5, up to 40 rounds, with the
+   kernel's launch count reset just before and read just after: ms per
+   iteration, the share of valid scoring and eval, the valid AUC (held
+   against ``Booster.predict``), the drawn bagging mask and a few
+   ``prng.uniform`` draws bit-equal to the CPU's, the features allowed per
+   tree, device operations of a resampling iteration beside the next one
+   and of one draw, a second run with byte-identical model text; GOSS at
+   full width (15 rounds: 10 of warm-up, then 5 sampled; its own launch
+   count); the binary objective's gradients on the card against the CPU's;
+   and four 20,000-row runs (bagging + valid set + early stopping, GOSS on
+   L2, DART, RF) on the card against the same package on the CPU: the
+   same splits, predictions within 1e-5, the same ``best_iteration``.
 
 The card's line comes before the last two lines; the line before the last
 is one JSON object describing every kernel of the path; the last line is
@@ -119,7 +138,19 @@ def card_line():
     return proc.stdout.strip().splitlines()[0]
 
 
-CASES = ("full", "wrapper", "root", "compact", "uint16", "f27")
+CASES = ("full", "wrapper", "root", "compact", "uint16", "f27", "sampled")
+
+
+def sampled_weights(g, h, gen):
+    """The sampled path's input to the kernel: an 80% bagging mask, g = h =
+    0 out of the bag, and a GOSS-like tenth of the in-bag rows with g and h
+    scaled by 8."""
+    import torch
+    n = g.shape[0]
+    inc = (torch.rand(n, generator=gen, device=g.device) < 0.8).float()
+    goss = (torch.rand(n, generator=gen, device=g.device) < 0.1) & (inc > 0)
+    w = torch.where(goss, 8.0, 1.0) * inc
+    return g * w, h * w, inc
 
 
 def _partition_kw(leaf_id, pending, num_leaves):
@@ -185,13 +216,15 @@ def kernel_phase(dev):
                        dtype=torch.int32).to(torch.uint8)
     g = torch.randn(N, generator=gen, device=dev)
     h = torch.rand(N, generator=gen, device=dev) * 0.25
-    inc = torch.ones(N, device=dev)
-    scales = histogram_scales(g, h)
+    ones = torch.ones(N, device=dev)
     results = {}
     for name in CASES:
         X, nb, leaf_id, slot_of_leaf, kw = case_inputs(name, dev, gen, X8)
         nf = X.shape[1]
-        args = (X, g, h, inc, leaf_id, slot_of_leaf, S, nb)
+        gw, hw, inc = sampled_weights(g, h, gen) if name == "sampled" \
+            else (g, h, ones)
+        scales = histogram_scales(gw, hw)
+        args = (X, gw, hw, inc, leaf_id, slot_of_leaf, S, nb)
         plain = build_histograms(*args, scales=scales, **kw)
         before = build_histograms_cuda.launches
         out1 = build_histograms_cuda(*args, scales=scales, **kw)
@@ -214,6 +247,8 @@ def kernel_phase(dev):
             fail(f"{name}: g/h error {max_rel:.3e} above {REL_TOL:.3e}")
         if not identical:
             fail(f"{name}: two launches differ (not deterministic)")
+        if name == "sampled" and not bit_equal:
+            fail("sampled: the kernel is not bit-equal to the plain version")
         if not bool(torch.isfinite(out1).all()):
             fail(f"{name}: non-finite histogram")
         del out1, out2
@@ -231,7 +266,7 @@ def kernel_phase(dev):
                 + X[rows].long()).reshape(-1)
         flat3 = (flat[:, None] * 3 + torch.arange(3, device=dev)).reshape(-1)
         del flat
-        w3 = torch.stack([g[rows], h[rows], inc[rows]], dim=-1)
+        w3 = torch.stack([gw[rows], hw[rows], inc[rows]], dim=-1)
         w3 = w3[:, None, :].expand(-1, nf, -1).reshape(-1).contiguous()
         lib_ms = cuda_time_ms(
             lambda: torch.bincount(flat3, weights=w3,
@@ -258,7 +293,7 @@ def kernel_phase(dev):
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             max_abs_err=max_abs, max_rel_err=max_rel, bit_equal=bit_equal,
             rows=n_rows, num_features=nf, num_bins=nb)
-        del plain, rows, slot, X, leaf_id, kw, args
+        del plain, rows, slot, X, leaf_id, kw, args, gw, hw, inc
         torch.cuda.empty_cache()
     malformed_input_check()
     return results
@@ -318,18 +353,40 @@ def higgs_like(n, seed):
     return X, y
 
 
+def auc_of(pred, y):
+    """The package's own AUC metric of predictions ``pred`` for labels y."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.dataset import Metadata
+    from lightgbm_tpu_torch.metrics import AUCMetric
+    metric = AUCMetric(lgt.Config.from_params({"metric": "auc"}))
+    meta = Metadata(len(y))
+    meta.set_label(y)
+    metric.init(meta, len(y))
+    return metric.eval(pred[None, :])[0][1]
+
+
+def same_trees(a, b):
+    """Two boosters grew the same split features and thresholds."""
+    import numpy as np
+    return len(a.trees) == len(b.trees) and all(
+        np.array_equal(ta.split_feature, tb.split_feature)
+        and np.array_equal(ta.threshold, tb.threshold)
+        for ta, tb in zip(a.trees, b.trees))
+
+
+MAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+               "learning_rate": 0.1, "min_data_in_leaf": 20, "verbose": -1}
+
+
 def main_path_phase():
     """Phase 4: the port's main path at full width on the card."""
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.metrics import AUCMetric
-    from lightgbm_tpu_torch.dataset import Metadata
     from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
 
     X, y = higgs_like(N, SEED)
-    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
-              "learning_rate": 0.1, "min_data_in_leaf": 20, "verbose": -1}
+    params = dict(MAIN_PARAMS)
     rounds = 10
     build_histograms_cuda.launches = 0          # the main path starts here
     t0 = time.perf_counter()
@@ -345,11 +402,7 @@ def main_path_phase():
     launches = build_histograms_cuda.launches   # ... and ends here
     ms_per_iter = (t2 - t1) / rounds * 1e3
     digest = hashlib.sha256(text.encode()).hexdigest()
-    auc_metric = AUCMetric(lgt.Config.from_params(params))
-    meta = Metadata(N)
-    meta.set_label(y)
-    auc_metric.init(meta, N)
-    auc = auc_metric.eval(pred[None, :])[0][1]
+    auc = auc_of(pred, y)
     leaves = [t.num_leaves for t in bst.trees]
     print(f"  host binning {t1 - t0:.2f} s; train {t2 - t1:.3f} s for "
           f"{rounds} rounds = {ms_per_iter:.1f} ms per iteration; "
@@ -398,10 +451,7 @@ def main_path_phase():
         codes = cuda_bst._gbdt.Xb.dtype
         cpu_bst = lgt.train(dict(small, device="cpu"),
                             lgt.Dataset(Xs, label=ys), num_boost_round=5)
-        same_splits = all(
-            np.array_equal(a.split_feature, b.split_feature)
-            and np.array_equal(a.threshold, b.threshold)
-            for a, b in zip(cuda_bst.trees, cpu_bst.trees))
+        same_splits = same_trees(cuda_bst, cpu_bst)
         pdiff = float(np.abs(cuda_bst.predict(Xs)
                              - cpu_bst.predict(Xs)).max())
         print(f"  small input (20000 rows, 63 leaves, 5 rounds, max_bin "
@@ -419,7 +469,7 @@ def main_path_phase():
         if (max_bin > 255) != (codes == torch.int16):
             fail(f"max_bin {max_bin}: {codes} codes on the card")
     return dict(launches=launches, ms_per_iter=ms_per_iter, auc=auc,
-                booster=again)
+                booster=again, data=(ds, X, y))
 
 
 # the profiler ranges grower.py opens around each wave step
@@ -427,6 +477,20 @@ RANGES = ("wave.histogram", "wave.split", "wave.route", "wave.partition")
 # the kernels of csrc/histogram.cu; each pass also memsets its accumulators,
 # among the other memsets of the path
 HIST_KERNELS = ("hist_kernel", "finalize_kernel")
+
+
+def dev_us(e):
+    """Device microseconds of a profiler event."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_kernels(events):
+    """The profiler events of device work (the wave ranges also carry
+    device spans)."""
+    import torch
+    return [e for e in events if dev_us(e) > 0 and e.key not in RANGES
+            and e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def profile_phase(booster, trace_dir, iters=3):
@@ -454,14 +518,7 @@ def profile_phase(booster, trace_dir, iters=3):
     wall_ms = sum(walls) / iters * 1e3
     prof_ms = sum(prof_walls) / iters * 1e3
     events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # device work only: the wave ranges also carry device spans
-    kernels = [e for e in events if dev_us(e) > 0 and e.key not in RANGES
-               and e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(events)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / iters
     n_kernels = sum(e.count for e in kernels) / iters
     hist = [e for e in kernels if any(k in e.key for k in HIST_KERNELS)]
@@ -506,6 +563,254 @@ def profile_phase(booster, trace_dir, iters=3):
     if launches != passes:
         fail("the wrapper's launch count differs from the passes in the "
              "profile")
+
+NV = 500_000                       # phase 6's valid rows
+SAMPLED_PARAMS = dict(MAIN_PARAMS, feature_fraction=0.8, bagging_fraction=0.8,
+                      bagging_freq=5, metric=["auc", "binary_logloss"])
+SAMPLED_ROUNDS, SAMPLED_STOP = 40, 5
+GOSS_ROUNDS = 15                   # 10 warm-up rounds at lr 0.1, then 5
+
+
+class IterClock:
+    """An after-iteration callback: the host clock after the card has
+    finished each iteration (train step, valid scoring and eval)."""
+
+    def __init__(self):
+        self.stamps = [time.perf_counter()]
+
+    def __call__(self, env):
+        import torch
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+
+    def ms(self, lo=0, hi=None):
+        """Mean ms of iterations ``lo`` to ``hi`` (exclusive)."""
+        d = [b - a for a, b in zip(self.stamps, self.stamps[1:])][lo:hi]
+        return sum(d) / len(d) * 1e3
+
+
+def device_ops(fn):
+    """(device operations, kernel launches, device ms) of one call of
+    ``fn`` under ``torch.profiler``: the device's events, and the host's
+    ``cudaLaunchKernel`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    ops = device_kernels(events)
+    launches = sum(e.count for e in events
+                   if e.key.startswith("cudaLaunchKernel"))
+    return (sum(e.count for e in ops), launches,
+            sum(dev_us(e) for e in ops) / 1e3)
+
+
+def sync_ms(fn, iters=3):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def gradient_agreement(y, dev):
+    """How far the binary objective's g and h on the card are from the
+    CPU's for the same f32 scores (the two ``exp`` may round apart)."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.dataset import Metadata
+    from lightgbm_tpu_torch.objectives import create_objective
+    obj = create_objective(lgt.Config.from_params(MAIN_PARAMS))
+    meta = Metadata(len(y))
+    meta.set_label(y)
+    obj.init(meta, len(y))
+    score = torch.randn(len(y), generator=torch.Generator().manual_seed(SEED))
+    label = torch.as_tensor(y, dtype=torch.float32)
+    on_cpu = obj.gradients(score, label, None)
+    on_card = obj.gradients(score.to(dev), label.to(dev), None)
+    for name, a, b in zip("gh", on_cpu, on_card):
+        ulp = (a.view(torch.int32) - b.cpu().view(torch.int32)).abs()
+        print(f"  binary {name} on {len(y)} random scores, card vs CPU: "
+              f"{int((ulp > 0).sum())} values differ, by at most "
+              f"{int(ulp.max())} ulp", flush=True)
+
+
+def sampled_phase(ds, X, y, dev):
+    """Phase 6: the sampled and validated path at full width."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    from lightgbm_tpu_torch.utils import prng
+
+    Xv, yv = higgs_like(NV, SEED + 1)
+    params = dict(SAMPLED_PARAMS)
+    dv = lgt.Dataset(Xv, label=yv, reference=ds).construct()
+    evals = {}
+    clock = IterClock()
+    build_histograms_cuda.launches = 0          # the sampled path starts here
+    bst = lgt.train(params, ds, num_boost_round=SAMPLED_ROUNDS,
+                    valid_sets=[dv], valid_names=["valid"],
+                    early_stopping_rounds=SAMPLED_STOP, evals_result=evals,
+                    verbose_eval=False, callbacks=[clock],
+                    keep_training_booster=True)
+    launches = build_histograms_cuda.launches   # ... and ends here
+    gbdt = bst._gbdt
+    n_iter = gbdt.iter_
+    best = bst.best_iteration
+    aucs = evals["valid"]["auc"]
+    best_auc = aucs[(best or n_iter) - 1]
+    ms_iter = clock.ms(1)
+    text = bst.model_to_string()
+    vs = gbdt.valid_sets[0]
+    walk_ms = sync_ms(lambda: gbdt._tree_contrib(gbdt.models[-1][0], vs.Xb))
+    eval_ms = sync_ms(lambda: gbdt.eval_all())
+    mask_mean = float(gbdt.bag_mask.mean())
+    print(f"  train {n_iter} rounds (early stopping after {SAMPLED_STOP}): "
+          f"first iteration {clock.ms(0, 1):.1f} ms, then {ms_iter:.2f} ms "
+          f"per iteration; valid scoring {walk_ms:.2f} ms + eval "
+          f"{eval_ms:.2f} ms = {(walk_ms + eval_ms) / ms_iter * 100:.1f}% "
+          f"of an iteration", flush=True)
+    stopped = f"best_iteration {best}" if best else \
+        f"early stopping did not fire, all {n_iter} rounds kept"
+    print(f"  histogram kernel launches on the sampled path: {launches}; "
+          f"{stopped}; valid AUC there {best_auc:.5f} (after round 1 "
+          f"{aucs[0]:.5f})", flush=True)
+    if launches <= 0:
+        fail("the sampled path never launched the histogram kernel")
+    if not best_auc > 0.6 or not all(np.isfinite(aucs)):
+        fail(f"valid AUC {best_auc} not above 0.6")
+    vpred = bst.predict(Xv, num_iteration=best or n_iter)
+    vauc = auc_of(vpred, yv)
+    print(f"  valid AUC of Booster.predict at that iteration {vauc:.6f} "
+          f"(the running valid score's {best_auc:.6f}, tol 1e-5)", flush=True)
+    if vpred.shape != (NV,) or not np.isfinite(vpred).all() \
+            or not abs(vauc - best_auc) <= 1e-5:
+        fail("the valid set's predictions disagree with its running score")
+
+    # the draws: the last bagging mask and a few uniform draws, card vs CPU
+    last = n_iter - 1
+    it0 = last - last % params["bagging_freq"]
+    base = prng.prng_key(gbdt.config.seed or gbdt.config.bagging_seed)
+    bkey, fkey = prng.split(prng.fold_in(prng.fold_in(base, it0), 0))
+    cpu_mask = (prng.uniform(bkey, N) < torch.tensor(0.8)).float()
+    mask_equal = bool(torch.equal(gbdt.bag_mask.cpu(), cpu_mask))
+    draws_equal = True
+    for seed, it in ((0, 0), (3, 7), (SEED, 39)):
+        key = prng.fold_in(prng.prng_key(seed), it)
+        for n in (N, F):
+            draws_equal &= bool(torch.equal(
+                prng.uniform(key, n, dev).cpu().view(torch.int32),
+                prng.uniform(key, n).view(torch.int32)))
+    _, fkey_last = prng.split(prng.fold_in(prng.fold_in(base, last), 0))
+    n_feat = int(gbdt._feature_mask(fkey_last, 0).sum())
+    print(f"  bagging mask of iteration {last} (drawn at {it0}): mean "
+          f"{mask_mean:.6f}, bit-equal to the CPU's draw {mask_equal}; "
+          f"uniform draws at N={N} and F={F} for (seed, it) in (0, 0), "
+          f"(3, 7), ({SEED}, 39) bit-equal card vs CPU {draws_equal}; "
+          f"features allowed per tree {n_feat} of {F} "
+          f"(n_feature_sample {gbdt.n_feature_sample})", flush=True)
+    if not (mask_equal and draws_equal):
+        fail("the card's random draws differ from the CPU's")
+    if n_feat != round(0.8 * F) or not 0.79 < mask_mean < 0.81:
+        fail("the sampled fractions are off")
+
+    # launches: one resampling iteration beside one that keeps the mask
+    while gbdt.iter_ % params["bagging_freq"]:
+        gbdt.train_one_iter()
+    resample = device_ops(gbdt.train_one_iter)
+    keep = device_ops(gbdt.train_one_iter)
+    frac = torch.tensor(0.8, device=dev)
+    draw = device_ops(lambda: (prng.uniform(bkey, N, dev) < frac).float())
+    fdraw = device_ops(lambda: gbdt._feature_mask(fkey, 0))
+    print(f"  device operations (kernel launches): resampling iteration "
+          f"{resample[0]} ({resample[1]}, {resample[2]:.2f} ms busy), next "
+          f"iteration {keep[0]} ({keep[1]}, {keep[2]:.2f} ms busy); one "
+          f"bagging draw over {N} rows {draw[0]} ({draw[1]}, {draw[2]:.3f} "
+          f"ms), one feature mask {fdraw[0]} ({fdraw[1]}, {fdraw[2]:.3f} "
+          f"ms)", flush=True)
+    del bst, gbdt, vs
+    torch.cuda.empty_cache()
+
+    # determinism: the same sampled run again, byte-identical model text
+    again = lgt.train(params, ds, num_boost_round=SAMPLED_ROUNDS,
+                      valid_sets=[dv], valid_names=["valid"],
+                      early_stopping_rounds=SAMPLED_STOP, verbose_eval=False)
+    again_text = again.model_to_string()
+    digest = hashlib.sha256(text.encode()).hexdigest()
+    print(f"  second sampled run: best_iteration {again.best_iteration}, "
+          f"identical model text {again_text == text}; sampled model text "
+          f"sha256 {digest}", flush=True)
+    if again_text != text or again.best_iteration != best:
+        fail("two sampled runs on the same data gave different models")
+    del again, dv
+    torch.cuda.empty_cache()
+
+    # GOSS at full width: 10 warm-up rounds, then 5 sampled
+    clock = IterClock()
+    build_histograms_cuda.launches = 0          # GOSS starts here
+    goss = lgt.train(dict(MAIN_PARAMS, boosting="goss"), ds,
+                     num_boost_round=GOSS_ROUNDS, callbacks=[clock])
+    goss_launches = build_histograms_cuda.launches   # ... and ends here
+    warm = int(1.0 / MAIN_PARAMS["learning_rate"])
+    gpred = goss.predict(X[:100_000])
+    print(f"  GOSS {GOSS_ROUNDS} rounds: {clock.ms(1, warm):.2f} ms per "
+          f"iteration in the warm-up, {clock.ms(warm):.2f} ms after it; "
+          f"histogram kernel launches {goss_launches}; train AUC on the "
+          f"first 100000 rows {auc_of(gpred, y[:100_000]):.5f}", flush=True)
+    if goss_launches <= 0 or len(goss.trees) != GOSS_ROUNDS \
+            or not np.isfinite(gpred).all():
+        fail("GOSS at full width did not train")
+    del goss
+    torch.cuda.empty_cache()
+
+    # the card against the CPU at 20000 rows, the same package on both
+    Xs, ys = X[:20000], y[:20000]
+    gradient_agreement(ys, dev)
+    small = dict(MAIN_PARAMS, num_leaves=63)
+    cases = {           # name: (params, early_stopping_rounds)
+        "bagging+feature_fraction+valid+early stopping": (dict(
+            small, feature_fraction=0.8, bagging_fraction=0.8,
+            bagging_freq=5, metric=["auc", "binary_logloss"]), 1),
+        "goss regression": (dict(small, objective="regression",
+                                 boosting="goss", learning_rate=0.25), None),
+        "dart": (dict(small, boosting="dart", drop_rate=0.3,
+                      skip_drop=0.2), None),
+        "rf": (dict(small, boosting="rf", bagging_fraction=0.8,
+                    bagging_freq=1), None),
+    }
+    small_launches = 0
+    for name, (p, stop) in cases.items():
+        def run(device_params):
+            d = lgt.Dataset(Xs, label=ys)
+            v = lgt.Dataset(Xv[:5000], label=yv[:5000], reference=d)
+            return lgt.train(dict(p, **device_params), d, num_boost_round=8,
+                             valid_sets=[v], early_stopping_rounds=stop,
+                             verbose_eval=False)
+        before = build_histograms_cuda.launches
+        on_card = run({})
+        small_launches += build_histograms_cuda.launches - before
+        on_cpu = run({"device": "cpu"})
+        splits = same_trees(on_card, on_cpu)
+        pdiff = float(np.abs(on_card.predict(Xs) - on_cpu.predict(Xs)).max())
+        print(f"  20000 rows, {name}: same splits {splits} "
+              f"({len(on_card.trees)} trees), max prediction diff "
+              f"{pdiff:.3e} (tol 1e-5), best_iteration card "
+              f"{on_card.best_iteration} cpu {on_cpu.best_iteration}",
+              flush=True)
+        if not splits or not pdiff <= 1e-5 \
+                or on_card.best_iteration != on_cpu.best_iteration:
+            fail(f"20000 rows, {name}: the card disagrees with the CPU")
+    if small_launches <= 0:
+        fail("the 20000-row runs never launched the histogram kernel")
+    return dict(launches=launches, goss_launches=goss_launches,
+                ms_per_iter=ms_iter)
 
 
 def main():
@@ -555,12 +860,21 @@ def main():
     print("phase 5: profile of a steady-state iteration", flush=True)
     profile_phase(mres.pop("booster"), args.trace)
 
+    print(f"phase 6: sampled and validated path (bagging 0.8 every 5, "
+          f"feature_fraction 0.8, {NV} valid rows, early stopping; GOSS; "
+          f"card vs CPU)", flush=True)
+    sres = sampled_phase(*mres.pop("data"), dev)
+    print(f"  histogram kernel launches: phase 4 {mres['launches']}, phase 6 "
+          f"sampled {sres['launches']} + GOSS {sres['goss_launches']}",
+          flush=True)
+
     full = kres["full"]
     kernels = {"kernels": [{
         "name": "histogram (B1)", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/histogram.cu",
         "replaces": "lightgbm_tpu/ops/pallas_histogram.py:59",
-        "launches": mres["launches"],
+        "launches": mres["launches"] + sres["launches"]
+        + sres["goss_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kres.values()),
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],

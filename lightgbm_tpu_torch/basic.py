@@ -14,9 +14,10 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from .config import Config, resolve_device
-from .dataset import ConstructedDataset, construct_dataset
+from .dataset import ConstructedDataset, Metadata, construct_dataset
 from .tree import Tree
 from .utils.log import Log
 
@@ -26,24 +27,32 @@ DEVICE_PREDICT_MIN_WORK = 1_000_000
 
 
 class Dataset:
-    """Lazily constructed training dataset (reference basic.py:556): dense
-    numerical features binned on the host at first use."""
+    """Lazily constructed dataset (reference basic.py:556): dense numerical
+    features binned on the host at first use. A set built with
+    ``reference=`` (a validation set) is binned with the reference's
+    mappers (the analog of LoadFromFileAlignWithOtherDataset)."""
 
-    def __init__(self, data, label=None, weight=None, init_score=None,
+    def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
+                 weight=None, group=None, init_score=None,
                  feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
-                 free_raw_data: bool = False):
+                 free_raw_data: bool = False, silent: bool = False):
         if isinstance(data, str):
             Log.fatal("loading data files is not ported to "
                       "lightgbm_tpu_torch yet (ROADMAP A18)")
         if hasattr(data, "tocsr"):
             Log.fatal("sparse input is not ported to lightgbm_tpu_torch yet "
                       "(ROADMAP A1)")
+        if group is not None:
+            Log.fatal("query/group data (ranking) is not ported to "
+                      "lightgbm_tpu_torch yet (ROADMAP A2)")
         self.raw_data = np.asarray(data, dtype=np.float64)
         if self.raw_data.ndim == 1:
             self.raw_data = self.raw_data.reshape(1, -1)
         self.label = None if label is None else np.asarray(label).reshape(-1)
+        self.reference = reference
         self.weight = weight
+        self.group = None
         self.init_score = init_score
         self.feature_name = None if feature_name == "auto" else feature_name
         self.categorical_feature = None if categorical_feature == "auto" \
@@ -51,16 +60,30 @@ class Dataset:
         self.params = dict(params or {})
         self.free_raw_data = free_raw_data
         self._constructed: Optional[ConstructedDataset] = None
+        self._binned_aligned: Optional[np.ndarray] = None
+        self._metadata: Optional[Metadata] = None
 
     def construct(self, config: Optional[Config] = None) -> "Dataset":
-        if self._constructed is None:
+        if self._constructed is not None or self._binned_aligned is not None:
+            return self
+        if self.reference is not None:
+            ref = self.reference
+            ref.construct(config)
+            self._binned_aligned = ref.constructed.bin_raw(self.raw_data)
+            meta = Metadata(self.raw_data.shape[0])
+            if self.label is not None:
+                meta.set_label(self.label)
+            meta.set_weight(self.weight)
+            meta.set_init_score(self.init_score)
+            self._metadata = meta
+        else:
             cfg = config or Config.from_params(self.params)
             self._constructed = construct_dataset(
                 self.raw_data, self.label, cfg, weight=self.weight,
                 init_score=self.init_score, feature_names=self.feature_name,
                 categorical_features=self.categorical_feature)
-            if self.free_raw_data:
-                self.raw_data = None
+        if self.free_raw_data:
+            self.raw_data = None
         return self
 
     @property
@@ -79,8 +102,96 @@ class Dataset:
             return self._constructed.num_total_features
         return self.raw_data.shape[1]
 
+    # -- fields (reference basic.py Dataset API) ------------------------------
+
+    def _meta_sink(self) -> Optional[Metadata]:
+        """The metadata live field updates write through to: a constructed
+        training set's, or a reference-aligned valid set's."""
+        if self._constructed is not None:
+            return self._constructed.metadata
+        return self._metadata
+
     def get_label(self):
         return self.label
+
+    def set_label(self, label) -> "Dataset":
+        self.label = None if label is None else np.asarray(label).reshape(-1)
+        sink = self._meta_sink()
+        if sink is not None and self.label is not None:
+            sink.set_label(self.label)
+        return self
+
+    def get_weight(self):
+        return self.weight
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        sink = self._meta_sink()
+        if sink is not None:
+            sink.set_weight(weight)
+        return self
+
+    def get_init_score(self):
+        return self.init_score
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        sink = self._meta_sink()
+        if sink is not None:
+            sink.set_init_score(init_score)
+        return self
+
+    def get_group(self):
+        return self.group
+
+    def set_group(self, group) -> "Dataset":
+        Metadata(0).set_group(group)          # raises for ranking data (A2)
+        return self
+
+    def get_field(self, name):
+        return {"label": self.label, "weight": self.weight,
+                "group": self.group, "init_score": self.init_score}[name]
+
+    def set_field(self, name, data) -> "Dataset":
+        """Generic field setter (reference basic.py Dataset.set_field)."""
+        setter = {"label": self.set_label, "weight": self.set_weight,
+                  "group": self.set_group,
+                  "init_score": self.set_init_score}.get(name)
+        if setter is None:
+            raise ValueError(f"Unknown field name: {name}")
+        return setter(data)
+
+    def set_reference(self, reference: "Dataset") -> "Dataset":
+        """Bin this dataset with ``reference``'s mappers (reference
+        basic.py set_reference). Must precede construction."""
+        if self._constructed is not None or self._binned_aligned is not None:
+            if self.reference is reference:
+                return self
+            raise ValueError(
+                "Cannot set reference after the dataset was constructed")
+        self.reference = reference
+        return self
+
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       group=group, init_score=init_score, params=params)
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        idx = np.asarray(used_indices)
+        init_score = None
+        if self.init_score is not None:
+            is_arr = np.asarray(self.init_score)
+            init_score = is_arr[idx] if is_arr.ndim == 1 and \
+                len(is_arr) == self.num_data() else is_arr
+        return Dataset(self.raw_data[idx],
+                       label=None if self.label is None else self.label[idx],
+                       weight=None if self.weight is None
+                       else np.asarray(self.weight)[idx],
+                       init_score=init_score,
+                       params=params or self.params,
+                       feature_name=self.feature_name or "auto",
+                       categorical_feature=self.categorical_feature or "auto")
 
 
 class Booster:
@@ -91,19 +202,24 @@ class Booster:
     def __init__(self, params: Optional[Dict[str, Any]] = None,
                  train_set: Optional[Dataset] = None,
                  model_file: Optional[str] = None,
-                 model_str: Optional[str] = None):
+                 model_str: Optional[str] = None, silent: bool = False):
         self.params = dict(params or {})
         self.config = Config.from_params(self.params)
         self._gbdt = None
         self.trees: List[Tree] = []
         self.num_model_per_iteration = 1
         self.best_iteration = 0
+        self.best_score: Dict = {}
+        self.eval_history: Dict = {}         # dataset -> metric -> [values]
         self.feature_names: List[str] = []
         self.num_total_features = 0
         self.mappers = []
         self.init_score_value = 0.0
         self.pandas_categorical = None
-        self._synced_iter = -1
+        self._prev_trees: List[Tree] = []
+        self._synced_mutations = -1
+        self._train_data_name = "training"
+        self._valid_registry: List = []      # (Dataset, name) identity pairs
         if model_file is not None:
             from .io.model_text import load_model_file
             load_model_file(self, model_file)
@@ -116,37 +232,126 @@ class Booster:
     # -- training ------------------------------------------------------------
 
     def _setup_train(self, train_set: Dataset) -> None:
-        from .boosting.gbdt import GBDT
+        from .boosting.gbdt import create_boosting
         train_set.params.update(self.params)
         train_set.construct(self.config)
         cd = train_set.constructed
-        self._gbdt = GBDT(self.config, cd)
+        self._gbdt = create_boosting(self.config, cd)
         self.train_dataset = train_set
         self.feature_names = cd.feature_names
         self.num_total_features = cd.num_total_features
         self.mappers = cd.mappers
         self._real_feature_idx = cd.real_feature_idx
+        self.num_model_per_iteration = self._gbdt.num_models
 
-    def update(self) -> bool:
-        """One boosting iteration (reference LGBM_BoosterUpdateOneIter)."""
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Attach a validation set binned with the training set's mappers;
+        after training, the forest so far is replayed into its scores (the
+        reference's AddValidDataset)."""
+        data.construct(self.config)
+        if data.reference is None or data._binned_aligned is None:
+            Log.fatal("Add valid data failed: valid set must reference the "
+                      "training set")
+        if any(nm == name for _ds, nm in self._valid_registry):
+            Log.fatal("A validation set named %r is already attached; "
+                      "names must be unique per booster", name)
+        self._ensure_finalized()
+        if self.trees and data.raw_data is None:
+            Log.fatal("add_valid after training needs the valid set's "
+                      "raw data to replay the forest — construct it "
+                      "with free_raw_data=False")
+        gbdt = self._gbdt
+        gbdt.add_valid(name, data._binned_aligned, data._metadata)
+        self._valid_registry.append((data, name))
+        if self.trees:
+            # the fresh score holds init_score_value, which the finalised
+            # trees also carry (bias folded into tree 0): take it out first
+            K = max(self.num_model_per_iteration, 1)
+            raw = np.asarray(self.predict(
+                data.raw_data, raw_score=True,
+                num_iteration=len(self.trees) // K), np.float32)
+            raw = raw.T if raw.ndim == 2 else raw.reshape(1, -1)
+            vs = gbdt.valid_sets[-1]
+            vs.score = (vs.score - np.float32(gbdt.init_score_value)
+                        + torch.as_tensor(raw.reshape(K, vs.num_data),
+                                          device=gbdt.device))
+        return self
+
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """Reference LGBM_BoosterResetParameter — used by the
+        reset_parameter callback for per-iteration schedules."""
+        self.params.update(params)
+        self.config = Config.from_params(self.params)
+        if self._gbdt is not None:
+            self._gbdt.reset_config(self.config)
+        return self
+
+    def rollback_one_iter(self) -> "Booster":
+        """Reference GBDT::RollbackOneIter via LGBM_BoosterRollbackOneIter."""
+        if self._gbdt is not None:
+            self._gbdt.rollback_one_iter()
+        return self
+
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj=None) -> bool:
+        """One boosting iteration (reference LGBM_BoosterUpdateOneIter, or
+        LGBM_BoosterUpdateOneIterCustom with ``fobj``). ``train_set`` swaps
+        the training data under the existing model (reference
+        LGBM_BoosterResetTrainingData): the new data's scores start from the
+        current forest's raw predictions."""
+        if train_set is not None and train_set is not getattr(
+                self, "train_dataset", None):
+            if self._gbdt is not None:
+                self._finalize()
+            prev = list(self.trees)
+            X_new = train_set.raw_data      # before construct() may free it
+            if prev and X_new is None:
+                Log.fatal("update(train_set=...) on a trained booster needs "
+                          "the new Dataset's raw data to seed scores — "
+                          "construct it with free_raw_data=False")
+            self._setup_train(train_set)
+            if prev:
+                gbdt = self._gbdt
+                # seed from the model's predictions only: no
+                # boost-from-average bias on a non-empty model
+                if abs(gbdt.init_score_value) > 1e-15:
+                    gbdt.score = gbdt.score - gbdt.init_score_value
+                    gbdt.init_score_value = 0.0
+                K = max(self.num_model_per_iteration, 1)
+                raw = np.asarray(self.predict(X_new, raw_score=True,
+                                              num_iteration=len(prev) // K))
+                gbdt.add_base_score(raw.T if raw.ndim == 2 else raw)
+                self._prev_trees = prev
         if self._gbdt is None:
-            Log.fatal("Booster has no training data")
-        self._gbdt.train_one_iter()
+            Log.fatal("Booster has no training data: it was freed (train() "
+                      "without keep_training_booster=True) — pass train_set "
+                      "to update() to attach data")
+        if fobj is not None:
+            self._gbdt.train_one_iter_custom(fobj)
+        else:
+            self._gbdt.train_one_iter()
         return False
 
     def _ensure_finalized(self) -> None:
-        """Materialise host trees iff the device forest changed."""
-        if self._gbdt is not None and self._synced_iter != self._gbdt.iter_:
-            self.trees = [t for it_trees in self._gbdt.finalize_model()
-                          for t in it_trees]
-            self.init_score_value = self._gbdt.init_score_value
-            self._synced_iter = self._gbdt.iter_
+        """Materialise host trees iff the device forest changed (the
+        mutation counter, not the length, decides: a rollback and a retrain
+        land on the same length with different trees)."""
+        if self._gbdt is not None and \
+                self._synced_mutations != self._gbdt.mutations_:
+            self._finalize()
+
+    def _finalize(self) -> None:
+        self.trees = self._prev_trees + [
+            t for it_trees in self._gbdt.finalize_model() for t in it_trees]
+        self.init_score_value = self._gbdt.init_score_value
+        self._synced_mutations = self._gbdt.mutations_
 
     def free_dataset(self) -> "Booster":
         """Release device-side training state; predict/save keep working."""
         self._ensure_finalized()
         self._gbdt = None
         self.__dict__.pop("train_dataset", None)
+        self._valid_registry = []
         return self
 
     # -- prediction ----------------------------------------------------------
@@ -180,6 +385,8 @@ class Booster:
             out = np.zeros((K, X.shape[0], F1))
             for i, t in enumerate(use_trees):
                 out[i % K] += t.predict_contrib(X, self.num_total_features)
+            if self.config.boosting_normalized == "rf":
+                out /= max(len(use_trees) // K, 1)   # rf averages trees
             return out[0] if K == 1 else np.concatenate(list(out), axis=1)
         N = X.shape[0]
         raw = np.zeros((K, N), dtype=np.float64)
@@ -190,7 +397,11 @@ class Booster:
         else:
             for i, t in enumerate(use_trees):
                 raw[i % K] += t.predict(X)
-        if not raw_score:
+        if self.config.boosting_normalized == "rf":
+            # the average of already-converted tree outputs (rf.hpp
+            # average_output_)
+            raw /= max(len(use_trees) // K, 1)
+        elif not raw_score:
             raw = self._convert_output(raw)
         return raw[0] if K == 1 else raw.T
 
@@ -210,6 +421,72 @@ class Booster:
         if name == "xentlambda":
             return np.log1p(np.exp(raw))
         return raw
+
+    # -- evaluation ----------------------------------------------------------
+
+    def _feval_results(self, feval, dataset_name: str):
+        """A custom eval callable on one attached dataset (reference
+        __inner_eval's feval leg, basic.py:1612-1620)."""
+        if feval is None:
+            return []
+        gbdt = self._gbdt
+        if dataset_name == self._train_data_name:
+            train_ds = getattr(self, "train_dataset", None)
+            if train_ds is None:
+                Log.fatal("eval_train with a custom feval needs the "
+                          "training Dataset, which free_dataset() released")
+            targets = [(train_ds, gbdt.score)]
+        else:
+            targets = [(vs, vs.score) for vs in gbdt.valid_sets
+                       if vs.name == dataset_name]
+        out = []
+        for ds, score in targets:
+            preds = gbdt._convert(score).cpu().numpy().reshape(-1)
+            res = feval(preds, ds)
+            res = [res] if isinstance(res, tuple) else res
+            out.extend((dataset_name, n, v, h) for n, v, h in res)
+        return out
+
+    def _live_gbdt(self):
+        if self._gbdt is None:
+            Log.fatal("eval needs live training state — the booster was "
+                      "freed or loaded from a model file")
+        return self._gbdt
+
+    def eval(self, data: Dataset, name: str, feval=None):
+        """Evaluate the current model on ``data`` (reference basic.py:1543):
+        the training set, an attached valid set, or a new Dataset (attached
+        as a valid set first, like the reference's push)."""
+        if not isinstance(data, Dataset):
+            raise TypeError("Can only eval for Dataset instance")
+        gbdt = self._live_gbdt()
+        if data is getattr(self, "train_dataset", None):
+            return self.eval_train(feval)
+        for ds, nm in self._valid_registry:
+            if data is ds:
+                return gbdt.eval_all(only=nm) + self._feval_results(feval, nm)
+        self.add_valid(data, name)
+        return gbdt.eval_all(only=name) + self._feval_results(feval, name)
+
+    def eval_train(self, feval=None):
+        """Evaluate on the training data (reference basic.py:1577)."""
+        res = [(self._train_data_name, n, v, h)
+               for _d, n, v, h in self._live_gbdt().eval_all(
+                   force_training=True, only="training")]
+        return res + self._feval_results(feval, self._train_data_name)
+
+    def eval_valid(self, feval=None):
+        """Evaluate on every attached validation set (basic.py:1592)."""
+        gbdt = self._live_gbdt()
+        res = [r for r in gbdt.eval_all() if r[0] != "training"]
+        if feval is not None:
+            for vs in gbdt.valid_sets:
+                res.extend(self._feval_results(feval, vs.name))
+        return res
+
+    def set_train_data_name(self, name: str) -> "Booster":
+        self._train_data_name = name
+        return self
 
     # -- model io ------------------------------------------------------------
 

@@ -874,24 +874,19 @@ def _unported(what: str, item: str) -> None:
 
 
 def check_port_supported(config: "Config") -> None:
-    """Raise on every configuration the port's first slice does not cover.
+    """Raise on every configuration the port does not cover yet.
 
-    The slice is ``boosting=gbdt`` with the binary or L2 objective,
-    ``tree_learner=serial``, dense numerical features and resident data.
-    Each refusal names the ROADMAP queue item that will port it; none of
-    these settings is ever silently ignored."""
+    The port covers ``boosting=gbdt|goss|dart|rf`` with the binary or L2
+    objective (or custom gradients, ``objective=none``), bagging and
+    feature_fraction, ``tree_learner=serial``, dense numerical features and
+    resident data. Each refusal names the ROADMAP queue item that will port
+    it; none of these settings is ever silently ignored."""
     from .objectives import OBJECTIVE_ALIASES
     obj = OBJECTIVE_ALIASES.get(config.objective, config.objective)
-    if obj not in ("binary", "regression"):
+    if obj not in ("binary", "regression", "none"):
         _unported(f"objective={config.objective}", "A2")
     if config.num_class > 1:
         _unported(f"num_class={config.num_class}", "A2")
-    if config.boosting_normalized != "gbdt":
-        _unported(f"boosting={config.boosting_type}", "A10")
-    if config.bagging_freq > 0 and config.bagging_fraction < 1.0:
-        _unported(f"bagging_fraction={config.bagging_fraction:g}", "A6")
-    if config.feature_fraction < 1.0:
-        _unported(f"feature_fraction={config.feature_fraction:g}", "A6")
     if config.categorical_column:
         _unported("categorical features", "A9")
     if config.enable_bundle == "true":
@@ -908,8 +903,6 @@ def check_port_supported(config: "Config") -> None:
         _unported(f"nan_policy={config.nan_policy}", "A17")
     if config.checkpoint_dir or config.resume_from:
         _unported("checkpoint/resume", "A17")
-    if config.early_stopping_round > 0:
-        _unported("early stopping", "A8")
     defaults = Config.__dataclass_fields__
     for key in TPU_ONLY_KEYS:
         if getattr(config, key) != defaults[key].default:

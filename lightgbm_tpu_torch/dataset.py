@@ -58,6 +58,29 @@ class Metadata:
             return
         self.init_score = np.asarray(init_score, dtype=np.float64).reshape(-1)
 
+    def set_group(self, group) -> None:
+        if group is not None:
+            Log.fatal("query/group data (ranking) is not ported to "
+                      "lightgbm_tpu_torch yet (ROADMAP A2)")
+
+
+class MetadataDuckTyping:
+    """The reference Dataset's field getters over ``self.metadata``: custom
+    objectives and eval functions (``fobj(preds, train_data)``,
+    ``feval(preds, eval_data)``) receive objects with this mixin."""
+
+    def get_label(self):
+        return self.metadata.label
+
+    def get_weight(self):
+        return self.metadata.weight
+
+    def get_group(self):
+        return None
+
+    def get_init_score(self):
+        return self.metadata.init_score
+
 
 @dataclass
 class FeatureInfo:
@@ -66,7 +89,7 @@ class FeatureInfo:
     mapper: BinMapper
 
 
-class ConstructedDataset:
+class ConstructedDataset(MetadataDuckTyping):
     """The binned dataset (reference Dataset, dataset.h:280).
 
     ``X_binned`` is the ``uint8`` (or ``uint16``) ``[num_data,
@@ -96,6 +119,22 @@ class ConstructedDataset:
     @property
     def num_features(self) -> int:
         return int(self.X_binned.shape[1])
+
+    @property
+    def code_dtype(self):
+        return self.X_binned.dtype
+
+    def bin_raw(self, data: np.ndarray) -> np.ndarray:
+        """Bin a dense raw matrix with THIS dataset's mappers (a valid set
+        aligned with its training set; the analog of
+        LoadFromFileAlignWithOtherDataset, dataset_loader.cpp:221)."""
+        if hasattr(data, "tocsc"):
+            Log.fatal("sparse input is not ported to lightgbm_tpu_torch yet "
+                      "(ROADMAP A1)")
+        data = np.asarray(data, dtype=np.float64)
+        return bin_dense_host(data, self.mappers,
+                              self.real_feature_idx.astype(np.int64),
+                              data.shape[0], self.code_dtype)
 
     @property
     def max_num_bin(self) -> int:

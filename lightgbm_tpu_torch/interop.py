@@ -14,7 +14,8 @@ duck-typed over either package's objects:
 - :func:`tree_arrays_numpy` / :func:`tree_arrays_torch` — the grower's
   ``TreeArrays`` of either package, field by field;
 - :func:`booster_from_model` — a finished model of either package, loaded
-  here through its model text.
+  here through its model text;
+- :func:`prng_key_from_jax` — a ``jax.random`` key as this package's key.
 """
 from __future__ import annotations
 
@@ -86,3 +87,12 @@ def booster_from_model(booster_or_text,
     text = booster_or_text if isinstance(booster_or_text, str) \
         else booster_or_text.model_to_string()
     return Booster(params=params, model_str=text)
+
+
+def prng_key_from_jax(key_data: np.ndarray):
+    """A JAX raw key (its two uint32 words, ``np.asarray(PRNGKey(s))``) as
+    this package's key (``utils/prng.py``)."""
+    k = np.asarray(key_data, dtype=np.uint32).reshape(-1)
+    if k.shape != (2,):
+        raise ValueError(f"a threefry key has two uint32 words, got {k!r}")
+    return (int(k[0]), int(k[1]))

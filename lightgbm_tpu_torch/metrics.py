@@ -1,9 +1,13 @@
-"""Evaluation metrics — a host-numpy copy of ``lightgbm_tpu/metrics.py``.
+"""Evaluation metrics — a copy of ``lightgbm_tpu/metrics.py``.
 
 Reference: src/metric/ factory metric.cpp:13-47 and the per-family headers.
-Every metric here runs on the host over converted scores fetched from the
-device, in f64, matching the reference's double accumulators. The port
-keeps its own copy because importing the JAX package would pull in JAX.
+The pointwise family's ``loss`` bodies are backend-polymorphic (``_xp``):
+the booster (``boosting/gbdt.py``) evaluates them on the device in f32
+from the live score tensor and fetches one scalar per metric, as the JAX
+package does (gbdt ``_eval_all``). Rank/AUC/multiclass metrics fetch the converted
+scores and run on the host in f64, matching the reference's double
+accumulators. The port keeps its own copy because importing the JAX
+package would pull in JAX.
 
 Each metric returns a list of (name, value, is_higher_better).
 """
@@ -12,6 +16,7 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .config import Config
 from .dataset import Metadata
@@ -20,9 +25,26 @@ from .utils.log import Log
 MetricResult = Tuple[str, float, bool]
 
 
+class _TorchXP:
+    """The numpy functions the loss bodies call, on torch tensors."""
+    float32 = torch.float32
+    abs = staticmethod(torch.abs)
+    where = staticmethod(torch.where)
+    log = staticmethod(torch.log)
+
+    @staticmethod
+    def clip(x, lo, hi):
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def maximum(x, v):
+        return torch.clamp(x, min=v)
+
+
 def _xp(arr):
-    """The array namespace of the loss bodies: numpy (host-only metrics)."""
-    return np
+    """numpy for host arrays, torch for device tensors — one loss body
+    serves both the host eval path and the device scalar path."""
+    return _TorchXP if isinstance(arr, torch.Tensor) else np
 
 
 def _wavg(loss: np.ndarray, weight: Optional[np.ndarray]) -> float:
@@ -132,8 +154,8 @@ class BinaryErrorMetric(_PointwiseRegressionMetric):
     def loss(self, p, y):
         xp = _xp(p)
         is_pos = y > 0
-        return xp.where(is_pos, p <= 0.5, p > 0.5).astype(xp.float64
-            if xp is np else xp.float32)
+        err = xp.where(is_pos, p <= 0.5, p > 0.5)
+        return err.astype(np.float64) if xp is np else err.to(xp.float32)
 
 
 class AUCMetric(Metric):

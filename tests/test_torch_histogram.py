@@ -131,6 +131,31 @@ def test_compacted_pass_bit_equal_to_jax_and_pallas(pending):
 
 
 @pytest.mark.parametrize("compacted", [False, True])
+def test_sampled_input_bit_equal_to_jax_and_pallas(compacted):
+    """The sampled path's input (``chip_smoke.py``'s ``sampled`` case): 80%
+    of the rows in the bag with g = h = 0 outside it, and a GOSS-like tenth
+    of the in-bag rows with g and h scaled by 8 (still exact in f32)."""
+    X, g, h, inc, leaf_id = _data(seed=31)
+    goss = (np.random.RandomState(32).rand(N) < 0.1) & (inc > 0)
+    w = np.where(goss, 8.0, 1.0).astype(np.float32)
+    g, h = g * w, h * w
+    pending = (0, 2, 5)
+    sol = _slot_of_leaf(pending)
+    kw = {}
+    if compacted:
+        perm, counts, starts = _partition(leaf_id, pending)
+        kw = dict(row_idx=perm, n_active=int(counts.sum()),
+                  slot_counts=counts, slot_starts=starts)
+    ours = _port(X, g, h, inc, leaf_id, sol, **kw)
+    assert ours[:, 0, :, 2].sum() == inc[np.isin(leaf_id, pending)].sum()
+    np.testing.assert_array_equal(
+        ours, _jax(jax_hist, X, g, h, inc, leaf_id, sol, **kw))
+    np.testing.assert_array_equal(
+        ours, _jax(ph.build_histograms_pallas, X, g, h, inc, leaf_id, sol,
+                   **(dict(kw, max_rows=N) if compacted else {})))
+
+
+@pytest.mark.parametrize("compacted", [False, True])
 def test_arbitrary_floats_within_hilo_tolerance(compacted):
     X, g, h, inc, leaf_id = _data(seed=21, quantised=False)
     pending = (0, 3, 6)

@@ -180,7 +180,11 @@ def test_model_text_crosses_packages(tmp_path):
 
 def test_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, lightgbm_tpu_torch, lightgbm_tpu_torch.interop, "
-            "lightgbm_tpu_torch.ops.cuda_histogram\n"
+            "lightgbm_tpu_torch.ops.cuda_histogram, "
+            "lightgbm_tpu_torch.utils.prng, lightgbm_tpu_torch.callback, "
+            "lightgbm_tpu_torch.sklearn, lightgbm_tpu_torch.boosting.goss, "
+            "lightgbm_tpu_torch.boosting.dart, "
+            "lightgbm_tpu_torch.boosting.rf\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'lightgbm_tpu' or "
             "m.startswith('lightgbm_tpu.')]\n"
@@ -219,20 +223,21 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"bagging_fraction": 0.5, "bagging_freq": 1}, "A6"),
-    ({"feature_fraction": 0.5}, "A6"),
+    ({"objective": "poisson"}, "A2"),
+    ({"tree_learner": "voting"}, "A16"),
     ({"categorical_feature": "0"}, "A9"),
     ({"enable_bundle": True}, "A11"),
     ({"linear_tree": True}, "A12"),
     ({"objective": "multiclass", "num_class": 3}, "A2"),
     ({"objective": "lambdarank"}, "A2"),
     ({"objective": "huber"}, "A2"),
-    ({"boosting": "dart"}, "A10"),
+    ({"tree_batch": 4, "boosting": "dart"}, "A10"),
     ({"tree_learner": "data"}, "A16"),
     ({"tpu_residency": "stream"}, "A14"),
     ({"tree_batch": 2}, "A10"),
     ({"nan_policy": "raise"}, "A17"),
-    ({"early_stopping_round": 5}, "A8"),
+    ({"checkpoint_dir": "checkpoints"}, "A17"),
+    ({"resume_from": "auto"}, "A17"),
 ])
 def test_unported_configs_raise_with_roadmap_item(params, item):
     X, y = _nan_det()
@@ -240,6 +245,14 @@ def test_unported_configs_raise_with_roadmap_item(params, item):
                 **params)
     with pytest.raises(LightGBMError, match=rf"ROADMAP {item}\b"):
         lgt.train(full, lgt.Dataset(X, label=y), num_boost_round=1)
+
+
+def test_resume_from_argument_raises_naming_a17():
+    X, y = _nan_det()
+    with pytest.raises(LightGBMError, match=r"ROADMAP A17\b"):
+        lgt.train({"objective": "binary", "verbose": -1, "device": "cpu"},
+                  lgt.Dataset(X, label=y), num_boost_round=1,
+                  resume_from="auto")
 
 
 def test_tpu_only_keys_are_accepted_no_ops():
