@@ -27,7 +27,9 @@ Phases (any failure exits non-zero and prints no result line):
    are expected bit-equal), and two launches bit-identical. Times (device
    time, see ``cuda_time_ms``): the kernel, the plain version, one
    ``torch.bincount`` computing the same histogram (timed only), and the
-   memory bound. A child process then feeds the kernel a bin code >= B and
+   memory bound. An eighth case, ``f137``, is ``full`` at 137 features
+   (MS-LTR's width: four feature groups, rows off a 32-bit word), required
+   bit-equal. A child process then feeds the kernel a bin code >= B and
    must see a device-side assert, not a silently dropped row;
 4. main path at full width: a Higgs-shaped synthetic binary problem
    (2,000,000 x 28 f32, 5% NaN in two columns, a planted logit) through
@@ -64,7 +66,33 @@ Phases (any failure exits non-zero and prints no result line):
    count); the binary objective's gradients on the card against the CPU's;
    and four 20,000-row runs (bagging + valid set + early stopping, GOSS on
    L2, DART, RF) on the card against the same package on the CPU: the
-   same splits, predictions within 1e-5, the same ``best_iteration``.
+   same splits, predictions within 1e-5, the same ``best_iteration``;
+7. multiclass at full width: phase 4's features with labels from a planted
+   5-class softmax, ``objective=multiclass, num_class=5``, phase 4's
+   parameters, 5 rounds (25 trees) with a 500,000-row valid set and
+   ``multi_logloss`` (must fall), B1's launches per tree, predictions that
+   are probabilities, a second run with byte-identical model text, and
+   ``multiclassova`` for 2 rounds;
+8. categorical features at full width: the eight columns of the airline
+   delay benchmark over the ASA Data Expo 2009 data (six of them
+   categorical; Origin and Dest with 300 Zipf categories, so ``uint16``
+   codes, ``int16`` on the card), 2,000,000 rows, binary, 10 rounds with a 500,000
+   row valid set and AUC: the codes, how many splits are categorical, the
+   device operations of the categorical scan of one wave, the valid AUC of
+   ``Booster.predict`` (the host route for categorical forests) against the
+   running valid score (within 1e-5), a second run byte-identical;
+9. lambdarank at the MS-LTR shape (``bench.py``'s generator, copied):
+   2,270,296 rows x 137 features in lognormal queries plus held-out
+   queries, 255 leaves, ``min_data_in_leaf=100``, 5 rounds: ms per
+   iteration, the gradient call's ms and device operations, valid
+   ``ndcg@10`` (must rise), a second run byte-identical;
+10. the card against the CPU at 20,000 rows for multiclass, multiclassova,
+   categorical features (one column of 3 categories, so the one-hot mode
+   runs), lambdarank, L1, Huber, Fair, Poisson, xentropy and xentlambda:
+   the same splits and predictions within 1e-5, B1 launched; the cases in
+   ``OBJECTIVE_ULP_CASES`` (ROADMAP C12) may differ only through the
+   objective's arithmetic and must meet the bar with the CPU's gradients on
+   both devices.
 
 The card's line comes before the last two lines; the line before the last
 is one JSON object describing every kernel of the path; the last line is
@@ -138,7 +166,9 @@ def card_line():
     return proc.stdout.strip().splitlines()[0]
 
 
-CASES = ("full", "wrapper", "root", "compact", "uint16", "f27", "sampled")
+CASES = ("full", "wrapper", "root", "compact", "uint16", "f27", "sampled",
+         "f137")
+F137 = 137                         # the MS-LTR width (phase 9)
 
 
 def sampled_weights(g, h, gen):
@@ -202,6 +232,10 @@ def case_inputs(name, dev, gen, X8):
         X27 = torch.randint(0, B, (N, F - 1), generator=gen, device=dev,
                             dtype=torch.int32).to(torch.uint8)
         return X27, B, leaf_id, slot_of_leaf, kw
+    if name == "f137":
+        X137 = torch.randint(0, B, (N, F137), generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.uint8)
+        return X137, B, leaf_id, slot_of_leaf, kw
     return X8, B, leaf_id, slot_of_leaf, kw
 
 
@@ -247,8 +281,8 @@ def kernel_phase(dev):
             fail(f"{name}: g/h error {max_rel:.3e} above {REL_TOL:.3e}")
         if not identical:
             fail(f"{name}: two launches differ (not deterministic)")
-        if name == "sampled" and not bit_equal:
-            fail("sampled: the kernel is not bit-equal to the plain version")
+        if name in ("sampled", "f137") and not bit_equal:
+            fail(f"{name}: the kernel is not bit-equal to the plain version")
         if not bool(torch.isfinite(out1).all()):
             fail(f"{name}: non-finite histogram")
         del out1, out2
@@ -813,6 +847,441 @@ def sampled_phase(ds, X, y, dev):
                 ms_per_iter=ms_iter)
 
 
+NUM_CLASS = 5                      # phase 7, as the reference multiclass example
+MULTI_ROUNDS = 5
+CAT_ROUNDS = 10
+RANK_ROWS, RANK_HOLD = 2_270_296, 227_029    # phase 9: bench.py's MS-LTR cut
+RANK_ROUNDS = 5
+SMALL = 20_000                     # phase 10's rows
+
+
+def multiclass_like(n, seed):
+    """Phase 4's features with labels drawn from a planted 5-class softmax."""
+    import numpy as np
+    X, _ = higgs_like(n, seed)
+    rng = np.random.default_rng(seed + 100)
+    Z = np.nan_to_num(X)
+    logits = np.stack([1.2 * Z[:, 0], Z[:, 1] - 0.8 * Z[:, 3],
+                       0.7 * Z[:, 21] * Z[:, 2], 0.9 * np.log1p(Z[:, 15]),
+                       -0.6 * np.abs(Z[:, 5])], axis=1)
+    p = np.exp(logits - logits.max(axis=1, keepdims=True))
+    p /= p.sum(axis=1, keepdims=True)
+    u = rng.random((n, 1))
+    y = np.minimum((u > np.cumsum(p, axis=1)).sum(axis=1), NUM_CLASS - 1)
+    return X, y.astype(np.float32)
+
+
+def _zipf_choice(rng, k, n, a=1.1):
+    """``n`` draws of ``k`` categories with Zipf weights 1 / rank^a."""
+    import numpy as np
+    p = 1.0 / np.arange(1, k + 1) ** a
+    return rng.choice(k, size=n, p=p / p.sum())
+
+
+def expo_like(n, seed):
+    """The eight columns of the public airline-delay benchmark over the ASA
+    Data Expo 2009 data: Month (12), DayofMonth (31), DayOfWeek (7),
+    UniqueCarrier (22), Origin and Dest (300 each, Zipf), DepTime (hhmm)
+    and Distance (miles); label: departure delay above 15 minutes, from a
+    planted logit with an effect per category. The effects are the same
+    for every ``seed`` (train and valid sets share one model); the rows
+    differ."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    effects = np.random.default_rng(SEED)
+    month = rng.integers(0, 12, n)
+    dom = rng.integers(0, 31, n)
+    dow = rng.integers(0, 7, n)
+    carrier = _zipf_choice(rng, 22, n, 0.8)
+    origin = _zipf_choice(rng, 300, n)
+    dest = _zipf_choice(rng, 300, n)
+    hour = np.clip(rng.normal(13.0, 4.5, n), 0, 23).astype(np.int64)
+    dep = (hour * 100 + rng.integers(0, 60, n)).astype(np.float64)
+    dist = np.clip(rng.lognormal(6.4, 0.6, n), 30, 4962).round()
+    eff = {k: effects.normal(0.0, s, m) for k, s, m in
+           (("month", 0.4, 12), ("dow", 0.3, 7), ("carrier", 0.6, 22),
+            ("origin", 0.8, 300), ("dest", 0.7, 300))}
+    logit = (eff["month"][month] + eff["dow"][dow] + eff["carrier"][carrier]
+             + eff["origin"][origin] + eff["dest"][dest]
+             + 0.15 * (hour - 13) - 1.3)
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.float32)
+    X = np.stack([month, dom, dow, carrier, origin, dest, dep, dist],
+                 axis=1).astype(np.float32)
+    return X, y
+
+
+EXPO_CATEGORICAL = [0, 1, 2, 3, 4, 5]
+
+
+def msltr_like(n_rows, n_features=F137, seed=1, avg_query=120):
+    """MS-LTR-shaped ranking data, as ``bench.py``'s ``_msltr_like``
+    generates it: lognormal query sizes (~120 documents), graded 0-4
+    labels from a noisy latent relevance."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    sizes = []
+    total = 0
+    while total < n_rows:
+        q = max(8, int(rng.lognormal(np.log(avg_query), 0.6)))
+        q = min(q, n_rows - total) if n_rows - total < 8 else q
+        sizes.append(q)
+        total += q
+    sizes[-1] -= total - n_rows
+    X = rng.rand(n_rows, n_features).astype(np.float32)
+    latent = (X[:, 0] * 3 + X[:, 1] * X[:, 2] * 2 - X[:, 3]
+              + np.square(X[:, 4]) * 1.5
+              + rng.randn(n_rows).astype(np.float32) * 0.8)
+    qs = np.quantile(latent, [0.55, 0.75, 0.9, 0.97])
+    y = np.searchsorted(qs, latent).astype(np.float32)
+    return X, y, np.array(sizes, dtype=np.int32)
+
+
+def split_queries(sizes, n_rows):
+    """(train queries, train rows): the queries that fit in ``n_rows``."""
+    import numpy as np
+    cum = np.cumsum(sizes)
+    nq = int(np.searchsorted(cum, n_rows, side="right"))
+    return nq, int(cum[nq - 1])
+
+
+def text_digest(text):
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def multiclass_phase():
+    """Phase 7: multiclass (5 trees per iteration) at full width."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    X, y = multiclass_like(N, SEED + 7)
+    Xv, yv = multiclass_like(NV, SEED + 8)
+    params = dict(MAIN_PARAMS, objective="multiclass", num_class=NUM_CLASS,
+                  metric="multi_logloss")
+    ds = lgt.Dataset(X, label=y)
+    ds.construct(lgt.Config.from_params(params))
+    dv = lgt.Dataset(Xv, label=yv, reference=ds).construct()
+    evals, clock = {}, IterClock()
+    build_histograms_cuda.launches = 0          # the multiclass path starts
+    bst = lgt.train(params, ds, num_boost_round=MULTI_ROUNDS,
+                    valid_sets=[dv], valid_names=["valid"],
+                    evals_result=evals, verbose_eval=False, callbacks=[clock])
+    launches = build_histograms_cuda.launches   # ... and ends here
+    text = bst.model_to_string()
+    n_trees = len(bst.trees)
+    losses = evals["valid"]["multi_logloss"]
+    t0 = time.perf_counter()
+    prob = bst.predict(Xv)
+    pred_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  train {MULTI_ROUNDS} rounds = {n_trees} trees: first "
+          f"iteration {clock.ms(0, 1):.1f} ms, then {clock.ms(1):.1f} ms "
+          f"per iteration (5 trees, valid scoring and multi_logloss "
+          f"included); histogram kernel launches {launches} = "
+          f"{launches / max(n_trees, 1):.1f} passes per tree", flush=True)
+    print(f"  valid multi_logloss by round "
+          f"{', '.join(f'{v:.6f}' for v in losses)}; Booster.predict on "
+          f"{NV} rows {pred_ms:.1f} ms, shape {prob.shape}, rows sum to 1 "
+          f"within {float(np.abs(prob.sum(axis=1) - 1).max()):.2e}",
+          flush=True)
+    if launches <= 0 or n_trees != NUM_CLASS * MULTI_ROUNDS:
+        fail("multiclass: the path did not launch the kernel or grow "
+             f"{NUM_CLASS} trees per round")
+    if not losses[-1] < losses[0] or not np.isfinite(losses).all():
+        fail("multiclass: the valid multi_logloss did not fall")
+    if prob.shape != (NV, NUM_CLASS) or not np.isfinite(prob).all() \
+            or float(np.abs(prob.sum(axis=1) - 1).max()) > 1e-6:
+        fail("multiclass: predictions are not probabilities over 5 classes")
+    again = lgt.train(params, ds, num_boost_round=MULTI_ROUNDS)
+    same = again.model_to_string() == text
+    print(f"  second run: identical model text {same}; sha256 "
+          f"{text_digest(text)}", flush=True)
+    if not same:
+        fail("multiclass: two runs gave different models")
+    del bst, again
+    torch.cuda.empty_cache()
+    ova = dict(params, objective="multiclassova")
+    before = build_histograms_cuda.launches
+    clock = IterClock()
+    ova_bst = lgt.train(ova, ds, num_boost_round=2, callbacks=[clock])
+    ova_launches = build_histograms_cuda.launches - before
+    ova_prob = ova_bst.predict(Xv[:100_000])
+    print(f"  multiclassova 2 rounds: {len(ova_bst.trees)} trees, "
+          f"{clock.ms(0):.1f} ms per iteration, histogram kernel launches "
+          f"{ova_launches}, predictions finite "
+          f"{bool(np.isfinite(ova_prob).all())}", flush=True)
+    if ova_launches <= 0 or len(ova_bst.trees) != 2 * NUM_CLASS \
+            or ova_prob.shape != (100_000, NUM_CLASS) \
+            or not np.isfinite(ova_prob).all():
+        fail("multiclassova did not train")
+    del ova_bst, ds, dv
+    torch.cuda.empty_cache()
+    return dict(launches=launches + ova_launches, ms_per_iter=clock.ms(0))
+
+
+def categorical_phase(dev):
+    """Phase 8: categorical features (uint16 codes) at full width."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.categorical import \
+        per_feature_best_categorical
+    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    X, y = expo_like(N, SEED + 9)
+    Xv, yv = expo_like(NV, SEED + 10)
+    params = dict(MAIN_PARAMS, metric="auc")
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X, label=y, categorical_feature=EXPO_CATEGORICAL)
+    ds.construct(lgt.Config.from_params(params))
+    dv = lgt.Dataset(Xv, label=yv, reference=ds).construct()
+    bin_s = time.perf_counter() - t0
+    evals, clock = {}, IterClock()
+    build_histograms_cuda.launches = 0          # the categorical path starts
+    bst = lgt.train(params, ds, num_boost_round=CAT_ROUNDS, valid_sets=[dv],
+                    valid_names=["valid"], evals_result=evals,
+                    verbose_eval=False, callbacks=[clock],
+                    keep_training_booster=True)
+    launches = build_histograms_cuda.launches   # ... and ends here
+    gbdt = bst._gbdt
+    codes = gbdt.Xb.dtype
+    nbins = gbdt.num_bins.cpu().tolist()
+    text = bst.model_to_string()
+    n_cat = sum(int((np.asarray(t.decision_type) & 1).sum())
+                for t in bst.trees)
+    n_split = sum(t.num_internal for t in bst.trees)
+    aucs = evals["valid"]["auc"]
+    print(f"  host binning {bin_s:.2f} s; codes on the card {codes}, bins "
+          f"per feature {nbins} (padded to {gbdt.spec.num_bins_padded}); "
+          f"train {CAT_ROUNDS} rounds: first iteration "
+          f"{clock.ms(0, 1):.1f} ms, then {clock.ms(1):.1f} ms per "
+          f"iteration; histogram kernel launches {launches}", flush=True)
+    print(f"  categorical splits {n_cat} of {n_split}; valid AUC by round "
+          f"{', '.join(f'{a:.5f}' for a in aucs)}", flush=True)
+    if launches <= 0 or codes != torch.int16:
+        fail("categorical: the path did not launch the kernel on int16 codes")
+    if n_cat <= 0:
+        fail("categorical: no categorical split")
+    # the cat scan once, at the shape a wave gives it (2S touched leaves,
+    # the categorical columns, the padded bins)
+    S2 = 2 * gbdt.spec.hist_slots
+    ci = torch.tensor(gbdt.spec.cat_features, device=dev)
+    Bp = gbdt.spec.num_bins_padded
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    hist = torch.rand((S2, len(ci), Bp, 3), generator=gen, device=dev)
+    hist[..., 0] -= 0.5
+    hist[..., 2] = torch.floor(hist[..., 2] * 400)
+    hist = hist * (torch.arange(Bp, device=dev)[None, None, :, None]
+                   < gbdt.num_bins[ci][None, :, None, None])
+    par = [hist[:, 0, :, j].sum(dim=1) for j in range(3)]
+    spec = gbdt.spec
+
+    def cat_scan():
+        per_feature_best_categorical(
+            hist, *par, gbdt.num_bins[ci], gbdt.missing_code[ci],
+            gbdt.is_cat[ci], **spec.hyperparams(), **spec.cat_hyperparams())
+    scan = device_ops(cat_scan)
+    print(f"  categorical scan of one wave ({S2} leaves x {len(ci)} "
+          f"features x {Bp} bins): {scan[0]} device operations "
+          f"({scan[1]} kernel launches), {scan[2]:.3f} ms device, "
+          f"{sync_ms(cat_scan):.2f} ms host", flush=True)
+    t0 = time.perf_counter()
+    vpred = bst.predict(Xv)
+    pred_ms = (time.perf_counter() - t0) * 1e3
+    vauc = auc_of(vpred, yv)
+    print(f"  Booster.predict on {NV} rows (host route: categorical "
+          f"forest) {pred_ms:.1f} ms; its valid AUC {vauc:.6f}, the running "
+          f"valid score's {aucs[-1]:.6f} (tol 1e-5)", flush=True)
+    if not abs(vauc - aucs[-1]) <= 1e-5 or not aucs[-1] > 0.6:
+        fail("categorical: Booster.predict disagrees with the valid score")
+    del bst, gbdt, hist
+    torch.cuda.empty_cache()
+    again = lgt.train(params, ds, num_boost_round=CAT_ROUNDS)
+    same = again.model_to_string() == text
+    print(f"  second run: identical model text {same}; sha256 "
+          f"{text_digest(text)}", flush=True)
+    if not same:
+        fail("categorical: two runs gave different models")
+    del again, ds, dv
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms_per_iter=clock.ms(1),
+                scan_ops=scan[0], X=X[:SMALL], y=y[:SMALL])
+
+
+def ranking_phase():
+    """Phase 9: lambdarank at the MS-LTR shape."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    Xr, yr, gr = msltr_like(RANK_ROWS + RANK_HOLD)
+    nq, n_tr = split_queries(gr, RANK_ROWS)
+    params = dict(objective="lambdarank", num_leaves=255, max_bin=255,
+                  learning_rate=0.1, min_data_in_leaf=100, verbose=-1,
+                  metric="ndcg", ndcg_eval_at=[10])
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(Xr[:n_tr], label=yr[:n_tr], group=gr[:nq])
+    ds.construct(lgt.Config.from_params(params))
+    dv = lgt.Dataset(Xr[n_tr:], label=yr[n_tr:], group=gr[nq:],
+                     reference=ds).construct()
+    bin_s = time.perf_counter() - t0
+    evals, clock = {}, IterClock()
+    build_histograms_cuda.launches = 0          # the ranking path starts
+    bst = lgt.train(params, ds, num_boost_round=RANK_ROUNDS, valid_sets=[dv],
+                    valid_names=["valid"], evals_result=evals,
+                    verbose_eval=False, callbacks=[clock],
+                    keep_training_booster=True)
+    launches = build_histograms_cuda.launches   # ... and ends here
+    gbdt = bst._gbdt
+    text = bst.model_to_string()
+    ndcg = evals["valid"]["ndcg@10"]
+    obj = gbdt.objective
+
+    def grads():
+        obj.gradients(gbdt.score, gbdt.label, gbdt.weight)
+    gops = device_ops(grads)
+    gms = sync_ms(grads)
+    buckets = [(b["m"], len(b["doc_idx"])) for b in obj.buckets]
+    print(f"  {n_tr} training rows in {nq} queries, {len(gr) - nq} held-out "
+          f"queries ({len(yr) - n_tr} rows), {F137} features; host binning "
+          f"{bin_s:.2f} s; query buckets (padded length, queries) "
+          f"{buckets}", flush=True)
+    print(f"  train {RANK_ROUNDS} rounds: first iteration "
+          f"{clock.ms(0, 1):.1f} ms, then {clock.ms(1):.1f} ms per iteration "
+          f"(valid ndcg@10 included); histogram kernel launches "
+          f"{launches}; gradient call {gms:.2f} ms, {gops[0]} device "
+          f"operations ({gops[1]} kernel launches, {gops[2]:.2f} ms device)",
+          flush=True)
+    print(f"  valid ndcg@10 by round {', '.join(f'{v:.5f}' for v in ndcg)}",
+          flush=True)
+    if launches <= 0:
+        fail("lambdarank: the path never launched the histogram kernel")
+    if not ndcg[-1] > ndcg[0] or not np.isfinite(ndcg).all():
+        fail("lambdarank: the valid ndcg@10 did not rise")
+    del bst, gbdt, obj
+    torch.cuda.empty_cache()
+    again = lgt.train(params, ds, num_boost_round=RANK_ROUNDS)
+    same = again.model_to_string() == text
+    print(f"  second run: identical model text {same}; sha256 "
+          f"{text_digest(text)}", flush=True)
+    if not same:
+        fail("lambdarank: two runs gave different models")
+    del again, ds, dv
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms_per_iter=clock.ms(1), grad_ops=gops,
+                grad_ms=gms, X=Xr[:SMALL], y=yr[:SMALL],
+                group=gr[:split_queries(gr, SMALL)[0]])
+
+
+# Phase-10 cases that leave the CPU's result through the objective's
+# transcendental functions alone (ROADMAP C12): torch's ``exp`` on the card
+# and on the CPU round apart by an ulp or more (C2), and a split whose gain
+# is 0 in exact arithmetic (a leaf whose rows share one g/h ratio, as the
+# rows of one earlier leaf do) falls on either side of 0 by that rounding;
+# L1's leaf values divide by a small sum of Gaussian hessians. Such a case
+# must give the CPU's splits and predictions when both devices get the
+# same gradients, computed on the CPU.
+OBJECTIVE_ULP_CASES = ("multiclass", "regression_l1",
+                       "categorical (sorted and one-hot)")
+
+
+def host_gradient_fobj(params, label, group, n):
+    """``fobj`` giving both devices the objective's gradients computed on
+    the CPU (the same bits), so that only the training path differs."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.dataset import Metadata
+    from lightgbm_tpu_torch.objectives import create_objective
+    obj = create_objective(lgt.Config.from_params(params))
+    meta = Metadata(n)
+    meta.set_label(label)
+    meta.set_group(group)
+    obj.init(meta, n)
+    lab = torch.as_tensor(np.asarray(label, np.float32))
+
+    def fobj(preds, _dataset):
+        score = torch.as_tensor(np.asarray(preds, np.float32).reshape(-1, n))
+        g, h = obj.gradients(score, lab, None)
+        return g.numpy().reshape(-1), h.numpy().reshape(-1)
+    return fobj
+
+
+def card_vs_cpu_phase(X, cat, rank):
+    """Phase 10: the same package on the card and on the CPU, 20,000 rows:
+    the same splits, predictions within 1e-5, the kernel launched."""
+    import numpy as np
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    Xs = X[:SMALL]
+    Xm, ym = multiclass_like(SMALL, SEED + 11)
+    z = np.nan_to_num(Xs[:, 0]) + 0.5 * np.nan_to_num(Xs[:, 3])
+    rng = np.random.default_rng(SEED + 12)
+    Xc = np.concatenate([cat["X"], (cat["X"][:, 2:3] % 3)], axis=1)
+    nr = int(np.sum(rank["group"]))
+    small = dict(MAIN_PARAMS, num_leaves=63)
+    cases = {           # name: (params, X, label, Dataset kwargs)
+        "multiclass": (dict(small, objective="multiclass", num_class=5),
+                       Xm, ym, {}),
+        "multiclassova": (dict(small, objective="multiclassova",
+                               num_class=5), Xm, ym, {}),
+        "categorical (sorted and one-hot)": (
+            small, Xc, cat["y"],
+            {"categorical_feature": EXPO_CATEGORICAL + [8]}),
+        "lambdarank": (dict(small, objective="lambdarank",
+                            min_data_in_leaf=100), rank["X"][:nr],
+                       rank["y"][:nr], {"group": rank["group"]}),
+        "regression_l1": (dict(small, objective="regression_l1"), Xs, z, {}),
+        "huber": (dict(small, objective="huber"), Xs, z, {}),
+        "fair": (dict(small, objective="fair"), Xs, z, {}),
+        "poisson": (dict(small, objective="poisson"), Xs,
+                    rng.poisson(np.exp(0.5 * np.tanh(z))).astype(np.float32),
+                    {}),
+        "xentropy": (dict(small, objective="xentropy"), Xs,
+                     1.0 / (1.0 + np.exp(-z)), {}),
+        "xentlambda": (dict(small, objective="xentlambda"), Xs,
+                       1.0 / (1.0 + np.exp(-z)), {}),
+    }
+    total = 0
+    for name, (p, Xc_, yc, kw) in cases.items():
+        def run(device_params, fobj=None):
+            return lgt.train(dict(p, **device_params),
+                             lgt.Dataset(Xc_, label=yc, **kw),
+                             num_boost_round=5, fobj=fobj)
+        before = build_histograms_cuda.launches
+        on_card = run({})
+        launched = build_histograms_cuda.launches - before
+        total += launched
+        on_cpu = run({"device": "cpu"})
+        splits = same_trees(on_card, on_cpu)
+        pdiff = float(np.abs(on_card.predict(Xc_)
+                             - on_cpu.predict(Xc_)).max())
+        print(f"  {len(yc)} rows, {name}: same splits {splits} "
+              f"({len(on_card.trees)} trees), max prediction diff "
+              f"{pdiff:.3e} (tol 1e-5), histogram kernel launches "
+              f"{launched}", flush=True)
+        if launched <= 0:
+            fail(f"{len(yc)} rows, {name}: the kernel never launched")
+        if splits and pdiff <= 1e-5:
+            continue
+        if name not in OBJECTIVE_ULP_CASES:
+            fail(f"{len(yc)} rows, {name}: the card disagrees with the CPU")
+        # C12: the same case with the CPU's gradients on both devices
+        hp = dict(p, objective="none",
+                  num_class=on_card.num_model_per_iteration)
+        fobj = host_gradient_fobj(dict(p, device="cpu"), yc, kw.get("group"),
+                                  len(yc))
+        card_h, cpu_h = run(dict(hp), fobj), run(dict(hp, device="cpu"), fobj)
+        h_splits = same_trees(card_h, cpu_h)
+        h_diff = float(np.abs(card_h.predict(Xc_, raw_score=True)
+                              - cpu_h.predict(Xc_, raw_score=True)).max())
+        print(f"    with the CPU's gradients on both (C12): same splits "
+              f"{h_splits}, max raw prediction diff {h_diff:.3e}",
+              flush=True)
+        if not h_splits or not h_diff <= 1e-5:
+            fail(f"{len(yc)} rows, {name}: the card disagrees with the CPU "
+                 "on the same gradients")
+    return dict(launches=total)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", default="",
@@ -863,10 +1332,28 @@ def main():
     print(f"phase 6: sampled and validated path (bagging 0.8 every 5, "
           f"feature_fraction 0.8, {NV} valid rows, early stopping; GOSS; "
           f"card vs CPU)", flush=True)
-    sres = sampled_phase(*mres.pop("data"), dev)
-    print(f"  histogram kernel launches: phase 4 {mres['launches']}, phase 6 "
-          f"sampled {sres['launches']} + GOSS {sres['goss_launches']}",
+    sres = sampled_phase(*mres["data"], dev)
+    print(f"phase 7: multiclass at full width (2M x 28, {NUM_CLASS} classes, "
+          f"255 leaves, {MULTI_ROUNDS} rounds; multiclassova 2 rounds)",
           flush=True)
+    cres = multiclass_phase()
+
+    print(f"phase 8: categorical at full width (Expo-shaped 2M x 8, six "
+          f"categorical columns, {CAT_ROUNDS} rounds, {NV} valid rows)",
+          flush=True)
+    gres = categorical_phase(dev)
+
+    print(f"phase 9: lambdarank at the MS-LTR shape ({RANK_ROWS} rows x "
+          f"{F137}, {RANK_ROUNDS} rounds)", flush=True)
+    rres = ranking_phase()
+
+    print(f"phase 10: card vs CPU, {SMALL} rows, the new objectives and "
+          f"categorical features", flush=True)
+    xres = card_vs_cpu_phase(mres["data"][1], gres, rres)
+    print(f"  histogram kernel launches: phase 4 {mres['launches']}, phase 6 "
+          f"sampled {sres['launches']} + GOSS {sres['goss_launches']}, "
+          f"phase 7 {cres['launches']}, phase 8 {gres['launches']}, phase 9 "
+          f"{rres['launches']}, phase 10 {xres['launches']}", flush=True)
 
     full = kres["full"]
     kernels = {"kernels": [{
@@ -874,7 +1361,8 @@ def main():
         "source": "lightgbm_tpu_torch/csrc/histogram.cu",
         "replaces": "lightgbm_tpu/ops/pallas_histogram.py:59",
         "launches": mres["launches"] + sres["launches"]
-        + sres["goss_launches"],
+        + sres["goss_launches"] + cres["launches"] + gres["launches"]
+        + rres["launches"] + xres["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kres.values()),
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],

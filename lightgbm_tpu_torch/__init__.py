@@ -8,12 +8,14 @@ package's one Pallas kernel — is a CUDA C++ kernel written for ``sm_90a``
 (``csrc/histogram.cu``), built with ``nvcc`` at first use. This package
 imports neither JAX nor ``lightgbm_tpu``.
 
-Ported: ``boosting=gbdt|goss|dart|rf`` with the binary or L2 objective (or
-custom gradients), bagging and feature_fraction with ``jax.random``'s bits,
-valid sets, early stopping, callbacks, ``cv``, the binary/regression
-sklearn wrappers, ``tree_learner=serial``, dense numerical features (NaN
-handling included), data resident on the device. Everything else raises
-with its ROADMAP item.
+Ported: ``boosting=gbdt|goss|dart|rf`` with every objective of the JAX
+package (regression L2/L1/Huber/Fair/Poisson, binary, multiclass softmax
+and one-vs-all, cross-entropy and its lambda form, lambdarank with query
+groups) or custom gradients, bagging and feature_fraction with
+``jax.random``'s bits, valid sets, early stopping, callbacks, ``cv``, the
+sklearn wrappers, ``tree_learner=serial``, dense numerical and categorical
+features (NaN handling included), data resident on the device. Everything
+else raises with its ROADMAP item.
 """
 
 __version__ = "0.1.0"

@@ -3,11 +3,13 @@
 :556, Booster at :1234).
 
 ``Booster.predict`` walks the forest on the booster's device
-(``ops/predict.py``) for large batches, like the JAX package, and on the
-host for small ones; ``model_to_string`` / ``save_model`` and loading from
-model text use the copied ``io/model_text.py``, so a model trained by
-either package loads in the other. The prediction device is the config's
-``device`` (CUDA unless ``device=cpu``).
+(``ops/predict.py``) for large batches, one class at a time, like the JAX
+package, and on the host for small ones (and for a forest holding a
+categorical split, as the JAX package does); ``model_to_string`` /
+``save_model`` and loading from model text use the copied
+``io/model_text.py``, so a model trained by either package loads in the
+other. The prediction device is the config's ``device`` (CUDA unless
+``device=cpu``).
 """
 from __future__ import annotations
 
@@ -28,9 +30,10 @@ DEVICE_PREDICT_MIN_WORK = 1_000_000
 
 class Dataset:
     """Lazily constructed dataset (reference basic.py:556): dense numerical
-    features binned on the host at first use. A set built with
-    ``reference=`` (a validation set) is binned with the reference's
-    mappers (the analog of LoadFromFileAlignWithOtherDataset)."""
+    and categorical features binned on the host at first use, with optional
+    query sizes (``group``). A set built with ``reference=`` (a validation
+    set) is binned with the reference's mappers (the analog of
+    LoadFromFileAlignWithOtherDataset)."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, group=None, init_score=None,
@@ -43,16 +46,13 @@ class Dataset:
         if hasattr(data, "tocsr"):
             Log.fatal("sparse input is not ported to lightgbm_tpu_torch yet "
                       "(ROADMAP A1)")
-        if group is not None:
-            Log.fatal("query/group data (ranking) is not ported to "
-                      "lightgbm_tpu_torch yet (ROADMAP A2)")
         self.raw_data = np.asarray(data, dtype=np.float64)
         if self.raw_data.ndim == 1:
             self.raw_data = self.raw_data.reshape(1, -1)
         self.label = None if label is None else np.asarray(label).reshape(-1)
         self.reference = reference
         self.weight = weight
-        self.group = None
+        self.group = group
         self.init_score = init_score
         self.feature_name = None if feature_name == "auto" else feature_name
         self.categorical_feature = None if categorical_feature == "auto" \
@@ -74,13 +74,15 @@ class Dataset:
             if self.label is not None:
                 meta.set_label(self.label)
             meta.set_weight(self.weight)
+            meta.set_group(self.group)
             meta.set_init_score(self.init_score)
             self._metadata = meta
         else:
             cfg = config or Config.from_params(self.params)
             self._constructed = construct_dataset(
                 self.raw_data, self.label, cfg, weight=self.weight,
-                init_score=self.init_score, feature_names=self.feature_name,
+                group=self.group, init_score=self.init_score,
+                feature_names=self.feature_name,
                 categorical_features=self.categorical_feature)
         if self.free_raw_data:
             self.raw_data = None
@@ -145,7 +147,10 @@ class Dataset:
         return self.group
 
     def set_group(self, group) -> "Dataset":
-        Metadata(0).set_group(group)          # raises for ranking data (A2)
+        self.group = group
+        sink = self._meta_sink()
+        if sink is not None:
+            sink.set_group(group)
         return self
 
     def get_field(self, name):
@@ -184,11 +189,26 @@ class Dataset:
             is_arr = np.asarray(self.init_score)
             init_score = is_arr[idx] if is_arr.ndim == 1 and \
                 len(is_arr) == self.num_data() else is_arr
+        group = None
+        if self.group is not None:
+            # whole queries only, in query order (the JAX package's rule,
+            # basic.py:334-351): the subset's group array stays well formed
+            sizes = np.asarray(self.group, dtype=np.int64)
+            qid = np.repeat(np.arange(len(sizes)), sizes)
+            if len(qid) != self.num_data():
+                Log.fatal("group sizes do not sum to num_data")
+            full = np.unique(qid[idx])
+            if len(idx) != int(sizes[full].sum()) or \
+                    np.any(np.diff(qid[idx]) < 0):
+                Log.fatal("Cannot subset a grouped Dataset except by whole "
+                          "queries in query order (ranking cv folds at "
+                          "query granularity)")
+            group = sizes[full]
         return Dataset(self.raw_data[idx],
                        label=None if self.label is None else self.label[idx],
                        weight=None if self.weight is None
                        else np.asarray(self.weight)[idx],
-                       init_score=init_score,
+                       group=group, init_score=init_score,
                        params=params or self.params,
                        feature_name=self.feature_name or "auto",
                        categorical_feature=self.categorical_feature or "auto")
@@ -390,10 +410,12 @@ class Booster:
             return out[0] if K == 1 else np.concatenate(list(out), axis=1)
         N = X.shape[0]
         raw = np.zeros((K, N), dtype=np.float64)
-        if K == 1 and N * max(len(use_trees), 1) >= DEVICE_PREDICT_MIN_WORK:
+        if N * max(len(use_trees), 1) >= DEVICE_PREDICT_MIN_WORK:
             from .ops.predict import forest_predict_raw
-            raw[0] = forest_predict_raw(use_trees, X, self.num_total_features,
-                                        resolve_device(self.config))
+            dev = resolve_device(self.config)
+            for k in range(K):
+                raw[k] = forest_predict_raw(use_trees[k::K], X,
+                                            self.num_total_features, dev)
         else:
             for i, t in enumerate(use_trees):
                 raw[i % K] += t.predict(X)

@@ -352,11 +352,20 @@ class BinMapper:
                 np.copyto(bins, self.num_bin - 1, where=nan_mask)
         else:
             # categorical: negative / unseen -> last bin (bin.h:476-486)
-            bins = np.full(values.shape, self.num_bin - 1, dtype=np.int32)
             int_vals = np.where(np.isnan(values), -1, values).astype(np.int64)
-            for cat, b in self.categorical_2_bin.items():
-                bins[int_vals == cat] = b
-            bins[int_vals < 0] = self.num_bin - 1
+            # one sorted lookup instead of a pass per category (the same
+            # codes as the JAX package's loop over categorical_2_bin)
+            cats = np.array(sorted(c for c in self.categorical_2_bin
+                                   if c >= 0), dtype=np.int64)
+            to_bin = np.array([self.categorical_2_bin[c] for c in cats],
+                              dtype=np.int32)
+            pos = np.minimum(np.searchsorted(cats, int_vals),
+                             max(len(cats) - 1, 0))
+            hit = (cats[pos] == int_vals) if len(cats) \
+                else np.zeros(values.shape, bool)
+            bins = np.where(hit & (int_vals >= 0),
+                            to_bin[pos] if len(cats) else 0,
+                            self.num_bin - 1).astype(np.int32)
         if out is not None:
             np.copyto(out, bins, casting="unsafe")
             return out

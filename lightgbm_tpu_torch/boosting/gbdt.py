@@ -44,6 +44,15 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def _class_major(init_score, K: int, n: int) -> np.ndarray:
+    """An init score as ``[K, n]`` f32: ``K * n`` values in class-major
+    order, or ``n`` values given to every class (gbdt.py:776-782)."""
+    arr = np.asarray(init_score, np.float32).reshape(-1)
+    if len(arr) == K * n:
+        return arr.reshape(K, n)
+    return np.tile(arr.reshape(1, n), (K, 1))
+
+
 class ValidSet(MetadataDuckTyping):
     """A validation set on the booster's device: binned codes, labels,
     metrics and its running raw scores ``[K, n]``. The mixin gives user
@@ -82,7 +91,9 @@ class GBDT:
         self.train_set = train_set
         self.device = resolve_device(config)
         self.objective = create_objective(config)   # None: objective=none
-        self.num_models = 1
+        self.num_models = self.objective.num_models if self.objective \
+            else max(config.num_class, 1)
+        K = self.num_models
         N = train_set.num_data
         F = train_set.num_features
         self.num_data = N
@@ -91,7 +102,8 @@ class GBDT:
             self.objective.init(md, N)
 
         meta = train_set.feature_meta_arrays()
-        self.spec = self._make_spec(config, F, train_set.max_num_bin)
+        self.spec = self._make_spec(config, F, train_set.max_num_bin,
+                                    meta["is_categorical"])
         self.comm = SerialComm(F)
 
         dev = self.device
@@ -110,7 +122,7 @@ class GBDT:
         self.num_bins = torch.as_tensor(meta["num_bins"], device=dev)
         self.missing_code = torch.as_tensor(meta["missing_code"], device=dev)
         self.default_bin = torch.as_tensor(meta["default_bin"], device=dev)
-        self.is_cat = torch.zeros(F, dtype=torch.bool, device=dev)
+        self.is_cat = torch.as_tensor(meta["is_categorical"], device=dev)
         self.feature_ok = torch.ones(F, dtype=torch.bool, device=dev)
 
         # feature_fraction: number of features used per tree (gbdt.py:756)
@@ -126,14 +138,14 @@ class GBDT:
         # ---- initial scores (boost_from_average, gbdt.cpp:357-377) ------
         self.init_score_value = 0.0
         has_init = md.init_score is not None
-        if config.boost_from_average and not has_init \
+        if config.boost_from_average and not has_init and K == 1 \
                 and self.objective is not None:
             avg = self.objective.boost_from_average_score()
             if avg is not None and abs(avg) > 1e-15:
                 self.init_score_value = float(avg)
-        base = np.full((1, N), self.init_score_value, dtype=np.float32)
+        base = np.full((K, N), self.init_score_value, dtype=np.float32)
         if has_init:
-            base += np.asarray(md.init_score, np.float32).reshape(1, N)
+            base += _class_major(md.init_score, K, N)
         self.score = torch.as_tensor(base, device=dev)
 
         self.models: List[List[TreeArrays]] = []
@@ -153,7 +165,8 @@ class GBDT:
         self.bag_mask = self.pad_mask
 
     @staticmethod
-    def _make_spec(config: Config, F: int, max_num_bin: int) -> GrowerSpec:
+    def _make_spec(config: Config, F: int, max_num_bin: int,
+                   is_categorical: np.ndarray) -> GrowerSpec:
         num_leaves = config.max_leaves_by_depth
         slots = config.tpu_hist_slots or max(1, min(25, num_leaves - 1))
         slots = max(1, min(slots, num_leaves))
@@ -172,6 +185,12 @@ class GBDT:
             min_gain_to_split=config.min_gain_to_split,
             row_compact=config.tpu_row_compact,
             compact_frac=config.tpu_compact_frac,
+            cat_features=tuple(int(i) for i in np.nonzero(is_categorical)[0]),
+            cat_smooth=config.cat_smooth,
+            cat_l2=config.cat_l2,
+            max_cat_threshold=config.max_cat_threshold,
+            max_cat_to_onehot=config.max_cat_to_onehot,
+            min_data_per_group=float(config.min_data_per_group),
         )
 
     def _objective_name(self) -> Optional[str]:
@@ -188,8 +207,7 @@ class GBDT:
         base = np.full((self.num_models, nv), self.init_score_value,
                        dtype=np.float32)
         if metadata.init_score is not None:
-            base += np.asarray(metadata.init_score, np.float32).reshape(
-                self.num_models, nv)
+            base += _class_major(metadata.init_score, self.num_models, nv)
         vs.score = torch.as_tensor(base, device=self.device)
         self.valid_sets.append(vs)
         self._undo = None
@@ -387,11 +405,13 @@ class GBDT:
                            and new_config.bagging_fraction < 1.0)
         changes = {}
         for field in ("lambda_l1", "lambda_l2", "min_gain_to_split",
-                      "min_sum_hessian_in_leaf"):
+                      "min_sum_hessian_in_leaf", "cat_smooth", "cat_l2",
+                      "max_cat_threshold", "max_cat_to_onehot"):
             if getattr(old, field) != getattr(new_config, field):
                 changes[field] = getattr(new_config, field)
-        if old.min_data_in_leaf != new_config.min_data_in_leaf:
-            changes["min_data_in_leaf"] = float(new_config.min_data_in_leaf)
+        for field in ("min_data_in_leaf", "min_data_per_group"):
+            if getattr(old, field) != getattr(new_config, field):
+                changes[field] = float(getattr(new_config, field))
         if changes:
             self.spec = dataclasses.replace(self.spec, **changes)
         if old.feature_fraction != new_config.feature_fraction:

@@ -25,6 +25,8 @@ class RF(GBDT):
                 and 0.0 < config.bagging_fraction < 1.0):
             Log.fatal("RF mode requires 0 < bagging_fraction < 1 and "
                       "bagging_freq > 0")
+        if self.num_models != 1:
+            Log.fatal("Cannot use RF for multi-class (rf.hpp:42)")
         Log.info("Using random forest")
 
     def _gradients(self, score):

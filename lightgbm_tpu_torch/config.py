@@ -876,19 +876,12 @@ def _unported(what: str, item: str) -> None:
 def check_port_supported(config: "Config") -> None:
     """Raise on every configuration the port does not cover yet.
 
-    The port covers ``boosting=gbdt|goss|dart|rf`` with the binary or L2
-    objective (or custom gradients, ``objective=none``), bagging and
-    feature_fraction, ``tree_learner=serial``, dense numerical features and
-    resident data. Each refusal names the ROADMAP queue item that will port
-    it; none of these settings is ever silently ignored."""
-    from .objectives import OBJECTIVE_ALIASES
-    obj = OBJECTIVE_ALIASES.get(config.objective, config.objective)
-    if obj not in ("binary", "regression", "none"):
-        _unported(f"objective={config.objective}", "A2")
-    if config.num_class > 1:
-        _unported(f"num_class={config.num_class}", "A2")
-    if config.categorical_column:
-        _unported("categorical features", "A9")
+    The port covers ``boosting=gbdt|goss|dart|rf`` with every objective of
+    the JAX package (or custom gradients, ``objective=none``), query groups,
+    bagging and feature_fraction, ``tree_learner=serial``, dense numerical
+    and categorical features and resident data. Each refusal names the
+    ROADMAP queue item that will port it; none of these settings is ever
+    silently ignored."""
     if config.enable_bundle == "true":
         _unported("enable_bundle=true", "A11")
     if config.linear_tree:

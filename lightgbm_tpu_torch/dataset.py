@@ -7,8 +7,10 @@ The whole training matrix becomes ONE dense ``[num_data, num_features]``
 code matrix — ``uint8``, or ``uint16`` when a feature has more than 256
 bins, as the JAX package picks (``lightgbm_tpu/dataset.py:504``) — binned on
 the host feature by feature through the copied :mod:`binning` mappers, and
-moved to the device once by the booster. Left out of this slice (they
-raise): sparse input, categorical features, deferred device ingest and EFB.
+moved to the device once by the booster. Categorical columns (named by
+index or name, ``lightgbm_tpu/dataset.py:473-479``) are binned by
+descending category count. Left out (they raise): sparse input, deferred
+device ingest and EFB.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ class Metadata:
         self.label = np.zeros(num_data, dtype=np.float32)
         self.weight: Optional[np.ndarray] = None
         self.query_boundaries: Optional[np.ndarray] = None
+        self.query_weights: Optional[np.ndarray] = None
         self.init_score: Optional[np.ndarray] = None
 
     def set_label(self, label: Sequence[float]) -> None:
@@ -59,9 +62,22 @@ class Metadata:
         self.init_score = np.asarray(init_score, dtype=np.float64).reshape(-1)
 
     def set_group(self, group) -> None:
-        if group is not None:
-            Log.fatal("query/group data (ranking) is not ported to "
-                      "lightgbm_tpu_torch yet (ROADMAP A2)")
+        """``group`` is per-query sizes (python API) -> boundaries
+        (reference: metadata.cpp SetQuery)."""
+        if group is None:
+            self.query_boundaries = None
+            return
+        group = np.asarray(group, dtype=np.int64).reshape(-1)
+        boundaries = np.concatenate([[0], np.cumsum(group)])
+        if boundaries[-1] != self.num_data:
+            Log.fatal("Sum of query counts (%d) != num_data (%d)",
+                      boundaries[-1], self.num_data)
+        self.query_boundaries = boundaries.astype(np.int32)
+
+    @property
+    def num_queries(self) -> int:
+        return 0 if self.query_boundaries is None \
+            else len(self.query_boundaries) - 1
 
 
 class MetadataDuckTyping:
@@ -76,7 +92,8 @@ class MetadataDuckTyping:
         return self.metadata.weight
 
     def get_group(self):
-        return None
+        qb = self.metadata.query_boundaries
+        return None if qb is None else np.diff(qb)
 
     def get_init_score(self):
         return self.metadata.init_score
@@ -148,7 +165,10 @@ class ConstructedDataset(MetadataDuckTyping):
              for m in self.mappers], dtype=np.int32)
         default_bin = np.array([m.default_bin for m in self.mappers],
                                dtype=np.int32)
-        return {"missing_code": missing_code, "default_bin": default_bin,
+        is_categorical = np.array(
+            [m.bin_type == BIN_CATEGORICAL for m in self.mappers], dtype=bool)
+        return {"is_categorical": is_categorical,
+                "missing_code": missing_code, "default_bin": default_bin,
                 "num_bins": self.num_bins_per_feature}
 
 
@@ -189,6 +209,7 @@ def construct_dataset(
     label: Optional[Sequence[float]],
     config: Config,
     weight: Optional[Sequence[float]] = None,
+    group: Optional[Sequence[int]] = None,
     init_score: Optional[Sequence[float]] = None,
     feature_names: Optional[List[str]] = None,
     categorical_features: Optional[Sequence[Union[int, str]]] = None,
@@ -201,15 +222,18 @@ def construct_dataset(
     if hasattr(data, "tocsc"):
         Log.fatal("sparse input is not ported to lightgbm_tpu_torch yet "
                   "(ROADMAP A1)")
-    if categorical_features:
-        Log.fatal("categorical features are not ported to lightgbm_tpu_torch "
-                  "yet (ROADMAP A9)")
     data = np.ascontiguousarray(data)
     if data.ndim != 2:
         Log.fatal("Training data must be 2-dimensional")
     num_data, num_total_features = data.shape
     if feature_names is None:
         feature_names = [f"Column_{i}" for i in range(num_total_features)]
+    # categorical columns by index or name, from the argument and the config
+    cat_set = set()
+    for c in categorical_features or ():
+        cat_set.add(feature_names.index(c) if isinstance(c, str) else int(c))
+    cat_set.update(_parse_column_spec(config.categorical_column,
+                                      feature_names))
     ignore_set = set(_parse_column_spec(config.ignore_column, feature_names))
 
     # sampling (dataset_loader.cpp:688-746)
@@ -223,10 +247,10 @@ def construct_dataset(
 
     def _find_one(j: int) -> BinMapper:
         mapper = BinMapper()
+        bin_type = BIN_CATEGORICAL if j in cat_set else BIN_NUMERICAL
         mapper.find_bin(per_feature_samples[j], total_sample_cnt,
                         config.max_bin, config.min_data_in_bin, filter_cnt,
-                        BIN_NUMERICAL, config.use_missing,
-                        config.zero_as_missing)
+                        bin_type, config.use_missing, config.zero_as_missing)
         return mapper
 
     active = [j for j in range(num_total_features) if j not in ignore_set]
@@ -236,7 +260,6 @@ def construct_dataset(
     if not features:
         Log.warning("There are no meaningful features, as all feature "
                     "values are constant.")
-    assert all(f.mapper.bin_type != BIN_CATEGORICAL for f in features)
     dtype = (np.uint8 if all(f.mapper.num_bin <= 256 for f in features)
              else np.uint16)
 
@@ -249,6 +272,7 @@ def construct_dataset(
     if label is not None:
         metadata.set_label(label)
     metadata.set_weight(weight)
+    metadata.set_group(group)
     metadata.set_init_score(init_score)
     return ConstructedDataset(X_binned, features, num_total_features,
                               metadata, feature_names, config)

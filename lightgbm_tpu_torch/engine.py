@@ -199,6 +199,30 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
     n = train_set.num_data()
     label = train_set.get_label()
     rng = np.random.default_rng(seed)
+    group_sizes = None if train_set.group is None \
+        else np.asarray(train_set.group, dtype=np.int64)
+    if folds is None and group_sizes is not None:
+        # ranking: folds of whole queries, so that each fold keeps its
+        # group structure (the JAX package's engine.py:497-520)
+        nq = len(group_sizes)
+        if nfold > nq:
+            raise ValueError(f"Cannot have number of folds={nfold} greater "
+                             f"than the number of queries={nq}")
+        q_order = np.arange(nq)
+        if shuffle:
+            rng.shuffle(q_order)
+        bounds = np.concatenate([[0], np.cumsum(group_sizes)])
+        q_chunks = np.array_split(q_order, nfold)
+
+        def rows_of(queries):
+            return np.concatenate(
+                [np.arange(bounds[q], bounds[q + 1])
+                 for q in np.sort(queries)]) if len(queries) \
+                else np.array([], np.int64)
+
+        folds = [(rows_of(np.concatenate([c for j, c in enumerate(q_chunks)
+                                          if j != f])),
+                  rows_of(q_chunks[f])) for f in range(nfold)]
     if folds is None:
         idx = np.arange(n)
         if stratified and label is not None and len(np.unique(label)) <= \
@@ -221,10 +245,14 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
                      for f in range(nfold)]
 
     fold_records = []
+    qid = None if group_sizes is None else np.repeat(
+        np.arange(len(group_sizes)), group_sizes)
     for tr_idx, te_idx in folds:
         tr = train_set.subset(tr_idx, params=dict(train_set.params))
         te = Dataset(train_set.raw_data[te_idx],
                      label=None if label is None else label[te_idx],
+                     group=None if qid is None
+                     else group_sizes[np.unique(qid[te_idx])],
                      reference=tr)
         evals_result: Dict = {}
         train(params, tr, num_boost_round=num_boost_round, valid_sets=[te],

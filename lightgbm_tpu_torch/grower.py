@@ -115,12 +115,30 @@ class GrowerSpec:
     row_compact: bool = True      # passes over the pending segments
     compact_frac: float = 0.25    # ...on the CPU, when fewer than this
                                   # share is pending (always on the card)
+    # categorical split search (reference config.h:230-234)
+    cat_features: tuple = ()      # inner indices of categorical features;
+                                  # the scan runs on these columns only
+    cat_smooth: float = 10.0
+    cat_l2: float = 10.0
+    max_cat_threshold: int = 32
+    max_cat_to_onehot: int = 4
+    min_data_per_group: float = 100.0
 
     def hyperparams(self) -> Dict[str, float]:
         return dict(lambda_l1=self.lambda_l1, lambda_l2=self.lambda_l2,
                     min_data_in_leaf=self.min_data_in_leaf,
                     min_sum_hessian_in_leaf=self.min_sum_hessian_in_leaf,
                     min_gain_to_split=self.min_gain_to_split)
+
+    @property
+    def use_categorical(self) -> bool:
+        return bool(self.cat_features)
+
+    def cat_hyperparams(self) -> Dict[str, float]:
+        return dict(cat_smooth=self.cat_smooth, cat_l2=self.cat_l2,
+                    max_cat_threshold=self.max_cat_threshold,
+                    max_cat_to_onehot=self.max_cat_to_onehot,
+                    min_data_per_group=self.min_data_per_group)
 
 
 def _empty_tree(L: int, B: int, device) -> TreeArrays:
@@ -165,9 +183,11 @@ def _apply_wave_splits(state: GrowState, new_hist: torch.Tensor,
                        missing_code: torch.Tensor, default_bin: torch.Tensor):
     """Steps 3-6 of a wave plus the ``[L+1, 6]`` routing table, updating
     ``state`` in place except the per-row fields (leaf_id and the
-    partition), which the caller owns. Returns ``(table, p, q, n_apply)``
-    with ``p``/``q`` the per-slot split / new right leaves (``L`` where no
-    split was applied)."""
+    partition), which the caller owns. Returns ``(table, map_mask, p, q,
+    n_apply)`` with ``map_mask`` the ``[L+1, B]`` categorical left sets of
+    the split leaves (None without categorical features) and ``p``/``q``
+    the per-slot split / new right leaves (``L`` where no split was
+    applied)."""
     L = spec.num_leaves
     M = L - 1
     S = spec.hist_slots
@@ -291,13 +311,23 @@ def _apply_wave_splits(state: GrowState, new_hist: torch.Tensor,
     table[L] = torch.tensor([-1, 0, -1, 0, 0, 0], dtype=torch.int32,
                             device=dev)
 
+    map_mask = None
+    if spec.use_categorical:
+        map_mask = torch.zeros((L + 1, cand.cat_mask.shape[1]),
+                               dtype=torch.bool, device=dev)
+        map_mask[p] = cand.cat_mask[p]
+        map_mask[L] = False
+
     state.done = n_apply == 0 or nl + n_apply >= L
     state.num_leaves_cur = nl + n_apply
-    return table, p, q, n_apply
+    return table, map_mask, p, q, n_apply
 
 
-def _route_rows(X: torch.Tensor, lid: torch.Tensor, table: torch.Tensor):
-    """Step 7: apply one wave's routing table to the rows of ``X``.
+def _route_rows(X: torch.Tensor, lid: torch.Tensor, table: torch.Tensor,
+                map_mask: Optional[torch.Tensor] = None):
+    """Step 7: apply one wave's routing table to the rows of ``X``; with
+    ``map_mask`` a categorical split sends a row left iff its bin is in the
+    leaf's left set (reference Tree::CategoricalDecision, tree.h:257-284).
     Returns ``(leaf_id, f_row, go_left, right_row)``; the last three feed
     the partition maintenance (step 8)."""
     packed = table_lookup(lid.long(), table)                    # [N, 6]
@@ -309,6 +339,12 @@ def _route_rows(X: torch.Tensor, lid: torch.Tensor, table: torch.Tensor):
     f_safe = torch.clamp(f_row, min=0).long()
     x_bin = torch.gather(X, 1, f_safe[:, None])[:, 0].to(torch.int32)
     go_left = torch.where(x_bin == miss_row, dl_row, x_bin <= thr_row)
+    if map_mask is not None:
+        # one gather from the flat [L+1, B] mask (the JAX package's
+        # one-hot lookup is a TPU idiom)
+        B = map_mask.shape[1]
+        go_left_cat = map_mask.reshape(-1)[lid.long() * B + x_bin.long()]
+        go_left = torch.where(packed[:, 5] != 0, go_left_cat, go_left)
     leaf_id = torch.where(f_row >= 0, torch.where(go_left, lid, right_row),
                           lid)
     return leaf_id, f_row, go_left, right_row
@@ -380,8 +416,10 @@ def grow_tree(
     dev = X.device
     X_hist = comm.hist_X(X)
     F_cache = comm.reduced_hist_features(X_hist.shape[1])
+    cat_idx = torch.tensor(spec.cat_features, dtype=torch.long, device=dev) \
+        if spec.use_categorical else None
     bm = comm.block_meta(feature_ok, num_bins, missing_code, default_bin,
-                         is_cat)
+                         is_cat, cat_idx)
     rg, rh, rc = comm.reduce_scalars(*root_sums(grad, hess, included))
     # one fixed-point scale per tree for g and one for h (ops/histogram.py)
     scales = histogram_scales(grad, hess)
@@ -448,14 +486,14 @@ def grow_tree(
         # ---- 3-6 + routing table ------------------------------------------
         nl_before = state.num_leaves_cur
         with record_function("wave.split"):
-            table, p, q, _ = _apply_wave_splits(
+            table, map_mask, p, q, _ = _apply_wave_splits(
                 state, new_hist, leaf_of_slot, bm, spec, comm, num_bins,
                 missing_code, default_bin)
 
         # ---- 7. route the rows of split leaves ----------------------------
         with record_function("wave.route"):
             leaf_id, f_row, go_left, right_row = _route_rows(
-                X, state.leaf_id, table)
+                X, state.leaf_id, table, map_mask)
 
         # ---- 8. incremental partition maintenance -------------------------
         with record_function("wave.partition"):

@@ -14,8 +14,10 @@ rank, and the device walks every tree with integer compares only — so
 traversal is exact and agrees with the host predictor row for row. Missing
 values follow NumericalDecision (tree.h:218-243) through per-(row,
 feature) NaN / zero masks. Leaf values are summed in f64 on the device.
-Categorical splits are not in this slice (ROADMAP A9); a forest holding
-one raises.
+The rank-encoded walk covers numerical splits; a forest holding a
+categorical split is predicted by the host ``Tree.predict`` instead, said
+once per process, as the JAX package does (predict.py:423-440). The
+binned-data walk takes categorical nodes by their left-set masks.
 """
 from __future__ import annotations
 
@@ -23,13 +25,19 @@ import numpy as np
 import torch
 
 from ..binning import K_ZERO_RANGE
+from ..utils.log import Log
+
+# the host route for categorical forests is said once per process
+_CATEGORICAL_HOST_ROUTE = {"logged": False}
 
 
 def leaves_from_binned(tree, Xb: torch.Tensor, num_bins: torch.Tensor,
                        missing_code: torch.Tensor, default_bin: torch.Tensor
                        ) -> torch.Tensor:
     """Leaf index ``[N]`` of every row of a binned matrix, for one grower
-    ``TreeArrays`` (numerical splits)."""
+    ``TreeArrays``; a categorical node sends a row left iff its bin is in
+    the node's left set (reference Tree::CategoricalDecision,
+    tree.h:257-284)."""
     N = Xb.shape[0]
     sf = tree.split_feature.long()
     mc, nb, db = missing_code[sf], num_bins[sf], default_bin[sf]
@@ -37,6 +45,9 @@ def leaves_from_binned(tree, Xb: torch.Tensor, num_bins: torch.Tensor,
     cur = torch.zeros(N, dtype=torch.int64, device=Xb.device)
     if int(tree.num_leaves) <= 1:
         return torch.zeros(N, dtype=torch.int32, device=Xb.device)
+    has_cat = bool(tree.is_cat.any())
+    B = tree.cat_mask.shape[1]
+    flat_mask = tree.cat_mask.reshape(-1)
     for _ in range(tree.leaf_value.shape[0]):     # depth <= num_leaves
         at_node = cur >= 0
         if not bool(at_node.any()):
@@ -46,6 +57,9 @@ def leaves_from_binned(tree, Xb: torch.Tensor, num_bins: torch.Tensor,
         b = torch.gather(Xb, 1, f[:, None])[:, 0].to(torch.int32)
         go_left = torch.where(b == miss_bin[nid], tree.default_left[nid],
                               b <= tree.threshold_bin[nid])
+        if has_cat:
+            go_left = torch.where(tree.is_cat[nid],
+                                  flat_mask[nid * B + b.long()], go_left)
         child = torch.where(go_left, tree.left_child[nid],
                             tree.right_child[nid]).long()
         cur = torch.where(at_node, child, cur)
@@ -60,14 +74,13 @@ def add_tree_scores(score: torch.Tensor, tree, leaf_ids: torch.Tensor
 
 
 class StackedForest:
-    """Host-built stacked arrays for a list of model-space Trees
-    (numerical splits), rank-encoded for the integer device walk."""
+    """Host-built stacked arrays for a list of model-space Trees,
+    rank-encoded for the integer device walk of their numerical splits
+    (``has_categorical``: the forest goes to the host instead)."""
 
     def __init__(self, trees, num_features: int):
-        if any((np.asarray(t.decision_type) & 1).any() for t in trees):
-            raise NotImplementedError(
-                "categorical splits are not ported to lightgbm_tpu_torch's "
-                "forest walk yet (ROADMAP A9)")
+        self.has_categorical = any(
+            (np.asarray(t.decision_type) & 1).any() for t in trees)
         T = len(trees)
         M = max([t.num_internal for t in trees] + [1])
         L = max([t.num_leaves for t in trees] + [1])
@@ -174,8 +187,20 @@ def forest_predict_raw(trees, X: np.ndarray, num_features: int, device,
     """Raw-score batch prediction of a forest on ``device``: f64 ``[N]``.
 
     Rows are rank-encoded on the host in chunks, walked on the device, and
-    their leaf values summed over trees in f64 there."""
+    their leaf values summed over trees in f64 there. A forest holding a
+    categorical split is predicted by the host ``Tree.predict``, as in the
+    JAX package (predict.py:423-440)."""
     forest = StackedForest(trees, num_features)
+    if forest.has_categorical:
+        if not _CATEGORICAL_HOST_ROUTE["logged"]:
+            _CATEGORICAL_HOST_ROUTE["logged"] = True
+            Log.info("forest holds categorical splits: batch predict takes "
+                     "the host Tree.predict for it, as the JAX package does")
+        Xh = np.asarray(X, np.float64)
+        out = np.zeros(Xh.shape[0], np.float64)
+        for t in trees:
+            out += t.predict(Xh)
+        return out
     dev = forest.to(device)
     leaf_value = torch.as_tensor(forest.leaf_value, device=device)
     t_iota = torch.arange(forest.num_trees, device=device)[None, :]

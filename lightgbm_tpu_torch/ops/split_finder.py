@@ -19,9 +19,9 @@ then one argmax. Semantics kept exactly, tie-breaks included:
 - ties: reverse before forward, then the lowest threshold, then the lowest
   feature (``torch.argmax`` returns the first maximal index).
 
-Categorical and bundle-space scans are not in this slice (ROADMAP A9,
-A11); ``SplitCandidates`` keeps their fields so the tree arrays match the
-JAX package's layout.
+The categorical scan is ``ops/categorical.py``; ``reduce_features``
+carries its left sets to the winner. The bundle-space scan (EFB) is ROADMAP
+A11.
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ class SplitCandidates(NamedTuple):
     left_g: torch.Tensor        # f32 sum of gradients in the left child
     left_h: torch.Tensor        # f32
     left_c: torch.Tensor        # f32 row count in the left child
-    is_cat: torch.Tensor        # bool: categorical split (always False here)
+    is_cat: torch.Tensor        # bool: categorical split
     cat_mask: torch.Tensor      # bool [S, B]: categorical left set
 
 
@@ -69,6 +69,18 @@ def leaf_output(sum_g, sum_h, l1: float, l2: float):
     out = -torch.sign(sum_g) * reg / denom
     return torch.where((denom > 0) & torch.isfinite(out), out,
                        torch.zeros_like(out))
+
+
+def prefix_sums(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive f32 prefix sums over the bin axis, added in f64: the card's
+    ``cumsum`` adds in a tree order and the CPU's in a row, so f32 sums
+    would round apart and a split whose gain is 0 in exact arithmetic (a
+    leaf whose rows share one g/h ratio) could come out above 0 on one and
+    below on the other. In f64 the sums of at most a few thousand f32 bins
+    are exact whenever their magnitudes lie within 2^29 of each other, and
+    the f32 result is then the same on both, and equal to f32 addition on
+    exact-arithmetic (quantised) histograms."""
+    return torch.cumsum(x.double(), dim=-1).float()
 
 
 def per_feature_best_numerical(
@@ -109,9 +121,9 @@ def per_feature_best_numerical(
     excl = (excl_full & full_mode[:, None]) | ~valid_bin             # [F, B]
     inc = (~excl).to(torch.float32)[None, :, :]                      # [1, F, B]
 
-    cum_g = torch.cumsum(g * inc, dim=2)
-    cum_h = torch.cumsum(h * inc, dim=2)
-    cum_c = torch.cumsum(c * inc, dim=2)
+    cum_g = prefix_sums(g * inc)
+    cum_h = prefix_sums(h * inc)
+    cum_c = prefix_sums(c * inc)
     tot_g = cum_g[..., -1:]
     tot_h = cum_h[..., -1:]
     tot_c = cum_c[..., -1:]
@@ -196,9 +208,11 @@ def per_feature_best_numerical(
 
 
 def reduce_features(pf: PerFeatureBest, feature_offset: int = 0,
-                    num_bins_padded: int = 0) -> SplitCandidates:
+                    num_bins_padded: int = 0, is_cat=None,
+                    cat_mask=None) -> SplitCandidates:
     """Argmax over the feature axis -> one candidate per slot (the lowest
-    feature index wins a tie)."""
+    feature index wins a tie). ``is_cat`` ``[F]`` and ``cat_mask`` ``[S, F,
+    B]`` carry the categorical left sets through to the winner."""
     S, F = pf.gain.shape
     dev = pf.gain.device
     f_idx = torch.argmax(pf.gain, dim=1)                             # [S]
@@ -207,7 +221,13 @@ def reduce_features(pf: PerFeatureBest, feature_offset: int = 0,
     def gather(arr):
         return arr[srange, f_idx]
 
-    B = num_bins_padded or 1
+    if is_cat is None:
+        B = num_bins_padded or 1
+        win_cat = torch.zeros(S, dtype=torch.bool, device=dev)
+        win_mask = torch.zeros((S, B), dtype=torch.bool, device=dev)
+    else:
+        win_cat = is_cat[f_idx]
+        win_mask = cat_mask[srange, f_idx]                           # [S, B]
     return SplitCandidates(
         gain=gather(pf.gain),
         feature=(f_idx + feature_offset).to(torch.int32),
@@ -216,8 +236,8 @@ def reduce_features(pf: PerFeatureBest, feature_offset: int = 0,
         left_g=gather(pf.left_g),
         left_h=gather(pf.left_h),
         left_c=gather(pf.left_c),
-        is_cat=torch.zeros(S, dtype=torch.bool, device=dev),
-        cat_mask=torch.zeros((S, B), dtype=torch.bool, device=dev),
+        is_cat=win_cat,
+        cat_mask=win_mask,
     )
 
 

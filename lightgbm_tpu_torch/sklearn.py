@@ -1,10 +1,9 @@
 """scikit-learn API wrappers (reference: python-package/lightgbm/sklearn.py:137-770);
 port of ``lightgbm_tpu/sklearn.py``.
 
-``LGBMRegressor`` and binary ``LGBMClassifier`` train through this
-package's ``train`` (pass ``device="cpu"`` to run on the host); more than
-two classes and ``LGBMRanker`` raise until multiclass and ranking are
-ported (ROADMAP A2).
+``LGBMRegressor``, ``LGBMClassifier`` (binary, or multiclass for more than
+two classes) and ``LGBMRanker`` (lambdarank with ``group``) train through
+this package's ``train`` (pass ``device="cpu"`` to run on the host).
 """
 from __future__ import annotations
 
@@ -419,9 +418,8 @@ class LGBMClassifier(_SKClassifier, LGBMModel):
                                          vy_arr).astype(np.float64)))
             kwargs["eval_set"] = enc_set
         if self._n_classes > 2:
-            Log.fatal("LGBMClassifier with %d classes needs the multiclass "
-                      "objective, which is not ported to lightgbm_tpu_torch "
-                      "yet (ROADMAP A2)", self._n_classes)
+            self._objective = self.objective or "multiclass"
+            self._other_params["num_class"] = self._n_classes
         else:
             self._objective = self.objective or "binary"
         return super().fit(X, y_enc, **kwargs)
@@ -481,5 +479,12 @@ class LGBMRanker(LGBMModel):
         self._objective = kwargs.get("objective", "lambdarank")
 
     def fit(self, X, y, group=None, eval_at=None, **kwargs):
-        Log.fatal("LGBMRanker needs the lambdarank objective, which is not "
-                  "ported to lightgbm_tpu_torch yet (ROADMAP A2)")
+        if group is None:
+            Log.fatal("Should set group for ranking task")
+        # NDCG truncation positions (reference LGBMRanker.fit's eval_at ->
+        # params['ndcg_eval_at']): fit-scoped, so that they stay out of
+        # get_params()/clone
+        if eval_at is not None:
+            self._fit_params_extra = {"ndcg_eval_at": list(
+                eval_at if hasattr(eval_at, "__iter__") else [eval_at])}
+        return super().fit(X, y, group=group, **kwargs)

@@ -412,3 +412,33 @@ def test_root_sums_are_rounded_f64_sums():
     assert float(rg) == np.float32(g.astype(np.float64).sum())
     assert float(rh) == np.float32(np.abs(g).astype(np.float64).sum())
     assert float(rc) == 10_000.0
+
+
+@pytest.mark.parametrize("compacted", [False, True])
+def test_f137_bit_equal_to_jax(compacted):
+    """The MS-LTR width: 137 uint8 features at B=256. On the card that is
+    four feature groups of 36, 36, 36 and 29 features with rows of 137
+    bytes (not whole 32-bit words), the ``f137`` case of ``chip_smoke.py``;
+    the plain version must equal the JAX package's ``build_histograms``."""
+    assert feature_groups(137, 256, 1) == (36, 4)
+    nf, nb, n = 137, 256, 2048
+    rng = np.random.RandomState(137)
+    X = rng.randint(0, nb, size=(n, nf)).astype(np.uint8)
+    inc = (rng.rand(n) > 0.2).astype(np.float32)
+    g = (rng.randint(-255, 256, n) / 256.0).astype(np.float32) * inc
+    h = (rng.randint(0, 256, n) / 256.0).astype(np.float32) * inc
+    leaf_id = rng.randint(0, LEAVES - 1, size=n).astype(np.int32)
+    pending = (1, 3, 6, 7)
+    sol = _slot_of_leaf(pending)
+    kw = {}
+    if compacted:
+        perm = np.argsort(leaf_id, kind="stable").astype(np.int32)
+        counts = np.bincount(leaf_id, minlength=LEAVES)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        kw = dict(row_idx=perm, n_active=int(counts[list(pending)].sum()),
+                  slot_counts=counts[list(pending)].astype(np.int32),
+                  slot_starts=starts[list(pending)].astype(np.int32))
+    ours = _port(X, g, h, inc, leaf_id, sol, num_bins=nb, **kw)
+    assert ours.shape == (S, nf, nb, 3)
+    ref = _jax(jax_hist, X, g, h, inc, leaf_id, sol, num_bins=nb, **kw)
+    np.testing.assert_array_equal(ours, ref)

@@ -23,7 +23,8 @@ from lightgbm_tpu.ops.split_finder import \
 from lightgbm_tpu_torch.interop import to_numpy, to_torch
 from lightgbm_tpu_torch.ops.split_finder import (find_best_splits_numerical,
                                                  leaf_output,
-                                                 leaf_split_gain)
+                                                 leaf_split_gain,
+                                                 prefix_sums)
 
 S, B = 5, 16
 # per feature: (num_bins, missing_code, default_bin)
@@ -151,3 +152,24 @@ def test_leaf_math_matches_jax():
             leaf_split_gain(torch.tensor(g), torch.tensor(h) + 1, l1,
                             l2).numpy(),
             np.asarray(jg(jnp.asarray(g), jnp.asarray(h) + 1, l1, l2)))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_prefix_sums_do_not_depend_on_the_addition_order(seed):
+    """The scan's prefix sums add f32 bins in f64 and round once: the card's
+    tree-ordered ``cumsum`` and the CPU's sequential one then give the same
+    bits (ROADMAP C11), which f32 addition does not."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(7, 256) * np.exp2(rng.randint(-10, 10, (7, 256))))
+    x = x.astype(np.float32)
+    ours = prefix_sums(torch.as_tensor(x)).numpy()
+    exact = np.cumsum(x.astype(np.float64), axis=1)
+    np.testing.assert_array_equal(ours, exact.astype(np.float32))
+    # a tree order of the same additions: pairwise sums of halves
+    half = x[:, :128].astype(np.float64).sum(1) + \
+        x[:, 128:].astype(np.float64).sum(1)
+    np.testing.assert_array_equal(ours[:, -1], half.astype(np.float32))
+    f32_seq = np.cumsum(x, axis=1, dtype=np.float32)[:, -1]
+    f32_tree = x[:, :128].sum(1, dtype=np.float32) + \
+        x[:, 128:].sum(1, dtype=np.float32)
+    assert not np.array_equal(f32_seq, f32_tree)

@@ -223,14 +223,15 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"objective": "poisson"}, "A2"),
+    ({"objective": "poisson", "tpu_residency": "stream"}, "A14"),
     ({"tree_learner": "voting"}, "A16"),
-    ({"categorical_feature": "0"}, "A9"),
+    ({"categorical_feature": "0", "enable_bundle": True}, "A11"),
     ({"enable_bundle": True}, "A11"),
     ({"linear_tree": True}, "A12"),
-    ({"objective": "multiclass", "num_class": 3}, "A2"),
-    ({"objective": "lambdarank"}, "A2"),
-    ({"objective": "huber"}, "A2"),
+    ({"objective": "multiclass", "num_class": 3, "linear_tree": True},
+     "A12"),
+    ({"objective": "lambdarank", "tree_batch": 3}, "A10"),
+    ({"objective": "huber", "tree_learner": "feature"}, "A16"),
     ({"tree_batch": 4, "boosting": "dart"}, "A10"),
     ({"tree_learner": "data"}, "A16"),
     ({"tpu_residency": "stream"}, "A14"),

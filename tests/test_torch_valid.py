@@ -17,7 +17,8 @@ Bars:
 - ``cv``: JAX's keys and lengths, means within 1e-6;
 - sklearn: ``best_iteration_`` equal to JAX's wrappers', predictions
   within 1e-5; ``clone``/``get_params`` round-trip; ``LGBMRanker`` and more
-  than two classes raise naming ROADMAP A2.
+  than two classes train (their parity is ``test_torch_ranking.py``), an
+  unported configuration raises naming its ROADMAP item.
 """
 import numpy as np
 import pytest
@@ -271,8 +272,15 @@ def test_sklearn_matches_jax(objective):
 
 
 def test_sklearn_unported_raise_naming_a2():
+    """What A2 refused (a ranker, more than two classes) now trains; a
+    wrapper given a configuration still unported raises naming its item."""
     Xt, yt = _data("binary")[:2]
-    with pytest.raises(LightGBMError, match=r"ROADMAP A2\b"):
-        lgt.LGBMRanker(device="cpu").fit(Xt, yt, group=[NT])
-    with pytest.raises(LightGBMError, match=r"ROADMAP A2\b"):
-        lgt.LGBMClassifier(device="cpu").fit(Xt, np.arange(NT) % 3)
+    ranker = lgt.LGBMRanker(device="cpu", n_estimators=2).fit(
+        Xt, yt, group=[NT])
+    assert ranker.predict(Xt).shape == (NT,)
+    clf = lgt.LGBMClassifier(device="cpu", n_estimators=2).fit(
+        Xt, np.arange(NT) % 3)
+    assert clf.predict_proba(Xt).shape == (NT, 3)
+    with pytest.raises(LightGBMError, match=r"ROADMAP A12\b"):
+        lgt.LGBMClassifier(device="cpu", linear_tree=True).fit(
+            Xt, np.arange(NT) % 3)
