@@ -29,8 +29,11 @@ Phases (any failure exits non-zero and prints no result line):
    ``torch.bincount`` computing the same histogram (timed only), and the
    memory bound. An eighth case, ``f137``, is ``full`` at 137 features
    (MS-LTR's width: four feature groups, rows off a 32-bit word), required
-   bit-equal. A child process then feeds the kernel a bin code >= B and
-   must see a device-side assert, not a silently dropped row;
+   bit-equal; ``efb`` and ``efb_compact`` feed it bundled codes at the
+   Bosch shape under EFB (1,184,000 rows x 121 bundled columns, B = 64; 25
+   slots over every row, or about 10% of the rows in 25 of 250 leaves),
+   required bit-equal. A child process then feeds the kernel a bin code >= B
+   and must see a device-side assert, not a silently dropped row;
 4. main path at full width: a Higgs-shaped synthetic binary problem
    (2,000,000 x 28 f32, 5% NaN in two columns, a planted logit) through
    ``lgt.Dataset`` -> ``lgt.train`` (binary, 255 leaves, max_bin 255,
@@ -92,7 +95,36 @@ Phases (any failure exits non-zero and prints no result line):
    the same splits and predictions within 1e-5, B1 launched; the cases in
    ``OBJECTIVE_ULP_CASES`` (ROADMAP C12) may differ only through the
    objective's arithmetic and must meet the bar with the CPU's gradients on
-   both devices.
+   both devices. Six more cases at the same bar: EFB on a Bosch-shaped CSR
+   cut at ``enable_bundle=auto``, EFB with a categorical column, EFB with
+   ``max_conflict_rate=0.05`` on near-exclusive data, EFB with ``uint16``
+   bundles (a 511-bin column), and linear leaves on L2 (``bench.py``'s
+   piecewise-linear data) and on binary with NaN; each checks that bundling
+   (or the linear fit) engaged on the card;
+11. EFB at the Bosch shape (``bench.py``'s generator, copied): 1,184,000 x
+   968 CSR, about 9% dense, binary, 255 leaves, the default
+   ``enable_bundle=auto``, 10 rounds with a 200,000-row CSR valid set and
+   AUC: the plan (121 bundles of 64 padded bins required) and the ``auto``
+   decision, the code matrix's bytes bundled and unbundled, host binning
+   seconds, ms per iteration, B1 passes per tree, the device operations of
+   the bundle-space scan and of the bundled routing of one wave,
+   ``Booster.predict`` on the CSR valid set (its AUC within 1e-5 of the
+   running score's), a second run byte-identical; ``enable_bundle=false``
+   on the same data (ms per iteration, and how many split features and
+   thresholds differ from the bundled run on binary gradients); and on
+   exact-arithmetic gradients (a 1/4 grid, unit hessians) the bundled and
+   the unbundled run must give the same model text;
+12. linear leaves at the main path's width: phase 4's data,
+   ``linear_tree=true, linear_lambda=0.01``, 255 leaves, 10 rounds, the
+   500,000-row valid set: ms per iteration, the fit's device operations and
+   ms (moments and solve apart), linear and degraded leaves, train and
+   valid AUC beside phase 4's constant leaves, ``Booster.predict`` of 2M
+   rows on the device's linear walk and its largest difference from the
+   host ``Tree.predict`` on 10,000 rows (within 1e-5), a second run
+   byte-identical.
+
+``--phases 3,11`` runs only the listed phases (and those they need); such a
+partial run prints no result lines and exits 4.
 
 The card's line comes before the last two lines; the line before the last
 is one JSON object describing every kernel of the path; the last line is
@@ -167,8 +199,11 @@ def card_line():
 
 
 CASES = ("full", "wrapper", "root", "compact", "uint16", "f27", "sampled",
-         "f137")
+         "f137", "efb", "efb_compact")
 F137 = 137                         # the MS-LTR width (phase 9)
+# the Bosch shape under EFB (phase 11): 1,184,000 rows, 968 sparse features
+# in 121 bundles of at most 57 codes (8 members x 7 values + code 0)
+BOSCH_ROWS, BOSCH_F, BOSCH_G, BOSCH_BB = 1_184_000, 968, 121, 64
 
 
 def sampled_weights(g, h, gen):
@@ -239,6 +274,32 @@ def case_inputs(name, dev, gen, X8):
     return X8, B, leaf_id, slot_of_leaf, kw
 
 
+def efb_case_inputs(name, dev, gen):
+    """(X, B, leaf_id, slot_of_leaf, kwargs) of the ``efb`` cases: bundled
+    codes at the Bosch shape (code 0, every member at its default, in a
+    quarter of the rows, else one of 56 member codes), 25 slots holding
+    every row (``efb``) or about 10% of them in 25 of 250 leaves
+    (``efb_compact``)."""
+    import torch
+    n = BOSCH_ROWS
+    codes = torch.randint(1, 57, (n, BOSCH_G), generator=gen, device=dev,
+                          dtype=torch.int32)
+    codes[torch.rand((n, BOSCH_G), generator=gen, device=dev) < 0.25] = 0
+    X = codes.to(torch.uint8)
+    slot_of_leaf = torch.full((256,), -1, dtype=torch.int32, device=dev)
+    if name == "efb":
+        leaf_id = torch.randint(0, S, (n,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        pending = torch.arange(S, device=dev)
+    else:
+        leaf_id = torch.randint(0, 250, (n,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        pending = torch.arange(0, 250, 10, device=dev)
+    slot_of_leaf[pending] = torch.arange(S, dtype=torch.int32, device=dev)
+    return X, BOSCH_BB, leaf_id, slot_of_leaf, _partition_kw(leaf_id,
+                                                             pending, 256)
+
+
 def kernel_phase(dev):
     """Phase 3: the histogram kernel against its plain version."""
     import torch
@@ -253,10 +314,14 @@ def kernel_phase(dev):
     ones = torch.ones(N, device=dev)
     results = {}
     for name in CASES:
-        X, nb, leaf_id, slot_of_leaf, kw = case_inputs(name, dev, gen, X8)
+        if name.startswith("efb"):
+            X, nb, leaf_id, slot_of_leaf, kw = efb_case_inputs(name, dev, gen)
+        else:
+            X, nb, leaf_id, slot_of_leaf, kw = case_inputs(name, dev, gen, X8)
         nf = X.shape[1]
+        nx = X.shape[0]
         gw, hw, inc = sampled_weights(g, h, gen) if name == "sampled" \
-            else (g, h, ones)
+            else (g[:nx], h[:nx], ones[:nx])
         scales = histogram_scales(gw, hw)
         args = (X, gw, hw, inc, leaf_id, slot_of_leaf, S, nb)
         plain = build_histograms(*args, scales=scales, **kw)
@@ -281,7 +346,8 @@ def kernel_phase(dev):
             fail(f"{name}: g/h error {max_rel:.3e} above {REL_TOL:.3e}")
         if not identical:
             fail(f"{name}: two launches differ (not deterministic)")
-        if name in ("sampled", "f137") and not bit_equal:
+        if name in ("sampled", "f137", "efb", "efb_compact") \
+                and not bit_equal:
             fail(f"{name}: the kernel is not bit-equal to the plain version")
         if not bool(torch.isfinite(out1).all()):
             fail(f"{name}: non-finite histogram")
@@ -311,7 +377,7 @@ def kernel_phase(dev):
         # of every row of the pass, plus its position (perm) or, without a
         # partition, every row's leaf id; the output written once
         row_bytes = nf * X.element_size() + 3 * 4
-        where_bytes = N * 4 + (255 + 1) * 4 if name == "wrapper" \
+        where_bytes = nx * 4 + (255 + 1) * 4 if name == "wrapper" \
             else n_rows * 4 + 2 * S * 4
         nbytes = n_rows * row_bytes + where_bytes + S * nf * nb * 3 * 4
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -503,7 +569,7 @@ def main_path_phase():
         if (max_bin > 255) != (codes == torch.int16):
             fail(f"max_bin {max_bin}: {codes} codes on the card")
     return dict(launches=launches, ms_per_iter=ms_per_iter, auc=auc,
-                booster=again, data=(ds, X, y))
+                booster=again, data=(ds, X, y), text=text)
 
 
 # the profiler ranges grower.py opens around each wave step
@@ -703,7 +769,7 @@ def sampled_phase(ds, X, y, dev):
     ms_iter = clock.ms(1)
     text = bst.model_to_string()
     vs = gbdt.valid_sets[0]
-    walk_ms = sync_ms(lambda: gbdt._tree_contrib(gbdt.models[-1][0], vs.Xb))
+    walk_ms = sync_ms(lambda: gbdt._valid_contrib(gbdt.models[-1][0], vs))
     eval_ms = sync_ms(lambda: gbdt.eval_all())
     mask_mean = float(gbdt.bag_mask.mean())
     print(f"  train {n_iter} rounds (early stopping after {SAMPLED_STOP}): "
@@ -1171,6 +1237,391 @@ def ranking_phase():
                 group=gr[:split_queries(gr, SMALL)[0]])
 
 
+def bosch_like(n_rows, n_features=BOSCH_F, group_size=8, p_active=0.75,
+               seed=2):
+    """Bosch-shaped wide sparse binary data (``bench.py``'s ``_bosch_like``,
+    copied): the reference's Bosch workload is 1.184M x 968 and about 81%
+    sparse (its ``docs/GPU-Performance.rst``). Features come in mutually
+    exclusive blocks of ``group_size`` (station/sensor one-hot groups, the
+    pattern EFB exists for), each row active in a block with probability
+    ``p_active``; values are sensor codes k/8. Returns (CSR f32, labels)."""
+    import numpy as np
+    from scipy import sparse as sp
+    rng = np.random.RandomState(seed)
+    n_groups = n_features // group_size
+    rows = np.arange(n_rows, dtype=np.int32)
+    r_idx, c_idx, vals = [], [], []
+    for g in range(n_groups):
+        active = rng.rand(n_rows) < p_active
+        member = rng.randint(0, group_size, n_rows)[active]
+        r_idx.append(rows[active])
+        c_idx.append((g * group_size + member).astype(np.int32))
+        vals.append((rng.randint(1, 8, member.size) / 8.0).astype(np.float32))
+    X = sp.csr_matrix(
+        (np.concatenate(vals), (np.concatenate(r_idx),
+                                np.concatenate(c_idx))),
+        shape=(n_rows, n_features))
+    d0 = np.asarray(X[:, :3 * group_size].todense())
+    latent = (d0[:, 0] * 3 + d0[:, group_size] * 2
+              - d0[:, 2 * group_size] + d0[:, 1] * d0[:, group_size + 1] * 4)
+    y = (latent + rng.randn(n_rows).astype(np.float32) * 0.4
+         > np.median(latent)).astype(np.float32)
+    return X, y
+
+
+def near_exclusive(n_rows, n_features=30, seed=1):
+    """One-hot rows of sensor codes k/8 over ``n_features`` with 2% of the
+    rows dense, so that every pair of features conflicts on about 2% of
+    the rows: bundling needs ``max_conflict_rate`` above that (the shape of
+    the JAX package's ``tests/test_efb.py`` conflict case)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    X = np.zeros((n_rows, n_features), np.float32)
+    picks = rng.randint(0, n_features, n_rows)
+    X[np.arange(n_rows), picks] = rng.randint(1, 8, n_rows) / 8.0
+    dense = rng.choice(n_rows, n_rows // 50, replace=False)
+    X[dense] = rng.randint(1, 8, (len(dense), n_features)) / 8.0
+    y = ((picks % 2) ^ (rng.rand(n_rows) < 0.1)).astype(np.float32)
+    return X, y
+
+
+def piecewise_linear_data(n_rows, f=8, seed=17):
+    """``bench.py``'s ``_piecewise_linear_data`` (copied): the target's slope
+    switches with the sign of feature 0, with 1% NaN cells."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    X = (rng.randn(n_rows, f) * 2.0).astype(np.float64)
+    X[rng.rand(n_rows, f) < 0.01] = np.nan
+    y = np.where(np.nan_to_num(X[:, 0]) > 0,
+                 3.0 * np.nan_to_num(X[:, 1]) + 1.0,
+                 -2.0 * np.nan_to_num(X[:, 2]) + 0.5) \
+        + 0.05 * rng.randn(n_rows)
+    return X, y
+
+
+BOSCH_VALID = 200_000              # phase 11's valid rows
+EFB_ROUNDS = 10
+EXACT_ROUNDS = 5
+LINEAR_ROUNDS = 10
+
+
+def compare_splits(a, b):
+    """(same splits, differing nodes, nodes, the first difference) of two
+    boosters; a difference is (tree, node, feature and threshold in a,
+    gain in a, feature and threshold in b, gain in b)."""
+    import numpy as np
+    n_diff = n_nodes = 0
+    first = None
+    for ti, (ta, tb) in enumerate(zip(a.trees, b.trees)):
+        n = min(ta.num_internal, tb.num_internal)
+        n_nodes += max(ta.num_internal, tb.num_internal)
+        d = np.nonzero((ta.split_feature[:n] != tb.split_feature[:n])
+                       | (ta.threshold[:n] != tb.threshold[:n]))[0]
+        n_diff += len(d) + abs(ta.num_internal - tb.num_internal)
+        if first is None and (len(d) or ta.num_internal != tb.num_internal):
+            k = int(d[0]) if len(d) else n
+            first = (ti, k,
+                     [(int(t.split_feature[k]), float(t.threshold[k]),
+                       float(t.split_gain[k])) if k < t.num_internal
+                      else None for t in (ta, tb)])
+    same = n_diff == 0 and len(a.trees) == len(b.trees)
+    return same, n_diff, n_nodes, first
+
+
+def quarter_residuals(preds, dataset):
+    """Custom gradients on a grid of 1/4 with unit hessians: the sums of
+    up to 2^22 rows stay exact in f32, in any order of addition."""
+    import numpy as np
+    y = dataset.get_label()
+    g = np.clip(np.round((preds - y) * 4) / 4.0, -2.0, 2.0)
+    return g.astype(np.float32), np.ones_like(g, dtype=np.float32)
+
+
+def efb_phase(dev):
+    """Phase 11: EFB at the Bosch shape, from CSR input, at the default
+    ``enable_bundle=auto``."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.grower import _route_rows
+    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    from lightgbm_tpu_torch.parallel.comm import BlockMeta, find_block_splits
+    t0 = time.perf_counter()
+    X, y = bosch_like(BOSCH_ROWS, seed=2)
+    Xv, yv = bosch_like(BOSCH_VALID, seed=3)
+    gen_s = time.perf_counter() - t0
+    params = dict(MAIN_PARAMS, metric="auc")
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X, label=y)
+    ds.construct(lgt.Config.from_params(params))
+    dv = lgt.Dataset(Xv, label=yv, reference=ds).construct()
+    bin_s = time.perf_counter() - t0
+    cd = ds.constructed
+    evals, clock = {}, IterClock()
+    build_histograms_cuda.launches = 0          # the EFB path starts here
+    bst = lgt.train(params, ds, num_boost_round=EFB_ROUNDS, valid_sets=[dv],
+                    valid_names=["valid"], evals_result=evals,
+                    verbose_eval=False, callbacks=[clock],
+                    keep_training_booster=True)
+    launches = build_histograms_cuda.launches   # ... and ends here
+    gbdt = bst._gbdt
+    plan = gbdt.efb_plan
+    text = bst.model_to_string()
+    aucs = evals["valid"]["auc"]
+    n_trees = len(bst.trees)
+    print(f"  data {X.shape[0]} x {X.shape[1]} CSR, {X.nnz} stored values "
+          f"({X.nnz / X.shape[0] / X.shape[1] * 100:.2f}% dense), made in "
+          f"{gen_s:.2f} s; host binning (train + {BOSCH_VALID} valid rows) "
+          f"{bin_s:.2f} s; {cd.num_features} used features of "
+          f"{cd.max_num_bin} bins at most", flush=True)
+    if plan is None or gbdt.bundle is None:
+        fail(f"EFB: the booster did not bundle (auto decision "
+             f"{gbdt.efb_wins})")
+    unb_bytes = cd.X_binned.nbytes
+    b_bytes = gbdt.Xb.numel() * gbdt.Xb.element_size()
+    print(f"  EFB plan: {cd.num_features} features -> {plan.num_groups} "
+          f"bundles, max bundle bins {plan.max_bundle_bins} (padded to "
+          f"{gbdt.spec.hist_bins}), codes {gbdt.Xb.dtype}; enable_bundle="
+          f"auto resolved to {str(gbdt.efb_wins).lower()}; code matrix on the "
+          f"card {b_bytes / 1e6:.1f} MB bundled against "
+          f"{unb_bytes / 1e6:.1f} MB unbundled", flush=True)
+    score = gbdt.score[0].cpu().numpy()
+    train_auc = auc_of(1.0 / (1.0 + np.exp(-score.astype(np.float64))), y)
+    print(f"  train {EFB_ROUNDS} rounds: first iteration {clock.ms(0, 1):.1f} "
+          f"ms, then {clock.ms(1):.1f} ms per iteration (valid scoring and "
+          f"AUC included); histogram kernel launches {launches} = "
+          f"{launches / max(n_trees, 1):.1f} passes per tree; train AUC "
+          f"{train_auc:.5f}; valid AUC by round "
+          f"{', '.join(f'{a:.5f}' for a in aucs)}", flush=True)
+    if plan.num_groups != BOSCH_G or gbdt.spec.hist_bins != BOSCH_BB:
+        fail(f"EFB: {plan.num_groups} bundles of {gbdt.spec.hist_bins} bins, "
+             f"not {BOSCH_G} of {BOSCH_BB}")
+    if launches <= 0 or not aucs[-1] > 0.6 or not train_auc > 0.6:
+        fail("EFB: the path did not launch the kernel or learn")
+    # the bundle-space scan and the bundled routing of one wave, at the
+    # wave's shape: 2S touched leaves, S split leaves
+    spec = gbdt.spec
+    S2 = 2 * spec.hist_slots
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    hist = torch.floor(torch.rand((S2, plan.num_groups, spec.hist_bins, 3),
+                                  generator=gen, device=dev) * 64) / 8
+    hist[..., 0] -= 4
+    hist = hist * (gbdt.bundle.code_feat >= 0)[None, :, :, None]
+    par = [hist[:, 0, :, j].sum(dim=1) * 2 for j in range(3)]
+    bm = BlockMeta(gbdt.feature_ok, gbdt.num_bins, gbdt.missing_code,
+                   gbdt.default_bin, gbdt.is_cat, 0, None)
+
+    def scan():
+        find_block_splits(hist, *par, bm, spec, gbdt.bundle)
+    scan_ops = device_ops(scan)
+    L = spec.num_leaves
+    lid = torch.randint(0, S2, (BOSCH_ROWS,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    feats = torch.randint(0, cd.num_features, (spec.hist_slots,),
+                          generator=gen, device=dev)
+    bd = gbdt.bundle
+    table = torch.zeros((L + 1, 11), dtype=torch.int32, device=dev)
+    table[:, 0] = -1
+    table[:, 2] = -1
+    k = torch.arange(spec.hist_slots, device=dev)
+    table[k] = torch.stack(
+        [feats, torch.ones_like(feats), -torch.ones_like(feats),
+         spec.hist_slots + k, torch.zeros_like(feats),
+         torch.zeros_like(feats), bd.col[feats].long(), bd.lo[feats].long(),
+         bd.hi[feats].long(), bd.off[feats].long(),
+         gbdt.default_bin[feats].long()], dim=-1).to(torch.int32)
+
+    def route():
+        _route_rows(gbdt.Xb, lid, table)
+    route_ops = device_ops(route)
+    # the routing's device ms also from CUDA events (it never waits on the
+    # host): the profiler has returned no device events for its few small
+    # kernels in some calls
+    print(f"  one wave at this shape: bundle-space scan ({S2} leaves x "
+          f"{plan.num_groups} columns x {spec.hist_bins} bins) {scan_ops[0]} "
+          f"device operations ({scan_ops[1]} kernel launches), "
+          f"{scan_ops[2]:.3f} ms device, {sync_ms(scan):.2f} ms host; "
+          f"bundled routing of {BOSCH_ROWS} rows {route_ops[0]} device "
+          f"operations ({route_ops[1]} kernel launches), {route_ops[2]:.3f} "
+          f"ms device ({cuda_time_ms(route, 10):.3f} by events), "
+          f"{sync_ms(route):.2f} ms host", flush=True)
+    del hist, lid, table
+    t0 = time.perf_counter()
+    vpred = bst.predict(Xv)
+    pred_ms = (time.perf_counter() - t0) * 1e3
+    vauc = auc_of(vpred, yv)
+    print(f"  Booster.predict on the {BOSCH_VALID}-row CSR valid set "
+          f"{pred_ms:.1f} ms; its AUC {vauc:.6f}, the running valid score's "
+          f"{aucs[-1]:.6f} (tol 1e-5)", flush=True)
+    if not abs(vauc - aucs[-1]) <= 1e-5:
+        fail("EFB: Booster.predict disagrees with the valid score")
+    del bst, gbdt
+    torch.cuda.empty_cache()
+    again = lgt.train(params, ds, num_boost_round=EFB_ROUNDS)
+    same = again.model_to_string() == text
+    print(f"  second run: identical model text {same}; sha256 "
+          f"{text_digest(text)}", flush=True)
+    if not same:
+        fail("EFB: two runs gave different models")
+    off_clock = IterClock()
+    before = build_histograms_cuda.launches
+    off = lgt.train(dict(params, enable_bundle=False), ds,
+                    num_boost_round=EFB_ROUNDS, callbacks=[off_clock],
+                    keep_training_booster=True)
+    off_launches = build_histograms_cuda.launches - before
+    off_bytes = off._gbdt.Xb.numel() * off._gbdt.Xb.element_size()
+    same_splits, n_diff, n_nodes, first = compare_splits(again, off)
+    print(f"  enable_bundle=false on the same data: {off._gbdt.Xb.shape[1]} "
+          f"columns, {off_bytes / 1e6:.1f} MB of codes on the card; "
+          f"{off_clock.ms(1):.1f} ms per iteration (without a valid set); "
+          f"histogram kernel launches {off_launches}; binary gradients "
+          f"(arbitrary floats): same split features and thresholds as the "
+          f"bundled run {same_splits} ({n_diff} of {n_nodes} nodes differ; "
+          f"first difference {first})", flush=True)
+    del off
+    torch.cuda.empty_cache()
+    # exact arithmetic: gradients on a grid of 1/4 and unit hessians keep
+    # every histogram sum exact in f32, so the bundled and the unbundled
+    # scan must give the same model bit for bit (the JAX package's trio
+    # bar, tests/test_efb_bundlespace.py)
+    exact = dict(params, objective="none", boost_from_average=False,
+                 metric="none")
+    texts = []
+    for eb in ("auto", "false"):
+        before = build_histograms_cuda.launches
+        b = lgt.train(dict(exact, enable_bundle=eb), ds,
+                      num_boost_round=EXACT_ROUNDS, fobj=quarter_residuals,
+                      keep_training_booster=True)
+        off_launches += build_histograms_cuda.launches - before
+        texts.append((b.model_to_string(), b._gbdt.bundle is not None,
+                      sum(t.num_leaves for t in b.trees)))
+        del b
+    same_exact = texts[0][0] == texts[1][0]
+    print(f"  exact-arithmetic gradients (1/4 grid), {EXACT_ROUNDS} rounds: "
+          f"bundled ({texts[0][1]}) and enable_bundle=false ({texts[1][1]}) "
+          f"identical model text {same_exact} ({texts[0][2]} leaves)",
+          flush=True)
+    if not same_exact or not texts[0][1] or texts[1][1]:
+        fail("EFB: the bundled scan differs from the unbundled one on "
+             "exact-arithmetic gradients")
+    del again, ds, dv
+    torch.cuda.empty_cache()
+    return dict(launches=launches + off_launches, ms_per_iter=clock.ms(1),
+                groups=plan.num_groups)
+
+
+def linear_phase(mres, dev):
+    """Phase 12: linear leaves at the main path's width."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    from lightgbm_tpu_torch.ops.linear import (accumulate_leaf_moments,
+                                               fit_linear_leaves,
+                                               leaf_path_features,
+                                               solve_leaf_models)
+    from lightgbm_tpu_torch.ops.predict import (forest_predict_raw,
+                                                leaves_from_binned)
+    _, X, y = mres["data"]
+    Xv, yv = higgs_like(NV, SEED + 1)
+    params = dict(MAIN_PARAMS, linear_tree=True, linear_lambda=0.01,
+                  metric="auc")
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X, label=y, params=params)
+    ds.construct(lgt.Config.from_params(params))
+    dv = lgt.Dataset(Xv, label=yv, reference=ds).construct()
+    bin_s = time.perf_counter() - t0
+    evals, clock = {}, IterClock()
+    build_histograms_cuda.launches = 0          # the linear path starts here
+    bst = lgt.train(params, ds, num_boost_round=LINEAR_ROUNDS,
+                    valid_sets=[dv], valid_names=["valid"],
+                    evals_result=evals, verbose_eval=False,
+                    callbacks=[clock], keep_training_booster=True)
+    launches = build_histograms_cuda.launches   # ... and ends here
+    gbdt = bst._gbdt
+    text = bst.model_to_string()
+    aucs = evals["valid"]["auc"]
+    n_leaves = sum(t.num_leaves for t in bst.trees)
+    n_linear = sum(sum(len(f) > 0 for f in t.leaf_features)
+                   for t in bst.trees)
+    n_degraded = int(sum(int(d) for d in gbdt.linear_degraded))
+    score = gbdt.score[0].cpu().numpy().astype(np.float64)
+    train_auc = auc_of(1.0 / (1.0 + np.exp(-score)), y)
+    const = lgt.Booster(model_str=mres["text"])
+    const_vauc = auc_of(const.predict(Xv), yv)
+    # the fit of the last tree, timed apart: its inputs as the step gave them
+    tree = gbdt.models[-1][0]
+    leaves = leaves_from_binned(tree, gbdt.Xb, gbdt.num_bins,
+                                gbdt.missing_code, gbdt.default_bin)
+    g, h = gbdt._gradients(gbdt.score)
+    mask = gbdt.pad_mask
+    cfg = gbdt.config
+
+    def fit():
+        fit_linear_leaves(tree, *gbdt.raw, leaves, g[0], h[0], mask,
+                          gbdt.is_cat, max_features=cfg.linear_max_features,
+                          linear_lambda=cfg.linear_lambda)
+    lf, hc, nf = leaf_path_features(tree, gbdt.is_cat,
+                                    cfg.linear_max_features)
+
+    def moments():
+        return accumulate_leaf_moments(*gbdt.raw, leaves, lf, g[0], h[0],
+                                       mask)
+    mom = moments()
+
+    def solve():
+        solve_leaf_models(*mom[:2], lf, nf, hc, mom[2], cfg.linear_lambda)
+    fit_ops, mom_ops, solve_ops = device_ops(fit), device_ops(moments), \
+        device_ops(solve)
+    fit_ms = sync_ms(fit)
+    print(f"  host binning (train and {NV} valid rows, raw values kept) "
+          f"{bin_s:.2f} s; train {LINEAR_ROUNDS} rounds: first iteration "
+          f"{clock.ms(0, 1):.1f} ms, then {clock.ms(1):.1f} ms per iteration "
+          f"(valid scoring and AUC included); histogram kernel launches "
+          f"{launches}", flush=True)
+    print(f"  linear fit of one tree: {fit_ms:.2f} ms host "
+          f"({fit_ms / clock.ms(1) * 100:.1f}% of an iteration), "
+          f"{fit_ops[0]} device operations ({fit_ops[1]} kernel launches), "
+          f"{fit_ops[2]:.3f} ms device; of which moments {mom_ops[0]} "
+          f"operations {mom_ops[2]:.3f} ms device, solve (one batched "
+          f"Cholesky) {solve_ops[0]} operations {solve_ops[2]:.3f} ms "
+          f"device", flush=True)
+    print(f"  leaves {n_leaves}: linear {n_linear}, degraded {n_degraded}; "
+          f"train AUC {train_auc:.5f} (phase 4's constant leaves "
+          f"{mres['auc']:.5f}); valid AUC by round "
+          f"{', '.join(f'{a:.5f}' for a in aucs)} (constant leaves "
+          f"{const_vauc:.5f})", flush=True)
+    if launches <= 0 or n_linear <= 0 or not aucs[-1] > 0.6:
+        fail("linear: the path did not launch the kernel or fit linear "
+             "leaves")
+    t0 = time.perf_counter()
+    pred = bst.predict(X, raw_score=True)
+    pred_ms = (time.perf_counter() - t0) * 1e3
+    n_host = 10_000
+    dev_raw = forest_predict_raw(bst.trees, X[:n_host], X.shape[1], dev)
+    host_raw = np.zeros(n_host)
+    for t in bst.trees:
+        host_raw += t.predict(np.asarray(X[:n_host], np.float64))
+    pdiff = float(np.abs(dev_raw - host_raw).max())
+    print(f"  Booster.predict of {X.shape[0]} rows (device linear walk) "
+          f"{pred_ms:.1f} ms, finite {bool(np.isfinite(pred).all())}; on "
+          f"{n_host} rows the device walk against the host Tree.predict: "
+          f"max diff {pdiff:.3e} (tol 1e-5)", flush=True)
+    if not np.isfinite(pred).all() or not pdiff <= 1e-5:
+        fail("linear: the device walk disagrees with Tree.predict")
+    del bst, gbdt, g, h, leaves, mom
+    torch.cuda.empty_cache()
+    again = lgt.train(params, ds, num_boost_round=LINEAR_ROUNDS)
+    same = again.model_to_string() == text
+    print(f"  second run: identical model text {same}; sha256 "
+          f"{text_digest(text)}", flush=True)
+    if not same:
+        fail("linear: two runs gave different models")
+    del again, ds, dv
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms_per_iter=clock.ms(1))
+
+
 # Phase-10 cases that leave the CPU's result through the objective's
 # transcendental functions alone (ROADMAP C12): torch's ``exp`` on the card
 # and on the CPU round apart by an ulp or more (C2), and a split whose gain
@@ -1180,7 +1631,8 @@ def ranking_phase():
 # must give the CPU's splits and predictions when both devices get the
 # same gradients, computed on the CPU.
 OBJECTIVE_ULP_CASES = ("multiclass", "regression_l1",
-                       "categorical (sorted and one-hot)")
+                       "categorical (sorted and one-hot)",
+                       "EFB, max_conflict_rate 0.05")
 
 
 def host_gradient_fobj(params, label, group, n):
@@ -1282,10 +1734,191 @@ def card_vs_cpu_phase(X, cat, rank):
     return dict(launches=total)
 
 
+def linear_fit_agreement(bst, name):
+    """The linear fit of the card's last tree, run on the card and on the
+    CPU from the same inputs (the card's tree and leaves, gradients
+    computed on the CPU): the same linear leaves, coefficients within 1e-5
+    of their scale."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.grower import TreeArrays
+    from lightgbm_tpu_torch.ops.linear import fit_linear_leaves
+    from lightgbm_tpu_torch.ops.predict import leaves_from_binned
+    g = bst._gbdt
+    tree = g.models[-1][0]
+    leaves = leaves_from_binned(tree, g.Xb, g.num_bins, g.missing_code,
+                                g.default_bin)
+    gc, hc = g.objective.gradients(g.score.cpu(), g.label.cpu(), None)
+    cfg = g.config
+    out = []
+    for dev in (g.device, torch.device("cpu")):
+        t = TreeArrays(*[None if a is None else a.to(dev) for a in tree])
+        fitted, _ = fit_linear_leaves(
+            t, *[a.to(dev) for a in g.raw], leaves.to(dev), gc[0].to(dev),
+            hc[0].to(dev), g.pad_mask.to(dev), g.is_cat.to(dev),
+            max_features=cfg.linear_max_features,
+            linear_lambda=cfg.linear_lambda)
+        out.append([fitted.leaf_feat.cpu().numpy(),
+                    fitted.leaf_const.cpu().numpy(),
+                    fitted.leaf_coeff.cpu().numpy()])
+    same_feats = np.array_equal(out[0][0], out[1][0])
+    scale = max(1.0, float(np.abs(out[1][2]).max()),
+                float(np.abs(out[1][1]).max()))
+    diff = max(float(np.abs(out[0][1] - out[1][1]).max()),
+               float(np.abs(out[0][2] - out[1][2]).max()))
+    print(f"    {name}: the last tree's fit on the same inputs, card vs "
+          f"CPU: same linear leaves {same_feats} "
+          f"({int((out[1][0][:, 0] >= 0).sum())} linear), max coefficient "
+          f"diff {diff:.3e} (scale {scale:.3e}, tol 1e-5 of it)", flush=True)
+    if not same_feats or not diff <= 1e-5 * scale:
+        fail(f"{name}: the linear fit differs card vs CPU on the same "
+             "inputs")
+
+
+def linear_divergence_report(params, X, y, fobj, rounds=5):
+    """Where a linear run on the card first leaves the CPU's: both trained
+    iteration by iteration on the same gradients, the first iteration whose
+    train scores differ, and how its tree differs."""
+    import numpy as np
+    import lightgbm_tpu_torch as lgt
+    boosters = [lgt.Booster(params=dict(params, **d),
+                            train_set=lgt.Dataset(X, label=y))
+                for d in ({}, {"device": "cpu"})]
+    for it in range(rounds):
+        for b in boosters:
+            b.update(fobj=fobj)
+        card, cpu = (b._gbdt for b in boosters)
+        sd = (card.score.cpu() - cpu.score).abs()
+        if float(sd.max()) == 0.0:
+            continue
+        ta, tb = card.models[-1][0], cpu.models[-1][0]
+        diffs = {name: float((getattr(ta, name).cpu().double()
+                              - getattr(tb, name).double()).abs().max())
+                 for name in ta._fields}
+        rows = np.nonzero(sd.numpy()[0] > 0)[0]
+        nan_rows = np.isnan(np.asarray(X)[rows]).any(axis=1).mean()
+        print(f"    iteration {it}: train scores differ on {len(rows)} rows "
+              f"(max {float(sd.max()):.3e}, {nan_rows * 100:.0f}% of them "
+              f"with a NaN), the tree's differences by field {diffs}",
+              flush=True)
+        from lightgbm_tpu_torch.ops.predict import leaves_from_binned
+        la = leaves_from_binned(ta, card.Xb, card.num_bins, card.missing_code,
+                                card.default_bin).cpu().numpy()
+        lb = leaves_from_binned(tb, cpu.Xb, cpu.num_bins, cpu.missing_code,
+                                cpu.default_bin).numpy()
+        lc = (ta.leaf_const.cpu() - tb.leaf_const).abs().numpy()
+        bad = np.nonzero(lc > 0)[0]
+        print(f"    walked leaves differ on {int((la != lb).sum())} rows; "
+              f"leaves whose intercept differs {bad.tolist()[:8]}: their "
+              f"rows {[int((lb == k).sum()) for k in bad[:8]]}, features "
+              f"card {ta.leaf_feat.cpu().numpy()[bad[:4]].tolist()} CPU "
+              f"{tb.leaf_feat.numpy()[bad[:4]].tolist()}, intercepts card "
+              f"{ta.leaf_const.cpu().numpy()[bad[:4]].tolist()} CPU "
+              f"{tb.leaf_const.numpy()[bad[:4]].tolist()}", flush=True)
+        return
+    print(f"    the train scores agree over {rounds} iterations", flush=True)
+
+
+def card_vs_cpu_new_cases(Xh, yh):
+    """Phase 10's cases for EFB and linear leaves: the same bar, the
+    bundling or the linear fit checked engaged on the card."""
+    import numpy as np
+    from scipy import sparse as sp
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    Xb, yb = bosch_like(SMALL, seed=SEED + 13)
+    rng = np.random.RandomState(SEED + 14)
+    cat = rng.randint(0, 6, SMALL).astype(np.float32)
+    ycat = np.where(cat >= 4, 1.0 - yb, yb).astype(np.float32)
+    Xcat = sp.hstack([Xb, sp.csr_matrix(cat[:, None])]).tocsr()
+    wide = np.round(rng.randn(SMALL) * 1000).astype(np.float32)
+    Xwide = sp.hstack([Xb, sp.csr_matrix(wide[:, None])]).tocsr()
+    Xn, yn = near_exclusive(SMALL, seed=SEED + 15)
+    Xp, yp = piecewise_linear_data(SMALL)
+    small = dict(MAIN_PARAMS, num_leaves=63)
+    linear = dict(linear_tree=True, linear_lambda=0.01)
+    cases = {   # name: (params, X, label, Dataset kwargs, what must engage)
+        "EFB, Bosch-shaped CSR at auto": (small, Xb, yb, {}, "bundle"),
+        "EFB + categorical": (
+            dict(small, min_data_per_group=20), Xcat, ycat,
+            {"categorical_feature": [BOSCH_F]}, "bundle"),
+        "EFB, max_conflict_rate 0.05": (
+            dict(small, max_conflict_rate=0.05), Xn, yn, {}, "bundle"),
+        "EFB, uint16 bundles (max_bin 511)": (
+            dict(small, max_bin=511), Xwide, yb, {}, "uint16"),
+        "linear_tree, L2 piecewise-linear": (
+            dict(small, objective="regression", **linear), Xp, yp, {},
+            "linear"),
+        "linear_tree, binary with NaN": (dict(small, **linear), Xh, yh, {},
+                                          "linear"),
+    }
+    total = 0
+    for name, (p, Xc_, yc, kw, engage) in cases.items():
+        def run(device_params, fobj=None):
+            return lgt.train(dict(p, **device_params),
+                             lgt.Dataset(Xc_, label=yc, **kw),
+                             num_boost_round=5, fobj=fobj,
+                             keep_training_booster=True)
+        before = build_histograms_cuda.launches
+        on_card = run({})
+        launched = build_histograms_cuda.launches - before
+        total += launched
+        g = on_card._gbdt
+        engaged = {"bundle": g.bundle is not None,
+                   "uint16": g.bundle is not None
+                   and str(g.Xb.dtype) == "torch.int16",
+                   "linear": any(len(f) for t in on_card.trees
+                                 for f in t.leaf_features or [])}[engage]
+        detail = (f"{g.Xb.shape[1]} bundled columns, {g.Xb.dtype} codes"
+                  if g.bundle is not None else f"{g.Xb.shape[1]} columns")
+        on_cpu = run({"device": "cpu"})
+        splits = same_trees(on_card, on_cpu)
+        pdiff = float(np.abs(on_card.predict(Xc_)
+                             - on_cpu.predict(Xc_)).max())
+        print(f"  {len(yc)} rows, {name}: same splits {splits} "
+              f"({len(on_card.trees)} trees; {detail}; {engage} engaged "
+              f"{engaged}), max prediction diff {pdiff:.3e} (tol 1e-5), "
+              f"histogram kernel launches {launched}", flush=True)
+        if launched <= 0 or not engaged:
+            fail(f"{len(yc)} rows, {name}: the kernel never launched or "
+                 f"{engage} did not engage")
+        if engage == "linear":
+            linear_fit_agreement(on_card, name)
+        if splits and pdiff <= 1e-5:
+            continue
+        print(f"    first difference (tree, node, [(feature, threshold, "
+              f"gain) card, CPU]): {compare_splits(on_card, on_cpu)[3]}",
+              flush=True)
+        # as C12: the same case with the CPU's gradients on both devices
+        hp = dict(p, objective="none", boost_from_average=False)
+        fobj = host_gradient_fobj(dict(p, device="cpu"), yc, None, len(yc))
+        if engage == "linear":
+            linear_divergence_report(hp, Xc_, yc, fobj)
+        if name not in OBJECTIVE_ULP_CASES:
+            fail(f"{len(yc)} rows, {name}: the card disagrees with the CPU")
+        card_h, cpu_h = run(dict(hp), fobj), run(dict(hp, device="cpu"), fobj)
+        h_splits = same_trees(card_h, cpu_h)
+        h_diff = float(np.abs(card_h.predict(Xc_, raw_score=True)
+                              - cpu_h.predict(Xc_, raw_score=True)).max())
+        print(f"    with the CPU's gradients on both (C12): same splits "
+              f"{h_splits}, max raw prediction diff {h_diff:.3e}",
+              flush=True)
+        if not h_splits or not h_diff <= 1e-5:
+            fail(f"{len(yc)} rows, {name}: the card disagrees with the CPU "
+                 "on the same gradients")
+    return total
+
+
+PHASES = tuple(range(1, 13))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", default="",
                     help="directory for the Chrome trace of phase 5")
+    ap.add_argument("--phases", default="",
+                    help="comma list of phases to run (default: all); a "
+                         "partial run prints no result lines and exits 4")
     args = ap.parse_args()
     try:
         import torch
@@ -1301,6 +1934,11 @@ def main():
     if not os.path.abspath(lightgbm_tpu_torch.__file__).startswith(HERE):
         fail(f"imported {lightgbm_tpu_torch.__file__}, not this checkout's")
     dev = torch.device("cuda", 0)
+    want = set(PHASES) if not args.phases else \
+        {int(p) for p in args.phases.split(",")}
+    # phases 5-7 and 12 run on phase 4's data and booster
+    if want & {5, 6, 7, 12}:
+        want.add(4)
 
     print("phase 1: card", flush=True)
     card = card_line()
@@ -1318,42 +1956,79 @@ def main():
         elif "registers" in line or "spill" in line:
             print(f"  ptxas:   {line.split(':', 1)[-1].strip()}", flush=True)
 
-    print(f"phase 3: histogram kernel vs plain version (N={N}, F={F}, "
-          f"B={B} (uint16: {B16}), S={S})", flush=True)
-    kres = kernel_phase(dev)
+    none = dict(launches=0)
+    kres, mres, sres, cres, gres, rres = {}, None, None, none, None, None
+    if 3 in want:
+        print(f"phase 3: histogram kernel vs plain version (N={N}, F={F}, "
+              f"B={B} (uint16: {B16}), S={S}; efb: {BOSCH_ROWS} x "
+              f"{BOSCH_G} bundled codes, B={BOSCH_BB})", flush=True)
+        kres = kernel_phase(dev)
 
-    print("phase 4: main path (Higgs-shaped 2M x 28 binary, 255 leaves, "
-          "10 rounds)", flush=True)
-    mres = main_path_phase()
+    if 4 in want:
+        print("phase 4: main path (Higgs-shaped 2M x 28 binary, 255 leaves, "
+              "10 rounds)", flush=True)
+        mres = main_path_phase()
 
-    print("phase 5: profile of a steady-state iteration", flush=True)
-    profile_phase(mres.pop("booster"), args.trace)
+    if 5 in want:
+        print("phase 5: profile of a steady-state iteration", flush=True)
+        profile_phase(mres.pop("booster"), args.trace)
+    elif mres is not None:
+        mres.pop("booster")
 
-    print(f"phase 6: sampled and validated path (bagging 0.8 every 5, "
-          f"feature_fraction 0.8, {NV} valid rows, early stopping; GOSS; "
-          f"card vs CPU)", flush=True)
-    sres = sampled_phase(*mres["data"], dev)
-    print(f"phase 7: multiclass at full width (2M x 28, {NUM_CLASS} classes, "
-          f"255 leaves, {MULTI_ROUNDS} rounds; multiclassova 2 rounds)",
-          flush=True)
-    cres = multiclass_phase()
+    if 6 in want:
+        print(f"phase 6: sampled and validated path (bagging 0.8 every 5, "
+              f"feature_fraction 0.8, {NV} valid rows, early stopping; GOSS; "
+              f"card vs CPU)", flush=True)
+        sres = sampled_phase(*mres["data"], dev)
+    if 7 in want:
+        print(f"phase 7: multiclass at full width (2M x 28, {NUM_CLASS} "
+              f"classes, 255 leaves, {MULTI_ROUNDS} rounds; multiclassova 2 "
+              f"rounds)", flush=True)
+        cres = multiclass_phase()
 
-    print(f"phase 8: categorical at full width (Expo-shaped 2M x 8, six "
-          f"categorical columns, {CAT_ROUNDS} rounds, {NV} valid rows)",
-          flush=True)
-    gres = categorical_phase(dev)
+    if 8 in want:
+        print(f"phase 8: categorical at full width (Expo-shaped 2M x 8, six "
+              f"categorical columns, {CAT_ROUNDS} rounds, {NV} valid rows)",
+              flush=True)
+        gres = categorical_phase(dev)
 
-    print(f"phase 9: lambdarank at the MS-LTR shape ({RANK_ROWS} rows x "
-          f"{F137}, {RANK_ROUNDS} rounds)", flush=True)
-    rres = ranking_phase()
+    if 9 in want:
+        print(f"phase 9: lambdarank at the MS-LTR shape ({RANK_ROWS} rows x "
+              f"{F137}, {RANK_ROUNDS} rounds)", flush=True)
+        rres = ranking_phase()
 
-    print(f"phase 10: card vs CPU, {SMALL} rows, the new objectives and "
-          f"categorical features", flush=True)
-    xres = card_vs_cpu_phase(mres["data"][1], gres, rres)
+    xres = dict(launches=0)
+    if 10 in want:
+        print(f"phase 10: card vs CPU, {SMALL} rows, the new objectives, "
+              f"categorical features, EFB and linear leaves", flush=True)
+        if mres is not None and gres is not None and rres is not None:
+            xres = card_vs_cpu_phase(mres["data"][1], gres, rres)
+        Xh, yh = (mres["data"][1][:SMALL], mres["data"][2][:SMALL]) \
+            if mres is not None else higgs_like(SMALL, SEED)
+        xres["launches"] += card_vs_cpu_new_cases(Xh, yh)
+
+    eres = lres = none
+    if 11 in want:
+        print(f"phase 11: EFB at the Bosch shape ({BOSCH_ROWS} x {BOSCH_F} "
+              f"CSR, binary, 255 leaves, enable_bundle=auto, {EFB_ROUNDS} "
+              f"rounds, {BOSCH_VALID} valid rows)", flush=True)
+        eres = efb_phase(dev)
+    if 12 in want:
+        print(f"phase 12: linear leaves at the main path's width (2M x 28, "
+              f"linear_lambda 0.01, 255 leaves, {LINEAR_ROUNDS} rounds, {NV} "
+              f"valid rows)", flush=True)
+        lres = linear_phase(mres, dev)
+
+    if want != set(PHASES):
+        print(f"partial run of phases {sorted(want)}: no result lines",
+              flush=True)
+        return 4
+
     print(f"  histogram kernel launches: phase 4 {mres['launches']}, phase 6 "
           f"sampled {sres['launches']} + GOSS {sres['goss_launches']}, "
           f"phase 7 {cres['launches']}, phase 8 {gres['launches']}, phase 9 "
-          f"{rres['launches']}, phase 10 {xres['launches']}", flush=True)
+          f"{rres['launches']}, phase 10 {xres['launches']}, phase 11 "
+          f"{eres['launches']}, phase 12 {lres['launches']}", flush=True)
 
     full = kres["full"]
     kernels = {"kernels": [{
@@ -1362,7 +2037,8 @@ def main():
         "replaces": "lightgbm_tpu/ops/pallas_histogram.py:59",
         "launches": mres["launches"] + sres["launches"]
         + sres["goss_launches"] + cres["launches"] + gres["launches"]
-        + rres["launches"] + xres["launches"],
+        + rres["launches"] + xres["launches"] + eres["launches"]
+        + lres["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kres.values()),
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
@@ -1372,6 +2048,12 @@ def main():
                           "library_ms", "max_abs_err", "rows",
                           "num_features", "num_bins")}
                   for name, r in kres.items()},
+        "launches_by_phase": {
+            "4": mres["launches"],
+            "6": sres["launches"] + sres["goss_launches"],
+            "7": cres["launches"], "8": gres["launches"],
+            "9": rres["launches"], "10": xres["launches"],
+            "11": eres["launches"], "12": lres["launches"]},
     }]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

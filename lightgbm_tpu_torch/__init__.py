@@ -13,9 +13,10 @@ package (regression L2/L1/Huber/Fair/Poisson, binary, multiclass softmax
 and one-vs-all, cross-entropy and its lambda form, lambdarank with query
 groups) or custom gradients, bagging and feature_fraction with
 ``jax.random``'s bits, valid sets, early stopping, callbacks, ``cv``, the
-sklearn wrappers, ``tree_learner=serial``, dense numerical and categorical
-features (NaN handling included), data resident on the device. Everything
-else raises with its ROADMAP item.
+sklearn wrappers, ``tree_learner=serial``, dense or ``scipy.sparse``
+numerical and categorical features (NaN handling included), EFB
+(``enable_bundle``), piecewise-linear leaves (``linear_tree``), data
+resident on the device. Everything else raises with its ROADMAP item.
 """
 
 __version__ = "0.1.0"

@@ -29,8 +29,9 @@ DEVICE_PREDICT_MIN_WORK = 1_000_000
 
 
 class Dataset:
-    """Lazily constructed dataset (reference basic.py:556): dense numerical
-    and categorical features binned on the host at first use, with optional
+    """Lazily constructed dataset (reference basic.py:556): a dense numpy
+    matrix or a ``scipy.sparse`` one (CSR or CSC), numerical and
+    categorical features binned on the host at first use, with optional
     query sizes (``group``). A set built with ``reference=`` (a validation
     set) is binned with the reference's mappers (the analog of
     LoadFromFileAlignWithOtherDataset)."""
@@ -44,11 +45,13 @@ class Dataset:
             Log.fatal("loading data files is not ported to "
                       "lightgbm_tpu_torch yet (ROADMAP A18)")
         if hasattr(data, "tocsr"):
-            Log.fatal("sparse input is not ported to lightgbm_tpu_torch yet "
-                      "(ROADMAP A1)")
-        self.raw_data = np.asarray(data, dtype=np.float64)
-        if self.raw_data.ndim == 1:
-            self.raw_data = self.raw_data.reshape(1, -1)
+            # kept sparse: binning reads it column by column and never
+            # densifies the floats (lightgbm_tpu/basic.py:46-55)
+            self.raw_data = data.tocsr()
+        else:
+            self.raw_data = np.asarray(data, dtype=np.float64)
+            if self.raw_data.ndim == 1:
+                self.raw_data = self.raw_data.reshape(1, -1)
         self.label = None if label is None else np.asarray(label).reshape(-1)
         self.reference = reference
         self.weight = weight
@@ -280,8 +283,21 @@ class Booster:
             Log.fatal("add_valid after training needs the valid set's "
                       "raw data to replay the forest — construct it "
                       "with free_raw_data=False")
+        valid_raw = None
+        if self.config.linear_tree:
+            # linear-leaf score updates read the valid rows' raw values
+            if data.raw_data is None:
+                Log.fatal("linear_tree=true: add_valid needs the valid "
+                          "set's raw data (construct it with "
+                          "free_raw_data=False)")
+            from .dataset import extract_raw_slice
+            valid_raw = extract_raw_slice(
+                data.raw_data,
+                [int(r) for r in self.train_dataset.constructed
+                 .real_feature_idx], data.raw_data.shape[0])
         gbdt = self._gbdt
-        gbdt.add_valid(name, data._binned_aligned, data._metadata)
+        gbdt.add_valid(name, data._binned_aligned, data._metadata,
+                       raw=valid_raw)
         self._valid_registry.append((data, name))
         if self.trees:
             # the fresh score holds init_score_value, which the finalised
@@ -388,8 +404,18 @@ class Booster:
                 pred_contrib: bool = False, **kwargs) -> np.ndarray:
         self._ensure_finalized()
         if hasattr(data, "tocsr"):
-            Log.fatal("sparse input is not ported to lightgbm_tpu_torch yet "
-                      "(ROADMAP A1)")
+            # densified in chunks of 2^24 / F rows, each predicted on its
+            # own (lightgbm_tpu/basic.py:695-705)
+            csr = data.tocsr()
+            chunk = max(1, (1 << 24) // max(csr.shape[1], 1))
+            if csr.shape[0] > chunk:
+                return np.concatenate([
+                    self.predict(csr[i:i + chunk],
+                                 num_iteration=num_iteration,
+                                 raw_score=raw_score, pred_leaf=pred_leaf,
+                                 pred_contrib=pred_contrib, **kwargs)
+                    for i in range(0, csr.shape[0], chunk)], axis=0)
+            data = csr.toarray()
         X = np.asarray(data, dtype=np.float64)
         if X.ndim == 1:
             X = X.reshape(1, -1)
@@ -401,6 +427,13 @@ class Booster:
         if pred_leaf:
             return np.stack([t.predict_leaf(X) for t in use_trees], axis=1)
         if pred_contrib:
+            if any(t.is_linear for t in use_trees):
+                # TreeSHAP attributes constant leaf outputs only
+                # (lightgbm_tpu/basic.py:721-727)
+                Log.fatal("pred_contrib is not supported for linear-tree "
+                          "models (linear_tree=true): TreeSHAP "
+                          "contributions are defined over constant leaf "
+                          "outputs")
             F1 = self.num_total_features + 1
             out = np.zeros((K, X.shape[0], F1))
             for i, t in enumerate(use_trees):

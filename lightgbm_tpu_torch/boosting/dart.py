@@ -77,9 +77,9 @@ class DART(GBDT):
             for i in drop:
                 for c in range(self.num_models):
                     tree = self.models[i][c]
-                    drop_train[c] += self._tree_contrib(tree, self.Xb)
+                    drop_train[c] += self._train_contrib(tree)
                     for vi, vs in enumerate(self.valid_sets):
-                        drop_valid[vi][c] += self._tree_contrib(tree, vs.Xb)
+                        drop_valid[vi][c] += self._valid_contrib(tree, vs)
             score_adj = self.score - drop_train
             for vi, vs in enumerate(self.valid_sets):
                 vs.score = vs.score - drop_valid[vi]

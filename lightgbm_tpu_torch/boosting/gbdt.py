@@ -18,6 +18,21 @@ bagging mask and GOSS draw from ``bkey`` over the N rows, model ``k``'s
 feature mask from ``fold_in(fkey, k)`` over the F features. The JAX package
 draws over its padded rows and features; a draw is prefix-stable, so the
 first N (F) values are the same.
+
+EFB (``enable_bundle=auto|true``, gbdt.py:184-330 and :435-460 there): the
+plan is made from a row sample of the bin matrix (``efb.plan_bundles``);
+``auto`` keeps it by the JAX package's rule (it shrinks the histogram's
+``columns x bins`` by a tenth, or halves the columns without growing it by
+more than a quarter), and then the booster holds the ``[N, G]`` bundled
+codes and the ``BundleDecode`` tables on the device and grows every tree in
+bundle space. Valid sets stay unbundled, as in the JAX package, so that
+their walk is exact whatever the conflicts.
+
+Linear leaves (``linear_tree``, gbdt.py:701-752 there): the booster holds
+the training rows' raw f32 values (NaN set to 0) and their missing plane on
+the device, each valid set its own; each tree's leaves are fitted after
+growth and before shrinkage (``ops/linear.py``), and the score updates add
+the leaves' linear outputs.
 """
 from __future__ import annotations
 
@@ -29,10 +44,11 @@ import torch
 
 from ..config import Config, check_port_supported, resolve_device
 from ..dataset import ConstructedDataset, Metadata, MetadataDuckTyping
-from ..grower import GrowerSpec, TreeArrays, grow_tree
+from ..grower import BundleDecode, GrowerSpec, TreeArrays, grow_tree
 from ..metrics import Metric, _PointwiseRegressionMetric, create_metrics
 from ..objectives import create_objective
 from ..ops.cuda_histogram import feature_groups
+from ..ops.linear import fit_linear_leaves, linear_leaf_scores
 from ..ops.predict import leaves_from_binned
 from ..parallel.comm import SerialComm
 from ..tree import Tree, tree_from_device_arrays
@@ -62,6 +78,8 @@ class ValidSet(MetadataDuckTyping):
                  metrics: List[Metric], num_data: int):
         self.name = name
         self.Xb = Xb
+        # linear leaves: (NaN-sanitised raw f32 values, missing plane)
+        self.raw: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self.metadata = metadata
         self.metrics = metrics
         self.num_data = num_data
@@ -78,6 +96,17 @@ def _codes_tensor(codes: np.ndarray, device) -> torch.Tensor:
         # 2**15; on the CPU the plain version refuses a code of 2**15 or more.
         codes = codes.view(np.int16)
     return torch.as_tensor(codes, device=device)
+
+
+def _raw_tensors(raw: np.ndarray, device) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """Raw feature values for linear leaves on ``device``: f32 with NaN set
+    to 0 and +-inf to the f32 extremes, beside the NaN plane."""
+    raw = np.array(raw, np.float32)
+    miss = np.isnan(raw)
+    np.nan_to_num(raw, copy=False, nan=0.0)
+    return (torch.as_tensor(raw, device=device),
+            torch.as_tensor(miss, device=device))
 
 
 class GBDT:
@@ -105,15 +134,18 @@ class GBDT:
         self.spec = self._make_spec(config, F, train_set.max_num_bin,
                                     meta["is_categorical"])
         self.comm = SerialComm(F)
-
         dev = self.device
+        codes = self._plan_bundles(config, train_set, meta)
         if dev.type == "cuda":
             try:            # the histogram kernel's shared-memory limit
-                feature_groups(F, self.spec.num_bins_padded)
+                feature_groups(codes.shape[1], self.spec.hist_bins
+                               or self.spec.num_bins_padded)
             except ValueError as e:
                 Log.fatal("max_bin=%d: %s; not ported to lightgbm_tpu_torch "
                           "yet (ROADMAP B1)", config.max_bin, e)
-        self.Xb = _codes_tensor(train_set.X_binned, dev)
+        self.Xb = _codes_tensor(codes, dev)
+        del codes
+        self._setup_linear(config, train_set)
         self.label = torch.as_tensor(md.label, dtype=torch.float32,
                                      device=dev)
         self.weight = None if md.weight is None else torch.as_tensor(
@@ -193,17 +225,103 @@ class GBDT:
             min_data_per_group=float(config.min_data_per_group),
         )
 
+    def _plan_bundles(self, config: Config, train_set: ConstructedDataset,
+                      meta) -> np.ndarray:
+        """EFB set-up (gbdt.py:184-275 and :435-460 there): plan, decide,
+        and when bundling, put the ``BundleDecode`` tables on the device and
+        set ``spec.hist_bins``. Returns the code matrix to train on."""
+        from ..efb import build_code_feat, plan_bundles
+        self.bundle: Optional[BundleDecode] = None
+        self.efb_plan = None          # the kept plan, its codes dropped
+        self.efb_wins = None          # whether a plan won the rule
+        F = train_set.num_features
+        if config.enable_bundle == "false" or F < 2:
+            return train_set.X_binned
+        nb = meta["num_bins"].astype(np.int64)
+        db = meta["default_bin"].astype(np.int64)
+        plan = plan_bundles(train_set.X_binned, nb, db, config)
+        if plan is None:
+            return train_set.X_binned
+        Bpad = self.spec.num_bins_padded
+        Bb_pad = max(8, _round_up(plan.max_bundle_bins, 8))
+        G = plan.num_groups
+        # the JAX package's rule: bundling wins when it shrinks the
+        # histogram's columns x bins, or halves the columns without growing
+        # it by more than a quarter
+        shrinks_matmul = G * Bb_pad < 0.9 * F * Bpad
+        shrinks_cols = G * 2 <= F and G * Bb_pad <= 1.25 * F * Bpad
+        wins = shrinks_matmul or shrinks_cols
+        if config.enable_bundle == "auto":
+            Log.debug("enable_bundle=auto resolved to %s (%d features -> %d "
+                      "bundles, matmul %d vs %d columns)",
+                      "true" if wins else "false", F, G, G * Bb_pad,
+                      F * Bpad)
+        self.efb_wins = wins
+        if not (wins or config.enable_bundle == "true"):
+            return train_set.X_binned
+        codes = plan.X_bundled
+        plan.X_bundled = None
+        self.efb_plan = plan
+        dev = self.device
+        ub = np.pad(plan.unpack_bin,
+                    ((0, 0), (0, Bpad - plan.unpack_bin.shape[1])),
+                    constant_values=-1)
+
+        def put(a):
+            return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                   device=dev)
+        self.bundle = BundleDecode(
+            col=put(plan.col), lo=put(plan.lo), hi=put(plan.hi),
+            off=put(plan.off), unpack_bin=put(ub),
+            code_feat=put(build_code_feat(plan, G, Bb_pad, db)))
+        self.spec = dataclasses.replace(self.spec, hist_bins=Bb_pad)
+        Log.info("EFB: %d features bundled into %d columns (%d max bundle "
+                 "bins, %s codes), scan=bundle-space", F, G,
+                 plan.max_bundle_bins, codes.dtype)
+        return codes
+
+    def _setup_linear(self, config: Config,
+                      train_set: ConstructedDataset) -> None:
+        """Linear leaves (gbdt.py:701-752 there): the training rows' raw
+        values on the device (``_raw_tensors``)."""
+        self.linear_tree = bool(config.linear_tree)
+        self.raw: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.linear_degraded: List[torch.Tensor] = []
+        if not self.linear_tree:
+            return
+        raw = getattr(train_set, "X_raw", None)
+        if raw is None:
+            Log.fatal("linear_tree=true needs the dataset's raw feature "
+                      "slice, which this dataset was constructed without "
+                      "— rebuild the Dataset with linear_tree=true in its "
+                      "params")
+        self.raw = _raw_tensors(raw, self.device)
+        Log.info("linear_tree: per-leaf ridge solves on (lambda=%g, "
+                 "max_features=%d); raw slice %.2f MB + %.2f MB missing "
+                 "plane on the device", config.linear_lambda,
+                 config.linear_max_features,
+                 self.raw[0].numel() * 4 / (1 << 20),
+                 self.raw[1].numel() / (1 << 20))
+
     def _objective_name(self) -> Optional[str]:
         return self.objective.name if self.objective is not None else None
 
-    def add_valid(self, name: str, binned: np.ndarray,
-                  metadata: Metadata) -> None:
+    def add_valid(self, name: str, binned: np.ndarray, metadata: Metadata,
+                  raw: Optional[np.ndarray] = None) -> None:
+        """Attach a valid set: its codes (binned with the training set's
+        mappers, not bundled) and, with linear leaves, its raw values."""
         nv = binned.shape[0]
         metrics = create_metrics(self.config, self._objective_name())
         for m in metrics:
             m.init(metadata, nv)
         vs = ValidSet(name, _codes_tensor(binned, self.device), metadata,
                       metrics, nv)
+        if self.linear_tree:
+            if raw is None:
+                Log.fatal("linear_tree=true: valid set %r needs its raw "
+                          "feature values (construct it with "
+                          "free_raw_data=False)", name)
+            vs.raw = _raw_tensors(raw, self.device)
         base = np.full((self.num_models, nv), self.init_score_value,
                        dtype=np.float32)
         if metadata.init_score is not None:
@@ -263,25 +381,44 @@ class GBDT:
         return self.config.learning_rate
 
     def _shrink(self, tree: TreeArrays, shrinkage: float) -> TreeArrays:
-        """Tree::Shrinkage (tree.h:137-142), internal values included, then
-        the output transform."""
+        """Tree::Shrinkage (tree.h:137-142), internal values and a linear
+        leaf's intercept and coefficients included, then the output
+        transform."""
         s = torch.tensor(shrinkage, dtype=torch.float32, device=self.device)
         tree = tree._replace(leaf_value=tree.leaf_value * s,
                              internal_value=tree.internal_value * s)
+        if tree.leaf_const is not None:
+            tree = tree._replace(leaf_const=tree.leaf_const * s,
+                                 leaf_coeff=tree.leaf_coeff * s)
         return self._tree_output_transform(tree)
 
-    def _tree_contrib(self, tree: TreeArrays, Xb: torch.Tensor):
-        """One tree's leaf value for every row of a binned matrix."""
-        leaves = leaves_from_binned(tree, Xb, self.num_bins,
-                                    self.missing_code, self.default_bin)
+    def _leaf_outputs(self, tree: TreeArrays, leaves: torch.Tensor, raw):
+        """The tree's output for rows in ``leaves``: the leaf value, or the
+        linear leaf model over the rows' raw values ``raw``."""
+        if self.linear_tree:
+            return linear_leaf_scores(tree, leaves, *raw)
         return tree.leaf_value[leaves.long()]
+
+    def _train_contrib(self, tree: TreeArrays):
+        """One tree's output for every training row, by a walk of the
+        (possibly bundled) training codes."""
+        leaves = leaves_from_binned(tree, self.Xb, self.num_bins,
+                                    self.missing_code, self.default_bin,
+                                    self.bundle)
+        return self._leaf_outputs(tree, leaves, self.raw)
+
+    def _valid_contrib(self, tree: TreeArrays, vs: ValidSet):
+        """One tree's output for every row of a valid set."""
+        leaves = leaves_from_binned(tree, vs.Xb, self.num_bins,
+                                    self.missing_code, self.default_bin)
+        return self._leaf_outputs(tree, leaves, vs.raw)
 
     def _tree_score_updates(self, score_k, valid_k, tree, leaf_ids, it):
         """Apply one (shrunk) tree to the train score (by the grower's leaf
         ids) and to every valid score (by a walk of its codes)."""
         new_score_k = self._score_update(
-            score_k, tree.leaf_value[leaf_ids.long()], it)
-        new_valid_k = [self._score_update(v, self._tree_contrib(tree, vs.Xb),
+            score_k, self._leaf_outputs(tree, leaf_ids, self.raw), it)
+        new_valid_k = [self._score_update(v, self._valid_contrib(tree, vs),
                                           it)
                        for v, vs in zip(valid_k, self.valid_sets)]
         return new_score_k, new_valid_k
@@ -302,10 +439,19 @@ class GBDT:
                      for vs in self.valid_sets]
         for k in range(self.num_models):
             fmask = self._feature_mask(fkey, k)
+            gk, hk = g[k] * mask, h[k] * mask
             tree, leaf_ids = grow_tree(
-                self.Xb, g[k] * mask, h[k] * mask, mask, fmask, self.is_cat,
+                self.Xb, gk, hk, mask, fmask, self.is_cat,
                 self.num_bins, self.missing_code, self.default_bin,
-                self.spec, self.comm)
+                self.spec, self.comm, self.bundle)
+            if self.linear_tree:
+                # on the masked g/h the tree grew on, before shrinkage
+                # (gbdt.py:1369-1380 there)
+                tree, n_degraded = fit_linear_leaves(
+                    tree, *self.raw, leaf_ids, gk, hk, mask, self.is_cat,
+                    max_features=self.config.linear_max_features,
+                    linear_lambda=self.config.linear_lambda)
+                self.linear_degraded.append(n_degraded)
             tree = self._shrink(tree, shrinkage)
             new_score_k, new_valid_k = self._tree_score_updates(
                 score[k], [nv[k] for nv in new_valid], tree, leaf_ids, it)
@@ -386,11 +532,10 @@ class GBDT:
             return
         new_scores = []
         for k, tree in enumerate(trees):
-            new_scores.append(self.score[k] - self._tree_contrib(tree,
-                                                                 self.Xb))
+            new_scores.append(self.score[k] - self._train_contrib(tree))
             for vs in self.valid_sets:
                 vs.score = vs.score.clone()
-                vs.score[k] = vs.score[k] + (-self._tree_contrib(tree, vs.Xb))
+                vs.score[k] = vs.score[k] + (-self._valid_contrib(tree, vs))
         self.score = torch.stack(new_scores)
 
     def reset_config(self, new_config: Config) -> None:
@@ -516,7 +661,8 @@ class GBDT:
         forest: List[List[Tree]] = []
         for it_trees in self.models:
             forest.append([tree_from_device_arrays(
-                TreeArrays(*[f.cpu().numpy() for f in t]), mappers, rfi)
+                TreeArrays(*[None if f is None else f.cpu().numpy()
+                             for f in t]), mappers, rfi)
                 for t in it_trees])
         if forest and abs(self.init_score_value) > 1e-15:
             for t in forest[0]:

@@ -878,14 +878,17 @@ def check_port_supported(config: "Config") -> None:
 
     The port covers ``boosting=gbdt|goss|dart|rf`` with every objective of
     the JAX package (or custom gradients, ``objective=none``), query groups,
-    bagging and feature_fraction, ``tree_learner=serial``, dense numerical
-    and categorical features and resident data. Each refusal names the
-    ROADMAP queue item that will port it; none of these settings is ever
-    silently ignored."""
-    if config.enable_bundle == "true":
-        _unported("enable_bundle=true", "A11")
-    if config.linear_tree:
-        _unported("linear_tree=true", "A12")
+    bagging and feature_fraction, EFB (``enable_bundle``), linear leaves,
+    ``tree_learner=serial``, dense or sparse numerical and categorical
+    features and resident data. Each refusal names the ROADMAP queue item
+    that will port it; none of these settings is ever silently ignored."""
+    if config.linear_tree and config.tree_learner != "serial":
+        # the JAX package's own refusal (boosting/gbdt.py:712-732): the
+        # moments are not reduced across devices
+        Log.fatal("linear_tree=true is single-device for now "
+                  "(tree_learner=%s): the per-leaf moment accumulation is "
+                  "not wired through the mesh collectives yet",
+                  config.tree_learner)
     if config.tree_learner != "serial":
         _unported(f"tree_learner={config.tree_learner}", "A16")
     if config.tpu_residency == "stream":
@@ -901,6 +904,3 @@ def check_port_supported(config: "Config") -> None:
         if getattr(config, key) != defaults[key].default:
             Log.info("%s=%s has no meaning on the card; ignored", key,
                      getattr(config, key))
-    if config.enable_bundle == "auto":
-        Log.debug("enable_bundle=auto: the port trains unbundled (EFB is "
-                  "ROADMAP A11)")

@@ -9,14 +9,20 @@ bins, as the JAX package picks (``lightgbm_tpu/dataset.py:504``) — binned on
 the host feature by feature through the copied :mod:`binning` mappers, and
 moved to the device once by the booster. Categorical columns (named by
 index or name, ``lightgbm_tpu/dataset.py:473-479``) are binned by
-descending category count. Left out (they raise): sparse input, deferred
-device ingest and EFB.
+descending category count. ``scipy.sparse`` input (CSR or CSC) is binned
+column by column from its CSC form, never densified to floats
+(``lightgbm_tpu/dataset.py:446-530``): implicit zeros take the zero bin,
+which is every mapper's default bin; its code matrix is column-major, so
+that each column is written (and read by EFB's planning) contiguously.
+With ``linear_tree`` in the config the dataset also keeps the used
+features' raw f32 values (NaN kept), the JAX package's ``X_raw``. Left out
+(they raise): file input and deferred device ingest.
 """
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -128,6 +134,9 @@ class ConstructedDataset(MetadataDuckTyping):
         self.config = config
         self.num_bins_per_feature = np.array(
             [m.num_bin for m in self.mappers], dtype=np.int32)
+        # raw f32 values of the used features for linear leaves
+        # (construct_dataset fills it under linear_tree)
+        self.X_raw: Optional[np.ndarray] = None
 
     @property
     def num_data(self) -> int:
@@ -144,10 +153,12 @@ class ConstructedDataset(MetadataDuckTyping):
     def bin_raw(self, data: np.ndarray) -> np.ndarray:
         """Bin a dense raw matrix with THIS dataset's mappers (a valid set
         aligned with its training set; the analog of
-        LoadFromFileAlignWithOtherDataset, dataset_loader.cpp:221)."""
+        LoadFromFileAlignWithOtherDataset, dataset_loader.cpp:221); CSR or
+        CSC input column by column, as the training set."""
         if hasattr(data, "tocsc"):
-            Log.fatal("sparse input is not ported to lightgbm_tpu_torch yet "
-                      "(ROADMAP A1)")
+            return bin_sparse_host(data.tocsc(), self.mappers,
+                                   self.real_feature_idx.astype(np.int64),
+                                   data.shape[0], self.code_dtype)
         data = np.asarray(data, dtype=np.float64)
         return bin_dense_host(data, self.mappers,
                               self.real_feature_idx.astype(np.int64),
@@ -214,15 +225,17 @@ def construct_dataset(
     feature_names: Optional[List[str]] = None,
     categorical_features: Optional[Sequence[Union[int, str]]] = None,
 ) -> ConstructedDataset:
-    """Build a ConstructedDataset from a dense raw numpy matrix.
+    """Build a ConstructedDataset from a dense numpy matrix or a
+    ``scipy.sparse`` one.
 
     Mirrors DatasetLoader::ConstructBinMappersFromTextData
     (dataset_loader.cpp:748-903): sample -> FindBin per feature -> drop
     trivial features -> bin codes."""
-    if hasattr(data, "tocsc"):
-        Log.fatal("sparse input is not ported to lightgbm_tpu_torch yet "
-                  "(ROADMAP A1)")
-    data = np.ascontiguousarray(data)
+    sparse = hasattr(data, "tocsc")
+    if sparse:
+        data = data.tocsc()            # columnwise access for binning
+    else:
+        data = np.ascontiguousarray(data)
     if data.ndim != 2:
         Log.fatal("Training data must be 2-dimensional")
     num_data, num_total_features = data.shape
@@ -263,7 +276,8 @@ def construct_dataset(
     dtype = (np.uint8 if all(f.mapper.num_bin <= 256 for f in features)
              else np.uint16)
 
-    X_binned = bin_dense_host(
+    binner = bin_sparse_host if sparse else bin_dense_host
+    X_binned = binner(
         data, [f.mapper for f in features],
         np.array([f.real_index for f in features], np.int64), num_data,
         dtype)
@@ -274,8 +288,12 @@ def construct_dataset(
     metadata.set_weight(weight)
     metadata.set_group(group)
     metadata.set_init_score(init_score)
-    return ConstructedDataset(X_binned, features, num_total_features,
-                              metadata, feature_names, config)
+    ds = ConstructedDataset(X_binned, features, num_total_features,
+                            metadata, feature_names, config)
+    if config.linear_tree:
+        ds.X_raw = extract_raw_slice(
+            data, [f.real_index for f in features], num_data)
+    return ds
 
 
 def bin_dense_host(data: np.ndarray, mappers, real_indices: np.ndarray,
@@ -304,3 +322,55 @@ def bin_dense_host(data: np.ndarray, mappers, real_indices: np.ndarray,
         for inner in range(len(real_indices)):
             _bin_column(inner)
     return X_binned
+
+
+def _csc_column(csc, j: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(row indices, f64 values) of column ``j`` by ``indptr`` slicing (for
+    ``csc_matrix`` and ``csc_array`` alike)."""
+    lo, hi = csc.indptr[j], csc.indptr[j + 1]
+    return csc.indices[lo:hi], np.asarray(csc.data[lo:hi], dtype=np.float64)
+
+
+def bin_sparse_host(csc, mappers, real_indices: np.ndarray, num_data: int,
+                    dtype=np.uint8) -> np.ndarray:
+    """Sparse host binning (``lightgbm_tpu/dataset.py:490-514``): each
+    column takes its mapper's default bin, the zero bin, and its stored
+    values are binned and scattered. The result is ``[num_data, F]`` in
+    column-major order, so that every column is one contiguous write."""
+    F = max(len(real_indices), 1)
+    Xt = np.zeros((F, num_data), dtype=dtype)
+
+    def _bin_column(inner: int):
+        m = mappers[inner]
+        rows, vals = _csc_column(csc, int(real_indices[inner]))
+        Xt[inner] = m.default_bin
+        if len(rows):
+            Xt[inner, rows] = m.value_to_bin(vals)
+
+    if num_data * F > 8_000_000 and len(real_indices) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+        workers = min(16, os.cpu_count() or 1, len(real_indices))
+        with ThreadPoolExecutor(workers) as pool:
+            list(pool.map(_bin_column, range(len(real_indices))))
+    else:
+        for inner in range(len(real_indices)):
+            _bin_column(inner)
+    return Xt.T
+
+
+def extract_raw_slice(data, real_indices, num_data: int) -> np.ndarray:
+    """``[N, used features]`` f32 raw values (NaN kept) for the linear-leaf
+    fit (``lightgbm_tpu/dataset.py:617-635``); a sparse input is densified
+    column by column, its implicit zeros numeric 0.0."""
+    out = np.zeros((num_data, max(len(real_indices), 1)), np.float32)
+    if hasattr(data, "tocsc"):
+        csc = data.tocsc()
+        for inner, real in enumerate(real_indices):
+            rows, vals = _csc_column(csc, real)
+            if len(rows):
+                out[rows, inner] = vals.astype(np.float32)
+        return out
+    data = np.asarray(data)
+    for inner, real in enumerate(real_indices):
+        out[:, inner] = np.asarray(data[:, real], np.float32)
+    return out

@@ -1,9 +1,10 @@
 """Leaf-wise tree growth in waves, as eager PyTorch on one device.
 
 Port of the serial resident path of ``lightgbm_tpu/grower.py``
-(``GrowerSpec``, ``TreeArrays``, ``GrowState``, ``_empty_tree``,
-``_apply_wave_splits`` :312-503, ``_route_rows`` :507-561 unbundled,
-``grow_tree`` :565-886; reference SerialTreeLearner::Train,
+(``GrowerSpec``, ``TreeArrays``, ``BundleDecode``, ``decode_bundled_bin``,
+``GrowState``, ``_empty_tree``, ``_apply_wave_splits`` :312-503,
+``_route_rows`` :507-561, ``grow_tree`` :565-886; reference
+SerialTreeLearner::Train,
 serial_tree_learner.cpp:152-231). The JAX package runs the wave loop as a
 ``lax.while_loop`` inside one jit; here it is a Python loop over waves
 that reads two scalars per wave on the host (the rows a compacted pass
@@ -27,6 +28,13 @@ covers, and the splits the wave applied). Each wave:
    prefix sums (never a sort): left rows to the front, right rows to the
    back, row order kept (the reference's DataPartition::Split,
    data_partition.hpp:94).
+
+Under EFB (``bundle`` given) ``X`` holds the bundled columns: histograms
+are built, cached and subtracted in bundle space ``[.., G, Bb, ..]``, the
+split scan runs there (``ops/split_finder.per_feature_best_bundled``), and
+the routing table carries the split feature's bundle column and code range,
+so that a row's decision compares its bundled code directly. Tree arrays
+are always in original feature space.
 
 State tensors are updated in place (the JAX package's carry is immutable
 and aliased by XLA; in place here saves one copy of the histogram cache
@@ -72,6 +80,40 @@ class TreeArrays(NamedTuple):
     leaf_count: torch.Tensor       # f32 [L+1]
     leaf_parent: torch.Tensor      # i32 [L+1]
     num_leaves: torch.Tensor       # i32 scalar: leaves grown
+    # linear leaves (ops/linear.py), set after growth, None otherwise:
+    # inner feature indices (-1 pad; all -1 = constant leaf), coefficients
+    # and intercept; leaf_value stays the missing-value / degraded output
+    leaf_feat: Optional[torch.Tensor] = None    # i32 [L+1, K]
+    leaf_coeff: Optional[torch.Tensor] = None   # f32 [L+1, K]
+    leaf_const: Optional[torch.Tensor] = None   # f32 [L+1]
+
+
+class BundleDecode(NamedTuple):
+    """EFB decode tables on the device (``efb.BundlePlan``, per original
+    feature f): ``orig_bin = code - off[f]`` for a code of column
+    ``col[f]`` in ``[lo[f], hi[f])``, else ``default_bin[f]``.
+    ``unpack_bin[f, b]`` is the code holding bin b (-1 for the default
+    bin, which is rebuilt by subtraction); ``code_feat[g, c]`` the member
+    owning code c of column g (-1: code 0, padding, the default-bin hole)."""
+    col: torch.Tensor          # i32 [F]
+    lo: torch.Tensor           # i32 [F]
+    hi: torch.Tensor           # i32 [F]
+    off: torch.Tensor          # i32 [F]
+    unpack_bin: torch.Tensor   # i32 [F, B]
+    code_feat: torch.Tensor    # i32 [G, Bb]
+
+
+def decode_bundled_bin(Xb: torch.Tensor, f: torch.Tensor,
+                       bundle: BundleDecode,
+                       default_bin: torch.Tensor) -> torch.Tensor:
+    """Original bin of feature ``f[i]`` for every row ``i`` of the bundled
+    matrix (grower.py:105-121 there); the binned walk of a bundled matrix
+    decodes through it."""
+    fl = f.long()
+    c = torch.gather(Xb, 1, bundle.col[fl][:, None].long())[:, 0] \
+        .to(torch.int32)
+    in_rng = (c >= bundle.lo[fl]) & (c < bundle.hi[fl])
+    return torch.where(in_rng, c - bundle.off[fl], default_bin[fl])
 
 
 @dataclass
@@ -79,7 +121,7 @@ class GrowState:
     """Per-tree wave state (the JAX package's while_loop carry)."""
     tree: TreeArrays
     leaf_id: torch.Tensor          # i32 [N]
-    hist: torch.Tensor             # f32 [L+1, F, B, 3] per-leaf cache
+    hist: torch.Tensor             # f32 [L+1, F|G, B|Bb, 3] per-leaf cache
     sum_g: torch.Tensor            # f32 [L+1]
     sum_h: torch.Tensor            # f32 [L+1]
     cnt: torch.Tensor              # f32 [L+1]
@@ -123,6 +165,8 @@ class GrowerSpec:
     max_cat_threshold: int = 32
     max_cat_to_onehot: int = 4
     min_data_per_group: float = 100.0
+    hist_bins: int = 0            # bin axis of the histograms under EFB
+                                  # (Bb_pad); 0 = num_bins_padded
 
     def hyperparams(self) -> Dict[str, float]:
         return dict(lambda_l1=self.lambda_l1, lambda_l2=self.lambda_l2,
@@ -180,10 +224,11 @@ def _empty_cand(L: int, B: int, device) -> SplitCandidates:
 def _apply_wave_splits(state: GrowState, new_hist: torch.Tensor,
                        leaf_of_slot: torch.Tensor, bm, spec: GrowerSpec,
                        comm, num_bins: torch.Tensor,
-                       missing_code: torch.Tensor, default_bin: torch.Tensor):
-    """Steps 3-6 of a wave plus the ``[L+1, 6]`` routing table, updating
-    ``state`` in place except the per-row fields (leaf_id and the
-    partition), which the caller owns. Returns ``(table, map_mask, p, q,
+                       missing_code: torch.Tensor, default_bin: torch.Tensor,
+                       bundle: Optional[BundleDecode] = None):
+    """Steps 3-6 of a wave plus the ``[L+1, 6]`` routing table (``[L+1,
+    11]`` with ``bundle``), updating ``state`` in place except the per-row
+    fields (leaf_id and the partition), which the caller owns. Returns ``(table, map_mask, p, q,
     n_apply)`` with ``map_mask`` the ``[L+1, B]`` categorical left sets of
     the split leaves (None without categorical features) and ``p``/``q``
     the per-slot split / new right leaves (``L`` where no split was
@@ -209,7 +254,7 @@ def _apply_wave_splits(state: GrowState, new_hist: torch.Tensor,
     scan_hist = torch.cat([new_hist, sib_hist], dim=0)         # [2S, F, B, 3]
     cand_new = comm.find_splits(
         scan_hist, state.sum_g[scan_leaves], state.sum_h[scan_leaves],
-        state.cnt[scan_leaves], bm, spec)
+        state.cnt[scan_leaves], bm, spec, bundle)
     for old, new in zip(state.cand, cand_new):
         old[scan_leaves] = new
     cand = state.cand
@@ -295,21 +340,29 @@ def _apply_wave_splits(state: GrowState, new_hist: torch.Tensor,
     # 0: split feature (-1 = leaf not split this wave)  1: threshold bin
     # 2: missing bin (-1 = none; reference NumericalDecision, tree.h:218)
     # 3: right-child leaf   4: default_left   5: is_cat
+    # under EFB, the split feature's bundle coordinates (grower.py:467-490
+    # there), resolved here for the chosen splits only:
+    # 6: bundled column   7: lo   8: hi   9: off   10: default bin
     sf = cand.feature[p].long()
     sf_safe = torch.clamp(sf, min=0)
     mc_s, nb_s, db_s = (missing_code[sf_safe], num_bins[sf_safe],
                         default_bin[sf_safe])
     miss_bin = torch.where(mc_s == 2, nb_s - 1,
                            torch.where(mc_s == 1, db_s, -1))
-    rows = torch.stack([sf, cand.threshold[p].long(), miss_bin.long(), q,
-                        cand.default_left[p].long(), cand.is_cat[p].long()],
-                       dim=-1).to(torch.int32)
-    table = torch.zeros((L + 1, 6), dtype=torch.int32, device=dev)
+    cols = [sf, cand.threshold[p].long(), miss_bin.long(), q,
+            cand.default_left[p].long(), cand.is_cat[p].long()]
+    scratch = [-1, 0, -1, 0, 0, 0]
+    if bundle is not None:
+        cols += [bundle.col[sf_safe].long(), bundle.lo[sf_safe].long(),
+                 bundle.hi[sf_safe].long(), bundle.off[sf_safe].long(),
+                 db_s.long()]
+        scratch += [0, 0, 0, 0, 0]
+    rows = torch.stack(cols, dim=-1).to(torch.int32)
+    table = torch.zeros((L + 1, len(cols)), dtype=torch.int32, device=dev)
     table[:, 0] = -1
     table[:, 2] = -1
     table[p] = rows
-    table[L] = torch.tensor([-1, 0, -1, 0, 0, 0], dtype=torch.int32,
-                            device=dev)
+    table[L] = torch.tensor(scratch, dtype=torch.int32, device=dev)
 
     map_mask = None
     if spec.use_categorical:
@@ -328,16 +381,24 @@ def _route_rows(X: torch.Tensor, lid: torch.Tensor, table: torch.Tensor,
     """Step 7: apply one wave's routing table to the rows of ``X``; with
     ``map_mask`` a categorical split sends a row left iff its bin is in the
     leaf's left set (reference Tree::CategoricalDecision, tree.h:257-284).
-    Returns ``(leaf_id, f_row, go_left, right_row)``; the last three feed
-    the partition maintenance (step 8)."""
-    packed = table_lookup(lid.long(), table)                    # [N, 6]
+    An 11-column table routes bundled codes: a row reads its split
+    feature's bundled column, and a code outside the member's ``[lo, hi)``
+    is the member's default bin (the reference's DenseBin::Split
+    min_bin/max_bin compare). Returns ``(leaf_id, f_row, go_left,
+    right_row)``; the last three feed the partition maintenance (step 8)."""
+    packed = table_lookup(lid.long(), table)                    # [N, 6|11]
     f_row = packed[:, 0]
     thr_row = packed[:, 1]
     miss_row = packed[:, 2]
     right_row = packed[:, 3]
     dl_row = packed[:, 4] != 0
-    f_safe = torch.clamp(f_row, min=0).long()
-    x_bin = torch.gather(X, 1, f_safe[:, None])[:, 0].to(torch.int32)
+    if table.shape[1] > 6:
+        c = torch.gather(X, 1, packed[:, 6:7].long())[:, 0].to(torch.int32)
+        in_rng = (c >= packed[:, 7]) & (c < packed[:, 8])
+        x_bin = torch.where(in_rng, c - packed[:, 9], packed[:, 10])
+    else:
+        f_safe = torch.clamp(f_row, min=0).long()
+        x_bin = torch.gather(X, 1, f_safe[:, None])[:, 0].to(torch.int32)
     go_left = torch.where(x_bin == miss_row, dl_row, x_bin <= thr_row)
     if map_mask is not None:
         # one gather from the flat [L+1, B] mask (the JAX package's
@@ -403,8 +464,11 @@ def grow_tree(
     default_bin: torch.Tensor,    # [F] i32
     spec: GrowerSpec,
     comm=None,
+    bundle: Optional[BundleDecode] = None,
 ) -> Tuple[TreeArrays, torch.Tensor]:
-    """Grow one tree; returns (tree arrays, final leaf id per row)."""
+    """Grow one tree; returns (tree arrays, final leaf id per row). With
+    ``bundle`` (EFB), ``X`` is the ``[N, G]`` bundled code matrix and the
+    histograms have ``spec.hist_bins`` bins."""
     if comm is None:
         from .parallel.comm import SerialComm
         comm = SerialComm(spec.num_features)
@@ -412,6 +476,7 @@ def grow_tree(
     M = L - 1
     S = spec.hist_slots
     B = spec.num_bins_padded
+    B_hist = spec.hist_bins or B          # Bb_pad under EFB
     N = X.shape[0]
     dev = X.device
     X_hist = comm.hist_X(X)
@@ -435,7 +500,8 @@ def grow_tree(
     state = GrowState(
         tree=_empty_tree(L, B, dev),
         leaf_id=torch.zeros(N, dtype=i32, device=dev),
-        hist=torch.zeros((L + 1, F_cache, B, 3), dtype=f32, device=dev),
+        hist=torch.zeros((L + 1, F_cache, B_hist, 3), dtype=f32,
+                         device=dev),
         sum_g=sum_g, sum_h=sum_h, cnt=cnt,
         leaf_depth=torch.zeros(L + 1, dtype=i32, device=dev),
         leaf_is_right=torch.zeros(L + 1, dtype=torch.bool, device=dev),
@@ -473,14 +539,14 @@ def grow_tree(
                                      or n_active < compact_rows):
                 new_hist = build_histograms_cuda(
                     X_hist, grad, hess, included, state.leaf_id,
-                    slot_of_leaf, S, B, row_idx=state.perm,
+                    slot_of_leaf, S, B_hist, row_idx=state.perm,
                     n_active=n_active, slot_counts=slot_counts,
                     slot_starts=state.seg_start[leaf_of_slot],
                     scales=scales)
             else:
                 new_hist = build_histograms_cuda(
                     X_hist, grad, hess, included, state.leaf_id,
-                    slot_of_leaf, S, B, scales=scales)
+                    slot_of_leaf, S, B_hist, scales=scales)
             new_hist = comm.reduce_hist(new_hist)
 
         # ---- 3-6 + routing table ------------------------------------------
@@ -488,7 +554,7 @@ def grow_tree(
         with record_function("wave.split"):
             table, map_mask, p, q, _ = _apply_wave_splits(
                 state, new_hist, leaf_of_slot, bm, spec, comm, num_bins,
-                missing_code, default_bin)
+                missing_code, default_bin, bundle)
 
         # ---- 7. route the rows of split leaves ----------------------------
         with record_function("wave.route"):
@@ -501,8 +567,14 @@ def grow_tree(
         state.leaf_id = leaf_id
 
     # scratch rows hold masked-split garbage; zero them (the JAX package
-    # does the same so that downstream score updates stay exact)
+    # does the same so that downstream score updates stay exact). The
+    # scratch node's children take many writes of one wave at the same
+    # index, which the card applies in no fixed order: give them the value
+    # the ordered writes of the CPU (and the JAX package) leave, so that
+    # the device tree is the same on both and from run to run
     tr = state.tree
     tr.leaf_value[L] = 0.0
     tr.internal_value[M] = 0.0
+    tr.left_child[M] = -L - 1
+    tr.right_child[M] = -L - 1
     return tr, state.leaf_id

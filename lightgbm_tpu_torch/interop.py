@@ -69,15 +69,19 @@ def port_mappers(mappers) -> List[BinMapper]:
 
 def tree_arrays_numpy(tree) -> Dict[str, np.ndarray]:
     """Either package's grower ``TreeArrays`` as a dict of numpy arrays
-    (the fields both share)."""
+    (the fields both share that are set: the linear-leaf fields are None
+    on a constant-leaf tree and left out)."""
     return {name: to_numpy(getattr(tree, name))
-            for name in TreeArrays._fields}
+            for name in TreeArrays._fields
+            if getattr(tree, name, None) is not None}
 
 
 def tree_arrays_torch(arrays: Dict[str, np.ndarray], device="cpu"
                       ) -> TreeArrays:
-    """Numpy tree arrays as this package's ``TreeArrays``."""
-    return TreeArrays(*[to_torch(arrays[name], device)
+    """Numpy tree arrays as this package's ``TreeArrays`` (a field missing
+    from ``arrays`` is None)."""
+    return TreeArrays(*[None if arrays.get(name) is None
+                        else to_torch(arrays[name], device)
                         for name in TreeArrays._fields])
 
 

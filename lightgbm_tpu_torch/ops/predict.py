@@ -16,8 +16,12 @@ values follow NumericalDecision (tree.h:218-243) through per-(row,
 feature) NaN / zero masks. Leaf values are summed in f64 on the device.
 The rank-encoded walk covers numerical splits; a forest holding a
 categorical split is predicted by the host ``Tree.predict`` instead, said
-once per process, as the JAX package does (predict.py:423-440). The
-binned-data walk takes categorical nodes by their left-set masks.
+once per process, as the JAX package does (predict.py:423-440). A forest
+of linear leaves (``forest_walk_linear``, predict.py:349-396 there) adds
+each leaf's ``const + coeff . x`` over the raw f32 values (the leaf's
+constant where a leaf feature is missing) and sums the trees in f32, as
+the JAX package does. The binned-data walk takes categorical nodes by their
+left-set masks, and bundled (EFB) codes through ``decode_bundled_bin``.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from ..binning import K_ZERO_RANGE
+from ..grower import decode_bundled_bin
 from ..utils.log import Log
 
 # the host route for categorical forests is said once per process
@@ -32,12 +37,13 @@ _CATEGORICAL_HOST_ROUTE = {"logged": False}
 
 
 def leaves_from_binned(tree, Xb: torch.Tensor, num_bins: torch.Tensor,
-                       missing_code: torch.Tensor, default_bin: torch.Tensor
-                       ) -> torch.Tensor:
+                       missing_code: torch.Tensor, default_bin: torch.Tensor,
+                       bundle=None) -> torch.Tensor:
     """Leaf index ``[N]`` of every row of a binned matrix, for one grower
     ``TreeArrays``; a categorical node sends a row left iff its bin is in
     the node's left set (reference Tree::CategoricalDecision,
-    tree.h:257-284)."""
+    tree.h:257-284). With ``bundle`` (``grower.BundleDecode``) ``Xb`` holds
+    bundled codes, decoded per node."""
     N = Xb.shape[0]
     sf = tree.split_feature.long()
     mc, nb, db = missing_code[sf], num_bins[sf], default_bin[sf]
@@ -54,7 +60,10 @@ def leaves_from_binned(tree, Xb: torch.Tensor, num_bins: torch.Tensor,
             break
         nid = torch.clamp(cur, min=0)
         f = sf[nid]
-        b = torch.gather(Xb, 1, f[:, None])[:, 0].to(torch.int32)
+        if bundle is None:
+            b = torch.gather(Xb, 1, f[:, None])[:, 0].to(torch.int32)
+        else:
+            b = decode_bundled_bin(Xb, f, bundle, default_bin)
         go_left = torch.where(b == miss_bin[nid], tree.default_left[nid],
                               b <= tree.threshold_bin[nid])
         if has_cat:
@@ -85,6 +94,26 @@ class StackedForest:
         M = max([t.num_internal for t in trees] + [1])
         L = max([t.num_leaves for t in trees] + [1])
         self.num_trees = T
+        # linear leaves: -1-padded (feature, coefficient) tables per leaf
+        # for the walk's epilogue; None when every leaf is constant
+        self.has_linear = any(t.is_linear for t in trees)
+        self.leaf_const32 = self.leaf_coeff32 = self.leaf_feat = None
+        if self.has_linear:
+            Kf = max(max((len(f) for f in t.leaf_features), default=0)
+                     for t in trees if t.leaf_features is not None)
+            Kf = max(Kf, 1)
+            self.leaf_const32 = np.zeros((T, L), np.float32)
+            self.leaf_coeff32 = np.zeros((T, L, Kf), np.float32)
+            self.leaf_feat = np.full((T, L, Kf), -1, np.int32)
+            for i, t in enumerate(trees):
+                if t.leaf_features is None:
+                    continue
+                self.leaf_const32[i, :len(t.leaf_const)] = t.leaf_const
+                for li, feats in enumerate(t.leaf_features):
+                    if len(feats):
+                        self.leaf_feat[i, li, :len(feats)] = feats
+                        self.leaf_coeff32[i, li, :len(feats)] = \
+                            t.leaf_coeff[li]
         split_feature = np.zeros((T, M), np.int32)
         thr_rank = np.zeros((T, M), np.int32)
         decision = np.zeros((T, M), np.uint8)
@@ -182,12 +211,38 @@ def forest_walk_leaves(split_feature, thr_rank, decision, left, right,
     return -cur - 1
 
 
+def forest_walk_linear(leaves, leaf_value32, leaf_const, leaf_coeff,
+                       leaf_feat, raw, raw_nan) -> torch.Tensor:
+    """Leaf output ``[N, T]`` f32 of a linear forest from its walked
+    ``leaves`` ``[N, T]``: ``const + sum_k coeff_k * x_k`` over the
+    NaN-sanitized raw values ``raw`` ``[N, F]`` (f32), or the leaf's
+    constant where a leaf feature is missing (``raw_nan``) or the leaf has
+    no features — the host ``Tree.predict``'s rule."""
+    N, T = leaves.shape
+    Kf = leaf_feat.shape[2]
+    t_iota = torch.arange(T, device=leaves.device)[None, :]
+    feats = leaf_feat[t_iota, leaves]                           # [N, T, Kf]
+    coeff = leaf_coeff[t_iota, leaves]
+    const = leaf_const[t_iota, leaves]
+    base = leaf_value32[t_iota, leaves]
+    idx = torch.clamp(feats, min=0).long().reshape(N, T * Kf)
+    vals = torch.gather(raw, 1, idx).reshape(N, T, Kf)
+    miss = torch.gather(raw_nan, 1, idx).reshape(N, T, Kf)
+    used = feats >= 0
+    vals = torch.where(used, vals, torch.zeros((), dtype=vals.dtype,
+                                                device=vals.device))
+    lin = used[..., 0] & ~(miss & used).any(dim=2)
+    acc = const + (coeff * vals).sum(dim=2)
+    return torch.where(lin, acc, base)
+
+
 def forest_predict_raw(trees, X: np.ndarray, num_features: int, device,
                        chunk_rows: int = 1 << 16) -> np.ndarray:
     """Raw-score batch prediction of a forest on ``device``: f64 ``[N]``.
 
     Rows are rank-encoded on the host in chunks, walked on the device, and
-    their leaf values summed over trees in f64 there. A forest holding a
+    their leaf values summed over trees in f64 there (a linear forest: its
+    leaf outputs in f32, as the JAX package's walk). A forest holding a
     categorical split is predicted by the host ``Tree.predict``, as in the
     JAX package (predict.py:423-440)."""
     forest = StackedForest(trees, num_features)
@@ -204,6 +259,10 @@ def forest_predict_raw(trees, X: np.ndarray, num_features: int, device,
     dev = forest.to(device)
     leaf_value = torch.as_tensor(forest.leaf_value, device=device)
     t_iota = torch.arange(forest.num_trees, device=device)[None, :]
+    if forest.has_linear:
+        lin = [torch.as_tensor(a, device=device) for a in (
+            forest.leaf_value.astype(np.float32), forest.leaf_const32,
+            forest.leaf_coeff32, forest.leaf_feat)]
     out = np.zeros(X.shape[0], np.float64)
     for lo in range(0, X.shape[0], chunk_rows):
         chunk = np.asarray(X[lo:lo + chunk_rows], np.float64)
@@ -212,6 +271,17 @@ def forest_predict_raw(trees, X: np.ndarray, num_features: int, device,
             *dev, torch.as_tensor(codes, device=device),
             torch.as_tensor(is_nan, device=device),
             torch.as_tensor(is_zero, device=device))
-        out[lo:lo + chunk_rows] = leaf_value[t_iota, leaves].sum(
-            dim=1).cpu().numpy()
+        if forest.has_linear:
+            # the epilogue reads raw f32 values, NaN set to 0 beside the
+            # missing plane (predict.py:470-477 there)
+            raw32 = chunk.astype(np.float32)
+            raw_nan = np.isnan(raw32)
+            np.nan_to_num(raw32, copy=False, nan=0.0)
+            outs = forest_walk_linear(
+                leaves, *lin, torch.as_tensor(raw32, device=device),
+                torch.as_tensor(raw_nan, device=device))
+            out[lo:lo + chunk_rows] = outs.sum(dim=1).cpu().numpy()
+        else:
+            out[lo:lo + chunk_rows] = leaf_value[t_iota, leaves].sum(
+                dim=1).cpu().numpy()
     return out

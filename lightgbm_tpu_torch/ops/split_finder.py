@@ -20,8 +20,9 @@ then one argmax. Semantics kept exactly, tie-breaks included:
   feature (``torch.argmax`` returns the first maximal index).
 
 The categorical scan is ``ops/categorical.py``; ``reduce_features``
-carries its left sets to the winner. The bundle-space scan (EFB) is ROADMAP
-A11.
+carries its left sets to the winner. Under EFB the numerical scan runs on
+bundle space (``per_feature_best_bundled``, split_finder.py:243-468 there)
+and only the categorical members are unpacked (``unpack_bundled_hist``).
 """
 from __future__ import annotations
 
@@ -204,6 +205,243 @@ def per_feature_best_numerical(
         left_g=pick(rev_lg, fwd_lg),
         left_h=pick(rev_lh, fwd_lh),
         left_c=pick(rev_lc, fwd_lc),
+    )
+
+
+def unpack_bundled_hist(hist_g: torch.Tensor, col: torch.Tensor,
+                        unpack_bin: torch.Tensor, pg: torch.Tensor,
+                        ph: torch.Tensor, pc: torch.Tensor,
+                        default_bin: torch.Tensor) -> torch.Tensor:
+    """EFB unpack (split_finder.py:214-236 there): ``[T, G, Bb, 3]``
+    bundle-space histograms of the features ``col`` / ``unpack_bin`` ``[Fs,
+    B]`` name -> ``[T, Fs, B, 3]`` in their own bins, each default bin
+    rebuilt from the leaf totals by subtraction (reference
+    Dataset::FixHistogram, dataset.cpp:750-769). The member sums are added
+    in f64 and the default bin rounded once, as in :func:`prefix_sums`."""
+    T = hist_g.shape[0]
+    Fs, B = unpack_bin.shape
+    h = hist_g[:, col.long()]                                    # [T, Fs, Bb, 3]
+    idx = unpack_bin.clamp(min=0).long()[None, :, :, None].expand(T, Fs, B, 3)
+    hf = torch.gather(h, 2, idx)                                 # [T, Fs, B, 3]
+    hf = torch.where((unpack_bin >= 0)[None, :, :, None], hf,
+                     torch.zeros((), dtype=hf.dtype, device=hf.device))
+    totals = torch.stack([pg, ph, pc], dim=-1).double()          # [T, 3]
+    deficit = (totals[:, None, :] - hf.double().sum(dim=2)).float()
+    rows = torch.arange(Fs, device=hf.device)
+    hf[:, rows, default_bin.long()] += deficit
+    return hf
+
+
+_BIG_T = 2 ** 30            # threshold sentinel of the min-reduction
+
+
+def per_feature_best_bundled(
+    hist: torch.Tensor,          # [T, G, Bb, 3] bundle space
+    parent_g: torch.Tensor,      # [T]
+    parent_h: torch.Tensor,      # [T]
+    parent_c: torch.Tensor,      # [T]
+    num_bins: torch.Tensor,      # [F] i32 (original features)
+    missing_code: torch.Tensor,  # [F] i32: 0=none, 1=zero, 2=nan
+    default_bin: torch.Tensor,   # [F] i32
+    feature_ok: torch.Tensor,    # [F] bool
+    col: torch.Tensor,           # [F] i32 bundled column of feature f
+    lo: torch.Tensor,            # [F] i32 first code of f's range
+    hi: torch.Tensor,            # [F] i32 one past its last code
+    off: torch.Tensor,           # [F] i32 orig_bin = code - off in [lo, hi)
+    code_feat: torch.Tensor,     # [G, Bb] i32 owner of each code, -1 none
+    *,
+    lambda_l1: float,
+    lambda_l2: float,
+    min_data_in_leaf: float,
+    min_sum_hessian_in_leaf: float,
+    min_gain_to_split: float,
+) -> PerFeatureBest:
+    """Best numerical threshold per (slot, original feature) without
+    leaving bundle space (the JAX package's ``per_feature_best_bundled``,
+    split_finder.py:243-468; the reference finds splits on FeatureGroup
+    bins and rebuilds only the shared default bin, dataset.cpp:750-769).
+
+    One cumulative sum runs along each bundled column's codes; a member's
+    prefix sum at its code ``c`` is ``CC[c] - CC[lo - 1]``, and its default
+    bin (which has no code) holds ``parent - (CC[hi - 1] - CC[lo - 1])`` and
+    joins every prefix from the default bin on. These sums are added in f64
+    and rounded to f32 once (:func:`prefix_sums`, ROADMAP C11), so they are
+    exact on exact-arithmetic histograms and do not depend on the device's
+    addition order. The default-bin threshold, which has no code when the
+    member's bin 0 is its default, is evaluated in a ``[T, F]`` side
+    channel. Ties follow the feature-space scan: reverse beats forward on
+    equal gain, the lowest threshold wins within a direction, and
+    :func:`reduce_features` keeps the lowest original feature."""
+    T, G, Bb, _ = hist.shape
+    F = num_bins.shape[0]
+    dev = hist.device
+    neg_inf = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    iota_b = torch.arange(Bb, dtype=torch.int32, device=dev)[None, :]
+    owned = code_feat >= 0
+    cfs = torch.where(owned, code_feat, 0).long()                # safe index
+    nb_c, mc_c, db_c = num_bins[cfs], missing_code[cfs], default_bin[cfs]
+    t_c = iota_b - off[cfs]                                      # orig bin
+    full_c = (nb_c > 2) & (mc_c != 0)
+    # the NaN bin in full mode stays out of the accumulating side; the zero
+    # bin never has a code (the owner rule drops off + db)
+    excl_c = full_c & (((mc_c == 2) & (t_c == nb_c - 1))
+                       | ((mc_c == 1) & (t_c == db_c)))
+    h64 = hist.double()
+    CCs = torch.cumsum(h64 * (owned & ~excl_c).double()[None, :, :, None],
+                       dim=2)                        # scan-included mass
+    CCu = torch.cumsum(h64 * owned.double()[None, :, :, None],
+                       dim=2)                        # every owned code
+    flatS = CCs.reshape(T, G * Bb, 3)
+    flatU = CCu.reshape(T, G * Bb, 3)
+    colL = col.long()
+
+    def at_pos(flat, cpos):
+        """CC at the per-feature code ``cpos`` ``[F]`` -> ``[T, F, 3]``; a
+        position below 0 reads zero mass."""
+        idx = colL * Bb + torch.clamp(cpos, 0, Bb - 1).long()
+        v = flat[:, idx]
+        return torch.where((cpos >= 0)[None, :, None], v,
+                           torch.zeros((), dtype=v.dtype, device=dev))
+
+    base_s = at_pos(flatS, lo - 1)                               # [T, F, 3]
+    base_u = at_pos(flatU, lo - 1)
+    member_u = at_pos(flatU, hi - 1) - base_u
+    fullF = (num_bins > 2) & (missing_code != 0)
+    dincF = ~(fullF & (missing_code == 1))
+    totals = torch.stack([parent_g, parent_h, parent_c],
+                         dim=-1).double()[:, None, :]            # [T, 1, 3]
+    deficit = totals - member_u                                  # default bin
+    def_inc = torch.where(dincF[None, :, None], deficit,
+                          torch.zeros((), dtype=deficit.dtype, device=dev))
+    tot_f64 = (at_pos(flatS, hi - 1) - base_s) + def_inc         # [T, F, 3]
+    tot_f = tot_f64.float()
+
+    def per_code(fv):
+        """``[T, F, 3]`` per-feature values at the code positions."""
+        return fv[:, cfs.reshape(-1)].reshape(T, G, Bb, 3)
+
+    cum_c = ((CCs - per_code(base_s))
+             + torch.where((t_c >= db_c)[None, :, :, None], per_code(def_inc),
+                           torch.zeros((), dtype=torch.float64, device=dev))
+             ).float()                                           # rounded once
+    tot_c = per_code(tot_f)
+    pg = parent_g[:, None, None]
+    ph = parent_h[:, None, None]
+    pc = parent_c[:, None, None]
+
+    def child_gains(lg, lh, lc, rg, rh, rc):
+        ok = ((lc >= min_data_in_leaf) & (rc >= min_data_in_leaf)
+              & (lh >= min_sum_hessian_in_leaf)
+              & (rh >= min_sum_hessian_in_leaf))
+        gains = (leaf_split_gain(lg, lh, lambda_l1, lambda_l2)
+                 + leaf_split_gain(rg, rh, lambda_l1, lambda_l2))
+        return torch.where(ok, gains, neg_inf)
+
+    lg_c, lh_c, lc_c = cum_c[..., 0], cum_c[..., 1], cum_c[..., 2]
+    # forward (dir=+1): left = included bins <= t, missing -> right. As in
+    # the feature-space scan (ROADMAP C1), a NaN-type member's forward
+    # candidates are dropped in a leaf without NaN rows, where they tie the
+    # reverse scan's in exact arithmetic; its NaN bin is its last code
+    nan_rows = hist[:, colL, torch.clamp(hi - 1, 0, Bb - 1).long(), 2]
+    fwd_live = (missing_code != 2)[None, :] | (nan_rows > 0)     # [T, F]
+    fwd_ok_c = (owned & full_c & (t_c <= nb_c - 2))[None] \
+        & fwd_live[:, cfs.reshape(-1)].reshape(T, G, Bb)
+    fwd_gain_c = torch.where(
+        fwd_ok_c, child_gains(lg_c, lh_c, lc_c, pg - lg_c, ph - lh_c,
+                                    pc - lc_c), neg_inf)
+    # reverse (dir=-1): right = included bins > t, missing -> left
+    rev_r = tot_c - cum_c
+    rg_c, rh_c, rc_c = rev_r[..., 0], rev_r[..., 1], rev_r[..., 2]
+    rev_max_c = torch.where(full_c & (mc_c == 2), nb_c - 3, nb_c - 2)
+    rev_ok_c = (owned & (t_c <= rev_max_c) & (t_c >= 0)
+                & ~(full_c & (mc_c == 1) & (t_c == db_c - 1)))
+    rev_gain_c = torch.where(
+        rev_ok_c[None], child_gains(pg - rg_c, ph - rh_c, pc - rc_c,
+                                    rg_c, rh_c, rc_c), neg_inf)
+
+    # per-feature reduction over the code grid: the largest gain, then the
+    # lowest threshold reaching it (the flat argmax's first occurrence)
+    idxF = torch.where(owned, code_feat, F).reshape(-1).long()   # [G*Bb]
+    tflat = t_c.reshape(-1)
+
+    def seg_best(gain_c):
+        gflat = gain_c.reshape(T, G * Bb)
+        mg = torch.full((T, F + 1), NEG_INF, dtype=torch.float32, device=dev)
+        mg = mg.scatter_reduce(1, idxF[None, :].expand(T, -1), gflat,
+                               reduce="amax")[:, :F]
+        back = mg[:, cfs.reshape(-1)]                            # [T, G*Bb]
+        tcand = torch.where((gflat == back) & torch.isfinite(gflat),
+                            tflat[None, :], _BIG_T)
+        bt = torch.full((T, F + 1), _BIG_T, dtype=torch.int32, device=dev)
+        bt = bt.scatter_reduce(1, idxF[None, :].expand(T, -1), tcand,
+                               reduce="amin")[:, :F]
+        return mg, bt
+
+    # the default-bin threshold ([T, F] side channel), from the same sums
+    dbF = default_bin
+    cum_db = ((at_pos(flatS, off + dbF) - base_s) + def_inc).float()
+    lgd, lhd, lcd = cum_db[..., 0], cum_db[..., 1], cum_db[..., 2]
+    pgF, phF, pcF = parent_g[:, None], parent_h[:, None], parent_c[:, None]
+    fwd_db_ok = (fullF & (dbF <= num_bins - 2)
+                 & (missing_code != 1))[None] & fwd_live
+    fwd_db_gain = torch.where(
+        fwd_db_ok, child_gains(lgd, lhd, lcd, pgF - lgd, phF - lhd,
+                                     pcF - lcd), neg_inf)
+    rev_maxF = torch.where(fullF & (missing_code == 2), num_bins - 3,
+                           num_bins - 2)
+    rev_db_ok = (dbF <= rev_maxF) & (dbF >= 0)
+    rev_rd = tot_f - cum_db
+    rgd, rhd, rcd = rev_rd[..., 0], rev_rd[..., 1], rev_rd[..., 2]
+    rev_db_gain = torch.where(
+        rev_db_ok[None], child_gains(pgF - rgd, phF - rhd, pcF - rcd,
+                                     rgd, rhd, rcd), neg_inf)
+
+    def combine(mg_bt, gdb):
+        mg, bt = mg_bt
+        use_db = (gdb > mg) | ((gdb == mg) & torch.isfinite(gdb)
+                               & (dbF[None, :] < bt))
+        return (torch.where(use_db, gdb, mg),
+                torch.where(use_db, dbF[None, :].expand_as(bt), bt))
+
+    rev_g, rev_t = combine(seg_best(rev_gain_c), rev_db_gain)
+    fwd_g, fwd_t = combine(seg_best(fwd_gain_c), fwd_db_gain)
+    use_rev = rev_g >= fwd_g                     # reverse first on ties
+    best_g = torch.where(use_rev, rev_g, fwd_g)
+    best_t = torch.where(use_rev, rev_t, fwd_t).to(torch.int32)
+    best_t = torch.where(torch.isfinite(best_g), best_t,
+                         torch.zeros_like(best_t))
+
+    # the winner's left sums, rebuilt from the same sums the gains used
+    p_win = off[None, :] + best_t                                # [T, F]
+    idx_win = (colL[None, :] * Bb
+               + torch.clamp(p_win, 0, Bb - 1).long())
+    cw = torch.gather(flatS, 1, idx_win[:, :, None].expand(T, F, 3))
+    cw = torch.where((p_win >= 0)[..., None], cw,
+                     torch.zeros((), dtype=cw.dtype, device=dev))
+    cum_w = ((cw - base_s)
+             + torch.where((best_t >= dbF[None, :])[..., None], def_inc,
+                           torch.zeros((), dtype=torch.float64, device=dev))
+             ).float()
+    tot32 = torch.stack([parent_g, parent_h, parent_c], dim=-1)[:, None, :]
+    rev_l = tot32 - (tot_f - cum_w)              # parent - reverse right
+    left = torch.where(use_rev[..., None], rev_l, cum_w)
+
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    feature_gate = torch.where(feature_ok, zero, neg_inf)[None, :]
+    parent_gain_shift = (leaf_split_gain(parent_g, parent_h, lambda_l1,
+                                         lambda_l2)
+                         + min_gain_to_split)[:, None]
+    best_g = best_g + feature_gate
+    best_g = torch.where(best_g > parent_gain_shift,
+                         best_g - parent_gain_shift, neg_inf)
+    rev_dl = ~(~fullF & (missing_code == 2))
+    return PerFeatureBest(
+        gain=best_g,
+        threshold=best_t,
+        default_left=use_rev & rev_dl[None, :],
+        left_g=left[..., 0],
+        left_h=left[..., 1],
+        left_c=left[..., 2],
     )
 
 

@@ -184,7 +184,8 @@ def test_imports_neither_jax_nor_the_jax_package():
             "lightgbm_tpu_torch.utils.prng, lightgbm_tpu_torch.callback, "
             "lightgbm_tpu_torch.sklearn, lightgbm_tpu_torch.boosting.goss, "
             "lightgbm_tpu_torch.boosting.dart, "
-            "lightgbm_tpu_torch.boosting.rf\n"
+            "lightgbm_tpu_torch.boosting.rf, lightgbm_tpu_torch.efb, "
+            "lightgbm_tpu_torch.ops.linear\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'lightgbm_tpu' or "
             "m.startswith('lightgbm_tpu.')]\n"
@@ -225,11 +226,11 @@ def test_default_device_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize("params,item", [
     ({"objective": "poisson", "tpu_residency": "stream"}, "A14"),
     ({"tree_learner": "voting"}, "A16"),
-    ({"categorical_feature": "0", "enable_bundle": True}, "A11"),
-    ({"enable_bundle": True}, "A11"),
-    ({"linear_tree": True}, "A12"),
-    ({"objective": "multiclass", "num_class": 3, "linear_tree": True},
-     "A12"),
+    ({"categorical_feature": "0", "tree_learner": "voting"}, "A16"),
+    ({"enable_bundle": True, "tpu_residency": "stream"}, "A14"),
+    ({"linear_tree": True, "tree_batch": 2}, "A10"),
+    ({"objective": "multiclass", "num_class": 3, "nan_policy": "clip"},
+     "A17"),
     ({"objective": "lambdarank", "tree_batch": 3}, "A10"),
     ({"objective": "huber", "tree_learner": "feature"}, "A16"),
     ({"tree_batch": 4, "boosting": "dart"}, "A10"),

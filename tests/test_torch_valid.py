@@ -281,6 +281,6 @@ def test_sklearn_unported_raise_naming_a2():
     clf = lgt.LGBMClassifier(device="cpu", n_estimators=2).fit(
         Xt, np.arange(NT) % 3)
     assert clf.predict_proba(Xt).shape == (NT, 3)
-    with pytest.raises(LightGBMError, match=r"ROADMAP A12\b"):
-        lgt.LGBMClassifier(device="cpu", linear_tree=True).fit(
+    with pytest.raises(LightGBMError, match=r"ROADMAP A16\b"):
+        lgt.LGBMClassifier(device="cpu", tree_learner="voting").fit(
             Xt, np.arange(NT) % 3)
