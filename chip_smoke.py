@@ -32,7 +32,12 @@ Phases (any failure exits non-zero and prints no result line):
    bit-equal; ``efb`` and ``efb_compact`` feed it bundled codes at the
    Bosch shape under EFB (1,184,000 rows x 121 bundled columns, B = 64; 25
    slots over every row, or about 10% of the rows in 25 of 250 leaves),
-   required bit-equal. A child process then feeds the kernel a bin code >= B
+   required bit-equal. ``graph`` captures the kernel's launch (its pass
+   size and scales read on the card, the grid sized for N) once in a CUDA
+   graph and replays it with 25 leaves holding every row (n_active = N),
+   25 empty leaves (n_active = 0) and 10% of the rows in 25 of 250 leaves,
+   each replay required bit-equal to the plain version; the first layout's
+   replay is timed. A child process then feeds the kernel a bin code >= B
    and must see a device-side assert, not a silently dropped row;
 4. main path at full width: a Higgs-shaped synthetic binary problem
    (2,000,000 x 28 f32, 5% NaN in two columns, a planted logit) through
@@ -45,14 +50,16 @@ Phases (any failure exits non-zero and prints no result line):
    compared on one card; then the same package on the CPU (every kernel's
    plain version) as the reference on a small input, with ``max_bin`` 255
    and with ``max_bin`` 511 (uint16 codes, which must launch the kernel);
-5. profile: three more iterations of the second run timed on the host
+5. profile of the eager loop (the booster's ``_capture`` off): three more
+   iterations of the second run timed on the host
    clock, three under ``torch.profiler`` (CPU + CUDA): wall time, device
    busy time and idle share, host time of each wave step (the
    ``wave.*`` ranges of ``grower.py``), CUDA launches per iteration, the
    histogram's device time (``hist_kernel`` and ``finalize_kernel``, and
-   all memsets, one per pass among them), the check that the wrapper's
-   launch count equals the passes in the profile, and the kernels that
-   take the most device time.
+   all memsets, one per pass among them), the check that the launch count
+   (kept on the card: ``finalize_kernel`` adds one per pass, graph replays
+   included) equals the passes in the profile, and the kernels that take
+   the most device time.
    ``--trace DIR`` also writes the Chrome trace there;
 6. the sampled and validated path at full width: phase 4's data and
    parameters plus the reference binary example's sampling
@@ -121,7 +128,23 @@ Phases (any failure exits non-zero and prints no result line):
    valid AUC beside phase 4's constant leaves, ``Booster.predict`` of 2M
    rows on the device's linear walk and its largest difference from the
    host ``Tree.predict`` on 10,000 rows (within 1e-5), a second run
-   byte-identical.
+   byte-identical;
+13. one dispatch per iteration: phase 4's data, 255 leaves, 16 rounds with
+   a 500,000-row valid set and AUC at iterations 8 and 16, in three arms:
+   eager on the card (``GBDT._capture`` off), captured with
+   ``tree_batch=1`` and captured with ``tree_batch=8``. The three model
+   texts must be byte-identical and their first 10 trees phase 4's; the
+   K=8 eval history must equal K=1's. Each arm then runs 8 iterations in
+   one ``train_batch`` call (ms per steady iteration; host syncs per tree:
+   the runner's flag reads plus the calls ``torch.cuda.set_sync_debug_mode
+   ("warn")`` flags; graph replays per iteration; capture and instantiate
+   seconds) and 4 under the profiler (device busy ms and idle share; the
+   passes counted on the card must equal ``finalize_kernel``'s launches in
+   the profile, so the captured arms' counts are held against what ran). A
+   captured sampled run (bagging 0.8 every 5, feature_fraction 0.8, the
+   valid set, 10 rounds) and a captured multiclass run (5 classes, 3
+   rounds) must be byte-identical to their eager runs. Phases 6, 8, 9, 11
+   and 12 say how many trees were replayed from graphs.
 
 ``--phases 3,11`` runs only the listed phases (and those they need); such a
 partial run prints no result lines and exits 4.
@@ -225,7 +248,7 @@ def _partition_kw(leaf_id, pending, num_leaves):
     perm = torch.sort(leaf_id, stable=True).indices.to(torch.int32)
     counts = torch.bincount(leaf_id.long(), minlength=num_leaves)
     starts = torch.cumsum(counts, 0) - counts
-    return dict(row_idx=perm, n_active=int(counts[pending].sum()),
+    return dict(row_idx=perm, n_active=counts[pending].sum(),
                 slot_counts=counts[pending].to(torch.int32).contiguous(),
                 slot_starts=starts[pending].to(torch.int32).contiguous())
 
@@ -242,7 +265,8 @@ def case_inputs(name, dev, gen, X8):
         counts = zeros.clone()
         counts[0] = N
         kw = dict(row_idx=torch.arange(N, dtype=torch.int32, device=dev),
-                  n_active=N, slot_counts=counts, slot_starts=zeros)
+                  n_active=torch.full((), N, dtype=torch.int64, device=dev),
+                  slot_counts=counts, slot_starts=zeros)
         return X8, B, leaf_id, slot_of_leaf, kw
     if name == "compact":
         # 250 leaves, the 25 pending ones hold ~10% of the rows
@@ -303,9 +327,10 @@ def efb_case_inputs(name, dev, gen):
 def kernel_phase(dev):
     """Phase 3: the histogram kernel against its plain version."""
     import torch
-    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    from lightgbm_tpu_torch.ops.cuda_histogram import (
+        build_histograms_cuda, launch_count)
     from lightgbm_tpu_torch.ops.histogram import (build_histograms,
-                                                  histogram_scales, pass_rows)
+                                                  histogram_scales)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     X8 = torch.randint(0, B, (N, F), generator=gen, device=dev,
                        dtype=torch.int32).to(torch.uint8)
@@ -325,11 +350,11 @@ def kernel_phase(dev):
         scales = histogram_scales(gw, hw)
         args = (X, gw, hw, inc, leaf_id, slot_of_leaf, S, nb)
         plain = build_histograms(*args, scales=scales, **kw)
-        before = build_histograms_cuda.launches
+        before = launch_count()
         out1 = build_histograms_cuda(*args, scales=scales, **kw)
         out2 = build_histograms_cuda(*args, scales=scales, **kw)
         torch.cuda.synchronize()
-        if build_histograms_cuda.launches != before + 2:
+        if launch_count() != before + 2:
             fail("the kernel wrapper did not count its launches")
         identical = bool(torch.equal(out1, out2))
         counts_equal = bool(torch.equal(out1[..., 2], plain[..., 2]))
@@ -354,49 +379,145 @@ def kernel_phase(dev):
         del out1, out2
         ms = cuda_time_ms(
             lambda: build_histograms_cuda(*args, scales=scales, **kw), 20)
-        plain_ms = cuda_time_ms(
-            lambda: build_histograms(*args, scales=scales, **kw), 3, 1)
-        # one PyTorch call computing the same (f32 atomics) histogram over a
-        # precomputed flat (slot, feature, bin, channel) index
-        rows, slot = pass_rows(leaf_id, slot_of_leaf, kw.get("row_idx"),
-                               kw.get("n_active"), kw.get("slot_counts"),
-                               kw.get("slot_starts"))
-        feat = torch.arange(nf, device=dev)
-        flat = ((slot[:, None] * nf + feat[None, :]) * nb
-                + X[rows].long()).reshape(-1)
-        flat3 = (flat[:, None] * 3 + torch.arange(3, device=dev)).reshape(-1)
-        del flat
-        w3 = torch.stack([gw[rows], hw[rows], inc[rows]], dim=-1)
-        w3 = w3[:, None, :].expand(-1, nf, -1).reshape(-1).contiguous()
-        lib_ms = cuda_time_ms(
-            lambda: torch.bincount(flat3, weights=w3,
-                                   minlength=S * nf * nb * 3), 5, 1)
-        del flat3, w3
-        n_rows = int(rows.numel())
-        # each input byte the function needs, read once: codes and g/h/inc
-        # of every row of the pass, plus its position (perm) or, without a
-        # partition, every row's leaf id; the output written once
-        row_bytes = nf * X.element_size() + 3 * 4
-        where_bytes = nx * 4 + (255 + 1) * 4 if name == "wrapper" \
-            else n_rows * 4 + 2 * S * 4
-        nbytes = n_rows * row_bytes + where_bytes + S * nf * nb * 3 * 4
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = 3.0 * n_rows * nf / F32_OPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        print(f"  {name} pass over {n_rows} rows (F={nf}, B={nb}): kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, torch.bincount "
-              f"{lib_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
-              f"({nbytes / 1e6:.1f} MB at 3.35 TB/s), "
-              f"{bound_ms / ms * 100:.1f}% of the bound", flush=True)
         results[name] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            max_abs_err=max_abs, max_rel_err=max_rel, bit_equal=bit_equal,
-            rows=n_rows, num_features=nf, num_bins=nb)
-        del plain, rows, slot, X, leaf_id, kw, args, gw, hw, inc
+            pass_costs(name, args, scales, kw, ms), max_abs_err=max_abs,
+            max_rel_err=max_rel, bit_equal=bit_equal)
+        del plain, X, leaf_id, kw, args, gw, hw, inc
         torch.cuda.empty_cache()
+    results["graph"] = graph_case(dev, gen, X8, g, h)
     malformed_input_check()
     return results
+
+
+def pass_costs(name, args, scales, kw, ms):
+    """The plain version's and ``torch.bincount``'s device ms on one pass's
+    inputs, and the pass's bound; printed beside the kernel's ``ms``."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import build_histograms, pass_rows
+    X, gw, hw, inc, leaf_id, slot_of_leaf, _, nb = args
+    dev = X.device
+    nx, nf = X.shape
+    plain_ms = cuda_time_ms(
+        lambda: build_histograms(*args, scales=scales, **kw), 3, 1)
+    # one PyTorch call computing the same (f32 atomics) histogram over a
+    # precomputed flat (slot, feature, bin, channel) index
+    rows, slot = pass_rows(leaf_id, slot_of_leaf, kw.get("row_idx"),
+                           kw.get("n_active"), kw.get("slot_counts"),
+                           kw.get("slot_starts"))
+    feat = torch.arange(nf, device=dev)
+    flat = ((slot[:, None] * nf + feat[None, :]) * nb
+            + X[rows].long()).reshape(-1)
+    flat3 = (flat[:, None] * 3 + torch.arange(3, device=dev)).reshape(-1)
+    del flat
+    w3 = torch.stack([gw[rows], hw[rows], inc[rows]], dim=-1)
+    w3 = w3[:, None, :].expand(-1, nf, -1).reshape(-1).contiguous()
+    lib_ms = cuda_time_ms(
+        lambda: torch.bincount(flat3, weights=w3,
+                               minlength=S * nf * nb * 3), 5, 1)
+    del flat3, w3
+    n_rows = int(rows.numel())
+    # each input byte the function needs, read once: codes and g/h/inc
+    # of every row of the pass, plus its position (perm) or, without a
+    # partition, every row's leaf id; the output written once
+    row_bytes = nf * X.element_size() + 3 * 4
+    where_bytes = nx * 4 + (255 + 1) * 4 if name == "wrapper" \
+        else n_rows * 4 + 2 * S * 4
+    nbytes = n_rows * row_bytes + where_bytes + S * nf * nb * 3 * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 3.0 * n_rows * nf / F32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"  {name} pass over {n_rows} rows (F={nf}, B={nb}): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, torch.bincount "
+          f"{lib_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
+          f"({nbytes / 1e6:.1f} MB at 3.35 TB/s), "
+          f"{bound_ms / ms * 100:.1f}% of the bound", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                rows=n_rows, num_features=nf, num_bins=nb)
+
+
+def graph_case(dev, gen, X8, g, h):
+    """Phase 3's ``graph`` case: B1's device-sized launch (``n_active`` the
+    sum of the slot counts on the card, the scales a device tensor, the
+    grid sized for N) captured once in a CUDA graph and replayed with three
+    layouts written into the buffers it reads: 25 leaves holding every row
+    (n_active = N), 25 empty leaves (n_active = 0) and about 10% of the rows
+    in 25 of 250 leaves. Each replay must be bit-equal to the plain
+    version; the replay of the first layout is timed."""
+    import torch
+    from lightgbm_tpu_torch.ops.cuda_histogram import (
+        build_histograms_cuda, launch_count)
+    from lightgbm_tpu_torch.ops.histogram import (build_histograms,
+                                                  histogram_scales)
+    L = 255
+    inc = torch.ones(N, device=dev)
+    scales = histogram_scales(g, h)
+    leaf_id = torch.zeros(N, dtype=torch.int32, device=dev)
+    sol = torch.full((L + 1,), -1, dtype=torch.int32, device=dev)
+    perm = torch.arange(N, dtype=torch.int32, device=dev)
+    counts = torch.zeros(S, dtype=torch.int32, device=dev)
+    starts = torch.zeros(S, dtype=torch.int32, device=dev)
+    kw = dict(row_idx=perm, slot_counts=counts, slot_starts=starts,
+              scales=scales)
+    args = (X8, g, h, inc, leaf_id, sol, S, B)
+
+    def layout(kind):
+        if kind == "full":
+            leaf = torch.randint(0, S, (N,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            pending = torch.arange(S, device=dev)
+        else:
+            leaf = torch.randint(0, 230, (N,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            pending = torch.arange(0, 250, 10, device=dev) \
+                if kind == "compact" else torch.arange(230, 255, device=dev)
+        part = _partition_kw(leaf, pending, L + 1)
+        leaf_id.copy_(leaf)
+        sol.fill_(-1)
+        sol[pending] = torch.arange(S, dtype=torch.int32, device=dev)
+        perm.copy_(part["row_idx"])
+        counts.copy_(part["slot_counts"])
+        starts.copy_(part["slot_starts"])
+        return int(part["n_active"])
+
+    layout("full")
+    build_histograms_cuda(*args, **kw)           # warm-up, outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = launch_count()
+    with torch.cuda.graph(graph):
+        out = build_histograms_cuda(*args, **kw)
+    if launch_count() != before:
+        fail("graph: a capture counted a histogram pass it did not run")
+    worst = 0.0
+    for kind in ("full", "empty", "compact"):
+        n_active = layout(kind)
+        graph.replay()
+        plain = build_histograms(*args, **kw)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(out, plain))
+        err = float((out - plain).abs().max())
+        worst = max(worst, err)
+        print(f"  graph replay, {kind} layout (n_active {n_active}): "
+              f"bit-equal to plain {equal}, max abs err {err:.3e}",
+              flush=True)
+        if not equal:
+            fail(f"graph: the replayed pass ({kind}) is not bit-equal to "
+                 "the plain version")
+    replayed = launch_count() - before
+    print(f"  graph: passes counted on the card over the three replays "
+          f"{replayed}", flush=True)
+    if replayed != 3:
+        fail(f"graph: three replays counted {replayed} passes")
+    layout("full")
+    ms = cuda_time_ms(graph.replay, 20)
+    costs = pass_costs("graph", args, scales,
+                       dict(row_idx=perm, slot_counts=counts,
+                            slot_starts=starts), ms)
+    del graph, out
+    torch.cuda.empty_cache()
+    return dict(costs, max_abs_err=worst, max_rel_err=0.0, bit_equal=True)
 
 
 _MALFORMED_CHILD = """
@@ -465,6 +586,20 @@ def auc_of(pred, y):
     return metric.eval(pred[None, :])[0][1]
 
 
+def replay_note(gbdt):
+    """How a booster's iterations ran on the card: replayed from CUDA
+    graphs, or eagerly (a path with host work inside an iteration)."""
+    r = gbdt._graphs
+    if r is None:
+        reason = gbdt._capture_blocker() or "not captured yet"
+        print(f"  iterations ran eagerly on the card ({reason})", flush=True)
+        return 0
+    print(f"  {r.trees} trees replayed from CUDA graphs ({r.replays} "
+          f"replays, {r.syncs} flag reads, {len(r.graphs)} graphs)",
+          flush=True)
+    return r.trees
+
+
 def same_trees(a, b):
     """Two boosters grew the same split features and thresholds."""
     import numpy as np
@@ -483,12 +618,13 @@ def main_path_phase():
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    from lightgbm_tpu_torch.ops.cuda_histogram import (
+        launch_count, reset_launch_count)
 
     X, y = higgs_like(N, SEED)
     params = dict(MAIN_PARAMS)
     rounds = 10
-    build_histograms_cuda.launches = 0          # the main path starts here
+    reset_launch_count()          # the main path starts here
     t0 = time.perf_counter()
     ds = lgt.Dataset(X, label=y)
     ds.construct(lgt.Config.from_params(params))
@@ -499,7 +635,7 @@ def main_path_phase():
     pred = bst.predict(X)
     t3 = time.perf_counter()
     text = bst.model_to_string()
-    launches = build_histograms_cuda.launches   # ... and ends here
+    launches = launch_count()   # ... and ends here
     ms_per_iter = (t2 - t1) / rounds * 1e3
     digest = hashlib.sha256(text.encode()).hexdigest()
     auc = auc_of(pred, y)
@@ -544,10 +680,10 @@ def main_path_phase():
     Xs, ys = X[:20000], y[:20000]
     for max_bin in (255, 511):
         small = dict(params, num_leaves=63, max_bin=max_bin)
-        before = build_histograms_cuda.launches
+        before = launch_count()
         cuda_bst = lgt.train(small, lgt.Dataset(Xs, label=ys),
                              num_boost_round=5, keep_training_booster=True)
-        small_launches = build_histograms_cuda.launches - before
+        small_launches = launch_count() - before
         codes = cuda_bst._gbdt.Xb.dtype
         cpu_bst = lgt.train(dict(small, device="cpu"),
                             lgt.Dataset(Xs, label=ys), num_boost_round=5)
@@ -569,7 +705,7 @@ def main_path_phase():
         if (max_bin > 255) != (codes == torch.int16):
             fail(f"max_bin {max_bin}: {codes} codes on the card")
     return dict(launches=launches, ms_per_iter=ms_per_iter, auc=auc,
-                booster=again, data=(ds, X, y), text=text)
+                booster=again, data=(ds, X, y), text=text, digest=digest)
 
 
 # the profiler ranges grower.py opens around each wave step
@@ -597,8 +733,9 @@ def profile_phase(booster, trace_dir, iters=3):
     """Phase 5: where a steady-state iteration spends its time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    from lightgbm_tpu_torch.ops.cuda_histogram import launch_count
     gbdt = booster._gbdt
+    gbdt._capture = False               # the eager loop (phase 13: graphs)
     walls = []                          # host clock, profiler off
     for _ in range(iters):
         t0 = time.perf_counter()
@@ -606,7 +743,7 @@ def profile_phase(booster, trace_dir, iters=3):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     prof_walls = []                     # the same, profiled
-    launches = build_histograms_cuda.launches
+    launches = launch_count()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
                  ) as prof:
         for _ in range(iters):
@@ -614,7 +751,7 @@ def profile_phase(booster, trace_dir, iters=3):
             gbdt.train_one_iter()
             torch.cuda.synchronize()
             prof_walls.append(time.perf_counter() - t0)
-    launches = build_histograms_cuda.launches - launches
+    launches = launch_count() - launches
     wall_ms = sum(walls) / iters * 1e3
     prof_ms = sum(prof_walls) / iters * 1e3
     events = prof.key_averages()
@@ -655,13 +792,13 @@ def profile_phase(booster, trace_dir, iters=3):
         print(f"  trace: {path}", flush=True)
     if not hist:
         fail("the profile shows no histogram kernel on the device")
-    # every pass the wrapper counted ran finalize_kernel on the card, and
-    # no pass ran anywhere else
+    # the device counter (finalize_kernel adds to it) against the profile
     passes = sum(e.count for e in hist if "finalize_kernel" in e.key)
-    print(f"  wrapper launches in the profiled iterations: {launches}; "
-          f"finalize_kernel launches in the profile: {passes}", flush=True)
+    print(f"  passes counted on the card in the profiled iterations: "
+          f"{launches}; finalize_kernel launches in the profile: {passes}",
+          flush=True)
     if launches != passes:
-        fail("the wrapper's launch count differs from the passes in the "
+        fail("the device launch count differs from the passes in the "
              "profile")
 
 NV = 500_000                       # phase 6's valid rows
@@ -746,7 +883,8 @@ def sampled_phase(ds, X, y, dev):
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    from lightgbm_tpu_torch.ops.cuda_histogram import (
+        launch_count, reset_launch_count)
     from lightgbm_tpu_torch.utils import prng
 
     Xv, yv = higgs_like(NV, SEED + 1)
@@ -754,14 +892,15 @@ def sampled_phase(ds, X, y, dev):
     dv = lgt.Dataset(Xv, label=yv, reference=ds).construct()
     evals = {}
     clock = IterClock()
-    build_histograms_cuda.launches = 0          # the sampled path starts here
+    reset_launch_count()          # the sampled path starts here
     bst = lgt.train(params, ds, num_boost_round=SAMPLED_ROUNDS,
                     valid_sets=[dv], valid_names=["valid"],
                     early_stopping_rounds=SAMPLED_STOP, evals_result=evals,
                     verbose_eval=False, callbacks=[clock],
                     keep_training_booster=True)
-    launches = build_histograms_cuda.launches   # ... and ends here
+    launches = launch_count()   # ... and ends here
     gbdt = bst._gbdt
+    replay_note(gbdt)
     n_iter = gbdt.iter_
     best = bst.best_iteration
     aucs = evals["valid"]["auc"]
@@ -854,10 +993,10 @@ def sampled_phase(ds, X, y, dev):
 
     # GOSS at full width: 10 warm-up rounds, then 5 sampled
     clock = IterClock()
-    build_histograms_cuda.launches = 0          # GOSS starts here
+    reset_launch_count()          # GOSS starts here
     goss = lgt.train(dict(MAIN_PARAMS, boosting="goss"), ds,
                      num_boost_round=GOSS_ROUNDS, callbacks=[clock])
-    goss_launches = build_histograms_cuda.launches   # ... and ends here
+    goss_launches = launch_count()   # ... and ends here
     warm = int(1.0 / MAIN_PARAMS["learning_rate"])
     gpred = goss.predict(X[:100_000])
     print(f"  GOSS {GOSS_ROUNDS} rounds: {clock.ms(1, warm):.2f} ms per "
@@ -893,9 +1032,9 @@ def sampled_phase(ds, X, y, dev):
             return lgt.train(dict(p, **device_params), d, num_boost_round=8,
                              valid_sets=[v], early_stopping_rounds=stop,
                              verbose_eval=False)
-        before = build_histograms_cuda.launches
+        before = launch_count()
         on_card = run({})
-        small_launches += build_histograms_cuda.launches - before
+        small_launches += launch_count() - before
         on_cpu = run({"device": "cpu"})
         splits = same_trees(on_card, on_cpu)
         pdiff = float(np.abs(on_card.predict(Xs) - on_cpu.predict(Xs)).max())
@@ -1019,7 +1158,8 @@ def multiclass_phase():
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    from lightgbm_tpu_torch.ops.cuda_histogram import (
+        launch_count, reset_launch_count)
     X, y = multiclass_like(N, SEED + 7)
     Xv, yv = multiclass_like(NV, SEED + 8)
     params = dict(MAIN_PARAMS, objective="multiclass", num_class=NUM_CLASS,
@@ -1028,11 +1168,11 @@ def multiclass_phase():
     ds.construct(lgt.Config.from_params(params))
     dv = lgt.Dataset(Xv, label=yv, reference=ds).construct()
     evals, clock = {}, IterClock()
-    build_histograms_cuda.launches = 0          # the multiclass path starts
+    reset_launch_count()          # the multiclass path starts
     bst = lgt.train(params, ds, num_boost_round=MULTI_ROUNDS,
                     valid_sets=[dv], valid_names=["valid"],
                     evals_result=evals, verbose_eval=False, callbacks=[clock])
-    launches = build_histograms_cuda.launches   # ... and ends here
+    launches = launch_count()   # ... and ends here
     text = bst.model_to_string()
     n_trees = len(bst.trees)
     losses = evals["valid"]["multi_logloss"]
@@ -1066,10 +1206,10 @@ def multiclass_phase():
     del bst, again
     torch.cuda.empty_cache()
     ova = dict(params, objective="multiclassova")
-    before = build_histograms_cuda.launches
+    before = launch_count()
     clock = IterClock()
     ova_bst = lgt.train(ova, ds, num_boost_round=2, callbacks=[clock])
-    ova_launches = build_histograms_cuda.launches - before
+    ova_launches = launch_count() - before
     ova_prob = ova_bst.predict(Xv[:100_000])
     print(f"  multiclassova 2 rounds: {len(ova_bst.trees)} trees, "
           f"{clock.ms(0):.1f} ms per iteration, histogram kernel launches "
@@ -1091,7 +1231,8 @@ def categorical_phase(dev):
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops.categorical import \
         per_feature_best_categorical
-    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    from lightgbm_tpu_torch.ops.cuda_histogram import (
+        launch_count, reset_launch_count)
     X, y = expo_like(N, SEED + 9)
     Xv, yv = expo_like(NV, SEED + 10)
     params = dict(MAIN_PARAMS, metric="auc")
@@ -1101,13 +1242,14 @@ def categorical_phase(dev):
     dv = lgt.Dataset(Xv, label=yv, reference=ds).construct()
     bin_s = time.perf_counter() - t0
     evals, clock = {}, IterClock()
-    build_histograms_cuda.launches = 0          # the categorical path starts
+    reset_launch_count()          # the categorical path starts
     bst = lgt.train(params, ds, num_boost_round=CAT_ROUNDS, valid_sets=[dv],
                     valid_names=["valid"], evals_result=evals,
                     verbose_eval=False, callbacks=[clock],
                     keep_training_booster=True)
-    launches = build_histograms_cuda.launches   # ... and ends here
+    launches = launch_count()   # ... and ends here
     gbdt = bst._gbdt
+    replay_note(gbdt)
     codes = gbdt.Xb.dtype
     nbins = gbdt.num_bins.cpu().tolist()
     text = bst.model_to_string()
@@ -1177,7 +1319,8 @@ def ranking_phase():
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    from lightgbm_tpu_torch.ops.cuda_histogram import (
+        launch_count, reset_launch_count)
     Xr, yr, gr = msltr_like(RANK_ROWS + RANK_HOLD)
     nq, n_tr = split_queries(gr, RANK_ROWS)
     params = dict(objective="lambdarank", num_leaves=255, max_bin=255,
@@ -1190,13 +1333,14 @@ def ranking_phase():
                      reference=ds).construct()
     bin_s = time.perf_counter() - t0
     evals, clock = {}, IterClock()
-    build_histograms_cuda.launches = 0          # the ranking path starts
+    reset_launch_count()          # the ranking path starts
     bst = lgt.train(params, ds, num_boost_round=RANK_ROUNDS, valid_sets=[dv],
                     valid_names=["valid"], evals_result=evals,
                     verbose_eval=False, callbacks=[clock],
                     keep_training_booster=True)
-    launches = build_histograms_cuda.launches   # ... and ends here
+    launches = launch_count()   # ... and ends here
     gbdt = bst._gbdt
+    replay_note(gbdt)
     text = bst.model_to_string()
     ndcg = evals["valid"]["ndcg@10"]
     obj = gbdt.objective
@@ -1344,7 +1488,8 @@ def efb_phase(dev):
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.grower import _route_rows
-    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    from lightgbm_tpu_torch.ops.cuda_histogram import (
+        launch_count, reset_launch_count)
     from lightgbm_tpu_torch.parallel.comm import BlockMeta, find_block_splits
     t0 = time.perf_counter()
     X, y = bosch_like(BOSCH_ROWS, seed=2)
@@ -1358,13 +1503,14 @@ def efb_phase(dev):
     bin_s = time.perf_counter() - t0
     cd = ds.constructed
     evals, clock = {}, IterClock()
-    build_histograms_cuda.launches = 0          # the EFB path starts here
+    reset_launch_count()          # the EFB path starts here
     bst = lgt.train(params, ds, num_boost_round=EFB_ROUNDS, valid_sets=[dv],
                     valid_names=["valid"], evals_result=evals,
                     verbose_eval=False, callbacks=[clock],
                     keep_training_booster=True)
-    launches = build_histograms_cuda.launches   # ... and ends here
+    launches = launch_count()   # ... and ends here
     gbdt = bst._gbdt
+    replay_note(gbdt)
     plan = gbdt.efb_plan
     text = bst.model_to_string()
     aucs = evals["valid"]["auc"]
@@ -1464,11 +1610,11 @@ def efb_phase(dev):
     if not same:
         fail("EFB: two runs gave different models")
     off_clock = IterClock()
-    before = build_histograms_cuda.launches
+    before = launch_count()
     off = lgt.train(dict(params, enable_bundle=False), ds,
                     num_boost_round=EFB_ROUNDS, callbacks=[off_clock],
                     keep_training_booster=True)
-    off_launches = build_histograms_cuda.launches - before
+    off_launches = launch_count() - before
     off_bytes = off._gbdt.Xb.numel() * off._gbdt.Xb.element_size()
     same_splits, n_diff, n_nodes, first = compare_splits(again, off)
     print(f"  enable_bundle=false on the same data: {off._gbdt.Xb.shape[1]} "
@@ -1488,11 +1634,11 @@ def efb_phase(dev):
                  metric="none")
     texts = []
     for eb in ("auto", "false"):
-        before = build_histograms_cuda.launches
+        before = launch_count()
         b = lgt.train(dict(exact, enable_bundle=eb), ds,
                       num_boost_round=EXACT_ROUNDS, fobj=quarter_residuals,
                       keep_training_booster=True)
-        off_launches += build_histograms_cuda.launches - before
+        off_launches += launch_count() - before
         texts.append((b.model_to_string(), b._gbdt.bundle is not None,
                       sum(t.num_leaves for t in b.trees)))
         del b
@@ -1515,7 +1661,8 @@ def linear_phase(mres, dev):
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    from lightgbm_tpu_torch.ops.cuda_histogram import (
+        launch_count, reset_launch_count)
     from lightgbm_tpu_torch.ops.linear import (accumulate_leaf_moments,
                                                fit_linear_leaves,
                                                leaf_path_features,
@@ -1532,13 +1679,14 @@ def linear_phase(mres, dev):
     dv = lgt.Dataset(Xv, label=yv, reference=ds).construct()
     bin_s = time.perf_counter() - t0
     evals, clock = {}, IterClock()
-    build_histograms_cuda.launches = 0          # the linear path starts here
+    reset_launch_count()          # the linear path starts here
     bst = lgt.train(params, ds, num_boost_round=LINEAR_ROUNDS,
                     valid_sets=[dv], valid_names=["valid"],
                     evals_result=evals, verbose_eval=False,
                     callbacks=[clock], keep_training_booster=True)
-    launches = build_histograms_cuda.launches   # ... and ends here
+    launches = launch_count()   # ... and ends here
     gbdt = bst._gbdt
+    replay_note(gbdt)
     text = bst.model_to_string()
     aucs = evals["valid"]["auc"]
     n_leaves = sum(t.num_leaves for t in bst.trees)
@@ -1662,7 +1810,7 @@ def card_vs_cpu_phase(X, cat, rank):
     the same splits, predictions within 1e-5, the kernel launched."""
     import numpy as np
     import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    from lightgbm_tpu_torch.ops.cuda_histogram import launch_count
     Xs = X[:SMALL]
     Xm, ym = multiclass_like(SMALL, SEED + 11)
     z = np.nan_to_num(Xs[:, 0]) + 0.5 * np.nan_to_num(Xs[:, 3])
@@ -1698,9 +1846,9 @@ def card_vs_cpu_phase(X, cat, rank):
             return lgt.train(dict(p, **device_params),
                              lgt.Dataset(Xc_, label=yc, **kw),
                              num_boost_round=5, fobj=fobj)
-        before = build_histograms_cuda.launches
+        before = launch_count()
         on_card = run({})
-        launched = build_histograms_cuda.launches - before
+        launched = launch_count() - before
         total += launched
         on_cpu = run({"device": "cpu"})
         splits = same_trees(on_card, on_cpu)
@@ -1825,7 +1973,7 @@ def card_vs_cpu_new_cases(Xh, yh):
     import numpy as np
     from scipy import sparse as sp
     import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+    from lightgbm_tpu_torch.ops.cuda_histogram import launch_count
     Xb, yb = bosch_like(SMALL, seed=SEED + 13)
     rng = np.random.RandomState(SEED + 14)
     cat = rng.randint(0, 6, SMALL).astype(np.float32)
@@ -1859,9 +2007,9 @@ def card_vs_cpu_new_cases(Xh, yh):
                              lgt.Dataset(Xc_, label=yc, **kw),
                              num_boost_round=5, fobj=fobj,
                              keep_training_booster=True)
-        before = build_histograms_cuda.launches
+        before = launch_count()
         on_card = run({})
-        launched = build_histograms_cuda.launches - before
+        launched = launch_count() - before
         total += launched
         g = on_card._gbdt
         engaged = {"bundle": g.bundle is not None,
@@ -1909,7 +2057,202 @@ def card_vs_cpu_new_cases(Xh, yh):
     return total
 
 
-PHASES = tuple(range(1, 13))
+BATCH_ROUNDS = 16                  # phase 13's rounds per arm
+BATCH_STEADY = 8                   # ... then iterations timed apart
+BATCH_PROFILED = 4                 # ... and under the profiler
+
+
+def _arm_stats(gbdt):
+    """(replays, flag reads, trees) of a booster's captured iteration so
+    far; zeros for an eager booster."""
+    r = gbdt._graphs
+    return (0, 0, 0) if r is None else (r.replays, r.syncs, r.trees)
+
+
+def _steady_arm(bst, label):
+    """ms per steady iteration, host syncs per tree and graph replays per
+    iteration over ``BATCH_STEADY`` iterations of one batch call (the
+    booster's own ``tree_batch``), then device busy ms and idle share from
+    a profiler window of ``BATCH_PROFILED`` iterations."""
+    import warnings
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from lightgbm_tpu_torch.ops.cuda_histogram import launch_count
+    gbdt = bst._gbdt
+    K = gbdt.num_models
+    r0, s0, t0_trees = _arm_stats(gbdt)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            gbdt.train_batch(BATCH_STEADY)
+            torch.cuda.synchronize()
+        finally:
+            t1 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode(0)
+    # the closing synchronize above is the measurement's own
+    debug_syncs = sum("synchroniz" in str(w.message) for w in caught)
+    r1, s1, t1_trees = _arm_stats(gbdt)
+    trees = BATCH_STEADY * K
+    ms = (t1 - t0) / BATCH_STEADY * 1e3
+    reads = s1 - s0
+    counted = launch_count()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        p0 = time.perf_counter()
+        gbdt.train_batch(BATCH_PROFILED)
+        torch.cuda.synchronize()
+        p1 = time.perf_counter()
+    counted = launch_count() - counted
+    kernels = device_kernels(prof.key_averages())
+    # the device counter against the passes the profile saw run, graph
+    # replays included
+    passes = sum(e.count for e in kernels if "finalize_kernel" in e.key)
+    prof_ms = (p1 - p0) / BATCH_PROFILED * 1e3
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / BATCH_PROFILED
+    n_ops = sum(e.count for e in kernels) / BATCH_PROFILED
+    r = gbdt._graphs
+    cap = (f"capture {r.capture_s:.2f} s, instantiate {r.instantiate_s:.2f}"
+           f" s over {len(r.graphs)} graphs; " if r is not None else "")
+    print(f"  {label}: {ms:.2f} ms per steady iteration ({BATCH_STEADY} "
+          f"iterations in one train_batch call); host syncs per tree "
+          f"{(reads + debug_syncs) / trees:.2f} ({reads} flag reads + "
+          f"{debug_syncs} synchronizing calls flagged by "
+          f"set_sync_debug_mode over {trees} trees); graph replays per "
+          f"iteration {(r1 - r0) / BATCH_STEADY:.1f}; {cap}profiled "
+          f"{prof_ms:.2f} ms per iteration, device busy {busy_ms:.2f} ms "
+          f"(idle share {1 - busy_ms / prof_ms:.3f}), {n_ops:.0f} device "
+          f"operations per iteration; B1 passes counted on the card "
+          f"{counted}, finalize_kernel launches in the profile {passes}",
+          flush=True)
+    if counted != passes or passes == 0:
+        fail(f"{label}: the device launch count ({counted}) differs from "
+             f"the passes in the profile ({passes})")
+    if r is not None and t1_trees - t0_trees != trees:
+        fail(f"{label}: {t1_trees - t0_trees} of {trees} trees replayed")
+    return dict(ms=ms, busy_ms=busy_ms, prof_ms=prof_ms,
+                syncs_per_tree=(reads + debug_syncs) / trees,
+                replays_per_iter=(r1 - r0) / BATCH_STEADY)
+
+
+def _eager_and_captured(label, params, ds, rounds, valid=None):
+    """The model text of an eager and of a captured run on the card, which
+    must be byte-identical."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    texts = []
+    for capture in (False, True):
+        GBDT._capture = capture
+        try:
+            t0 = time.perf_counter()
+            bst = lgt.train(params, ds, num_boost_round=rounds,
+                            valid_sets=[valid] if valid is not None else None,
+                            verbose_eval=False, keep_training_booster=True)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            GBDT._capture = True
+        runner = bst._gbdt._graphs
+        if capture and (runner is None or runner.trees == 0):
+            fail(f"{label}: the captured run replayed no tree")
+        texts.append(bst.model_to_string())
+        print(f"  {label}, {'captured' if capture else 'eager'}: {rounds} "
+              f"rounds in {secs:.2f} s, sha256 "
+              f"{text_digest(texts[-1])}", flush=True)
+        del bst
+        torch.cuda.empty_cache()
+    same = texts[0] == texts[1]
+    print(f"  {label}: captured model text identical to eager {same}",
+          flush=True)
+    if not same:
+        fail(f"{label}: the captured run's model differs from the eager one")
+
+
+def tree_batch_phase(mres):
+    """Phase 13: one iteration as CUDA graph replays, and ``tree_batch``,
+    at the main path's width, against the eager loop on the card."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.ops.cuda_histogram import (
+        launch_count, reset_launch_count)
+    ds, X, y = mres["data"]
+    # the alternative to speculative waves: guarded waves under conditional
+    # graph nodes, where this torch has them (not used by the port)
+    print(f"  torch {torch.__version__}: conditional graph nodes "
+          f"(CUDAGraph.begin_capture_to_if_node) "
+          f"{hasattr(torch._C._CUDAGraph, 'begin_capture_to_if_node')}",
+          flush=True)
+    Xv, yv = higgs_like(NV, SEED + 1)
+    dv = lgt.Dataset(Xv, label=yv, reference=ds).construct()
+    params = dict(MAIN_PARAMS, metric="auc", metric_freq=8)
+    arms = (("eager", 1, False), ("captured K=1", 1, True),
+            ("captured K=8", 8, True))
+    texts, evals, stats = {}, {}, {}
+    launches = 0
+    for label, k, capture in arms:
+        GBDT._capture = capture
+        ev = {}
+        try:
+            reset_launch_count()   # the arm's path starts
+            t0 = time.perf_counter()
+            bst = lgt.train(dict(params, tree_batch=k), ds,
+                            num_boost_round=BATCH_ROUNDS, valid_sets=[dv],
+                            valid_names=["valid"], evals_result=ev,
+                            verbose_eval=False, keep_training_booster=True)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            arm_launches = launch_count()   # ... ends here
+            texts[label] = bst.model_to_string()
+            # the first 10 trees' text: phase 4's up to the feature
+            # importances, which count every tree of the model
+            head = bst.model_to_string(num_iteration=10).split(
+                "feature importances:")[0]
+            evals[label] = ev["valid"]["auc"]
+            print(f"  {label}: {BATCH_ROUNDS} rounds in {secs:.2f} s with "
+                  f"valid AUC at iterations 8 and 16 {evals[label]}; "
+                  f"histogram kernel launches {arm_launches} = "
+                  f"{arm_launches / BATCH_ROUNDS:.1f} per tree; the first 10 "
+                  f"trees are phase 4's (sha256 {mres['digest']}) "
+                  f"{head == mres['text'].split('feature importances:')[0]}",
+                  flush=True)
+            if head != mres["text"].split("feature importances:")[0]:
+                fail(f"{label}: the first 10 trees differ from phase 4's")
+            if arm_launches <= 0:
+                fail(f"{label}: the histogram kernel never launched")
+            launches += arm_launches
+            stats[label] = _steady_arm(bst, label)
+        finally:
+            GBDT._capture = True
+        del bst
+        torch.cuda.empty_cache()
+    same = len({texts[a[0]] for a in arms}) == 1
+    same_eval = evals["captured K=8"] == evals["captured K=1"] \
+        == evals["eager"]
+    print(f"  model text identical across the three arms {same}; K=8 eval "
+          f"history equal to K=1's at iterations 8 and 16 {same_eval}",
+          flush=True)
+    if not same:
+        fail("tree_batch: the arms' model texts differ")
+    if not same_eval or len(evals["captured K=8"]) != 2:
+        fail("tree_batch: the K=8 eval history differs from K=1's")
+    _eager_and_captured(
+        "sampled (bagging 0.8 every 5, feature_fraction 0.8, 10 rounds)",
+        dict(SAMPLED_PARAMS, metric="auc"), ds, 10, valid=dv)
+    Xm, ym = multiclass_like(N, SEED + 7)
+    mparams = dict(MAIN_PARAMS, objective="multiclass", num_class=NUM_CLASS,
+                   metric="multi_logloss")
+    dm = lgt.Dataset(Xm, label=ym)
+    dm.construct(lgt.Config.from_params(mparams))
+    _eager_and_captured(f"multiclass ({NUM_CLASS} classes, 3 rounds)",
+                        mparams, dm, 3)
+    return dict(launches=launches, stats=stats)
+
+
+PHASES = tuple(range(1, 14))
 
 
 def main():
@@ -1936,8 +2279,8 @@ def main():
     dev = torch.device("cuda", 0)
     want = set(PHASES) if not args.phases else \
         {int(p) for p in args.phases.split(",")}
-    # phases 5-7 and 12 run on phase 4's data and booster
-    if want & {5, 6, 7, 12}:
+    # phases 5-7, 12 and 13 run on phase 4's data and booster
+    if want & {5, 6, 7, 12, 13}:
         want.add(4)
 
     print("phase 1: card", flush=True)
@@ -1970,7 +2313,8 @@ def main():
         mres = main_path_phase()
 
     if 5 in want:
-        print("phase 5: profile of a steady-state iteration", flush=True)
+        print("phase 5: profile of a steady-state eager iteration (the wave "
+              "steps' host time)", flush=True)
         profile_phase(mres.pop("booster"), args.trace)
     elif mres is not None:
         mres.pop("booster")
@@ -2019,6 +2363,14 @@ def main():
               f"valid rows)", flush=True)
         lres = linear_phase(mres, dev)
 
+    bres = none
+    if 13 in want:
+        print(f"phase 13: one dispatch per iteration (2M x 28 binary, 255 "
+              f"leaves, {BATCH_ROUNDS} rounds, {NV} valid rows): eager, "
+              f"captured K=1, captured K=8; sampled and multiclass captured "
+              f"against eager", flush=True)
+        bres = tree_batch_phase(mres)
+
     if want != set(PHASES):
         print(f"partial run of phases {sorted(want)}: no result lines",
               flush=True)
@@ -2028,7 +2380,8 @@ def main():
           f"sampled {sres['launches']} + GOSS {sres['goss_launches']}, "
           f"phase 7 {cres['launches']}, phase 8 {gres['launches']}, phase 9 "
           f"{rres['launches']}, phase 10 {xres['launches']}, phase 11 "
-          f"{eres['launches']}, phase 12 {lres['launches']}", flush=True)
+          f"{eres['launches']}, phase 12 {lres['launches']}, phase 13 "
+          f"{bres['launches']}", flush=True)
 
     full = kres["full"]
     kernels = {"kernels": [{
@@ -2038,7 +2391,7 @@ def main():
         "launches": mres["launches"] + sres["launches"]
         + sres["goss_launches"] + cres["launches"] + gres["launches"]
         + rres["launches"] + xres["launches"] + eres["launches"]
-        + lres["launches"],
+        + lres["launches"] + bres["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kres.values()),
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
@@ -2053,7 +2406,8 @@ def main():
             "6": sres["launches"] + sres["goss_launches"],
             "7": cres["launches"], "8": gres["launches"],
             "9": rres["launches"], "10": xres["launches"],
-            "11": eres["launches"], "12": lres["launches"]},
+            "11": eres["launches"], "12": lres["launches"],
+            "13": bres["launches"]},
     }]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

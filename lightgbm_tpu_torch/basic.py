@@ -28,6 +28,35 @@ from .utils.log import Log
 DEVICE_PREDICT_MIN_WORK = 1_000_000
 
 
+def _data_from_pandas(df, pandas_categorical=None):
+    """DataFrame -> float64 matrix, mapping `category` dtype columns to their
+    category codes (reference basic.py:226-268); a copy of the JAX package's
+    (``lightgbm_tpu/basic.py:22-44``). At train time the per-column category
+    lists are recorded; at predict time the recorded lists re-map so codes
+    agree with training (unseen categories become NaN/missing).
+
+    Returns (array, feature_names, cat_col_names, pandas_categorical).
+    """
+    cat_cols = [c for c in df.columns if str(df[c].dtype) == "category"]
+    if pandas_categorical is None:                    # training
+        pandas_categorical = [list(df[c].cat.categories) for c in cat_cols]
+    elif len(cat_cols) != len(pandas_categorical):
+        raise ValueError("train and predict data have different categorical "
+                         "columns")
+    if cat_cols:
+        df = df.copy()
+        for c, cats in zip(cat_cols, pandas_categorical):
+            codes = df[c].cat.set_categories(cats).cat.codes.astype(np.float64)
+            df[c] = codes.where(codes >= 0, np.nan)   # unseen/NaN -> missing
+    arr = df.values.astype(np.float64, copy=False)
+    return arr, [str(c) for c in df.columns], [str(c) for c in cat_cols], \
+        pandas_categorical
+
+
+def _is_frame(data) -> bool:
+    return hasattr(data, "values") and hasattr(data, "columns")
+
+
 class Dataset:
     """Lazily constructed dataset (reference basic.py:556): a dense numpy
     matrix or a ``scipy.sparse`` one (CSR or CSC), numerical and
@@ -44,7 +73,18 @@ class Dataset:
         if isinstance(data, str):
             Log.fatal("loading data files is not ported to "
                       "lightgbm_tpu_torch yet (ROADMAP A18)")
-        if hasattr(data, "tocsr"):
+        self.pandas_categorical = None
+        inferred_names = None
+        if _is_frame(data):
+            # a valid set aligned to a training set encodes categories with
+            # the TRAINING set's category lists (lightgbm_tpu/basic.py:98-104)
+            ref_pc = getattr(reference, "pandas_categorical", None)
+            arr, inferred_names, cat_cols, self.pandas_categorical = \
+                _data_from_pandas(data, ref_pc)
+            self.raw_data = arr
+            if categorical_feature == "auto" and cat_cols:
+                categorical_feature = cat_cols
+        elif hasattr(data, "tocsr"):
             # kept sparse: binning reads it column by column and never
             # densifies the floats (lightgbm_tpu/basic.py:46-55)
             self.raw_data = data.tocsr()
@@ -57,7 +97,8 @@ class Dataset:
         self.weight = weight
         self.group = group
         self.init_score = init_score
-        self.feature_name = None if feature_name == "auto" else feature_name
+        self.feature_name = inferred_names if feature_name == "auto" \
+            else feature_name
         self.categorical_feature = None if categorical_feature == "auto" \
             else categorical_feature
         self.params = dict(params or {})
@@ -177,6 +218,15 @@ class Dataset:
                 return self
             raise ValueError(
                 "Cannot set reference after the dataset was constructed")
+        ref_pc = getattr(reference, "pandas_categorical", None) or None
+        if (self.pandas_categorical or None) is not None and \
+                self.pandas_categorical != ref_pc:
+            # the category codes were fixed at __init__ against this frame's
+            # category lists (lightgbm_tpu/basic.py:259-267)
+            raise ValueError(
+                "Cannot set_reference on a pandas-categorical dataset "
+                "encoded against different category lists — rebuild the "
+                "Dataset with reference= instead")
         self.reference = reference
         return self
 
@@ -266,6 +316,8 @@ class Booster:
         self.mappers = cd.mappers
         self._real_feature_idx = cd.real_feature_idx
         self.num_model_per_iteration = self._gbdt.num_models
+        self.pandas_categorical = getattr(train_set, "pandas_categorical",
+                                          None)
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         """Attach a validation set binned with the training set's mappers;
@@ -403,6 +455,8 @@ class Booster:
                 raw_score: bool = False, pred_leaf: bool = False,
                 pred_contrib: bool = False, **kwargs) -> np.ndarray:
         self._ensure_finalized()
+        if _is_frame(data):
+            data, _, _, _ = _data_from_pandas(data, self.pandas_categorical)
         if hasattr(data, "tocsr"):
             # densified in chunks of 2^24 / F rows, each predicted on its
             # own (lightgbm_tpu/basic.py:695-705)

@@ -23,6 +23,8 @@ from .gbdt import GBDT
 
 
 class DART(GBDT):
+    # the drop set is chosen on the host every iteration (dart.py:30 there)
+    supports_tree_batch = False
 
     def __init__(self, config: Config, train_set):
         super().__init__(config, train_set)
@@ -80,18 +82,18 @@ class DART(GBDT):
                     drop_train[c] += self._train_contrib(tree)
                     for vi, vs in enumerate(self.valid_sets):
                         drop_valid[vi][c] += self._valid_contrib(tree, vs)
-            score_adj = self.score - drop_train
+            self.score = self.score - drop_train
             for vi, vs in enumerate(self.valid_sets):
                 vs.score = vs.score - drop_valid[vi]
-        else:
-            score_adj = self.score
 
-        score, new_valid = self._run_step(score_adj, shrinkage)
+        # the iteration updates the (dropped-from) scores in place
+        self._run_batch(1, shrinkage=shrinkage)
+        self._undo = None
         f = torch.tensor(factor, dtype=torch.float32, device=self.device)
-        self.score = score + drop_train * f if k else score
-        for vi, vs in enumerate(self.valid_sets):
-            new_v = torch.stack(new_valid[vi])
-            vs.score = new_v + drop_valid[vi] * f if k else new_v
+        if k:
+            self.score = self.score + drop_train * f
+            for vi, vs in enumerate(self.valid_sets):
+                vs.score = vs.score + drop_valid[vi] * f
 
         # permanently renormalise the dropped trees (dart.hpp:138-158)
         for i in drop:

@@ -7,9 +7,17 @@ feature_fraction (:1152-1191), valid sets (:1114, :1217), metric eval
 (:2073-2147), custom gradients, continued training, rollback and
 ``reset_config`` (:1878-2059), and the factory ``create_boosting``
 (reference src/boosting/gbdt.cpp:225-518). The JAX package compiles each
-iteration into one jitted program; here an iteration is eager PyTorch on
-the booster's device: gradients -> sampling -> ``grow_tree`` per model ->
-shrinkage -> train and valid score updates.
+iteration into one jitted program, and ``tree_batch`` iterations into one
+``lax.scan`` (``train_batch``, gbdt.py:1742-1803 there). Here an iteration
+is PyTorch on the booster's device, in parts that update fixed buffers in
+place: gradients -> sampling -> per model, the tree's prologue, its waves
+(``grower.TreeGrower``) and its epilogue (shrinkage, train and valid score
+updates). On the card the parts are captured once in CUDA graphs and
+replayed (``_IterationGraphs``), with one host read per tree; the first
+iteration, the CPU, and paths with host work inside an iteration (linear
+leaves, a custom ``fobj``, GOSS, DART) run the same parts eagerly.
+``train_batch(n)`` runs ``n`` iterations back to back; the engine evals on
+batch boundaries.
 
 Random draws reproduce ``jax.random``'s bits (``utils/prng.py``): the base
 key is ``PRNGKey(seed or bagging_seed)``; iteration ``it`` uses ``key =
@@ -37,6 +45,8 @@ the leaves' linear outputs.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -44,7 +54,7 @@ import torch
 
 from ..config import Config, check_port_supported, resolve_device
 from ..dataset import ConstructedDataset, Metadata, MetadataDuckTyping
-from ..grower import BundleDecode, GrowerSpec, TreeArrays, grow_tree
+from ..grower import BundleDecode, GrowerSpec, TreeArrays, TreeGrower
 from ..metrics import Metric, _PointwiseRegressionMetric, create_metrics
 from ..objectives import create_objective
 from ..ops.cuda_histogram import feature_groups
@@ -113,6 +123,12 @@ class GBDT:
     """Boosting driver (reference class GBDT, src/boosting/gbdt.h:25)."""
 
     average_output = False  # RF overrides (boosting.h average_output_)
+    # batches of iterations (tree_batch > 1) need every per-iteration hook
+    # on the device; DART and GOSS override to False and fall back to 1
+    supports_tree_batch = True
+    # capture the iteration on the card where the path allows; False (on
+    # the class or a booster) runs it eagerly there too, for comparison
+    _capture = True
 
     def __init__(self, config: Config, train_set: ConstructedDataset):
         check_port_supported(config)
@@ -181,7 +197,8 @@ class GBDT:
         self.score = torch.as_tensor(base, device=dev)
 
         self.models: List[List[TreeArrays]] = []
-        self._num_leaves: List[List[int]] = []
+        # per iteration, the K trees' leaf counts: an i32 [K] device tensor
+        self._num_leaves: List[torch.Tensor] = []
         self.iter_ = 0
         # monotonic forest-content counter: iter_ alone collides after a
         # rollback followed by a retrain
@@ -194,7 +211,27 @@ class GBDT:
                                       else config.bagging_seed)
         self.bagging_on = config.bagging_freq > 0 \
             and config.bagging_fraction < 1.0
-        self.bag_mask = self.pad_mask
+        # updated in place by every iteration
+        self.bag_mask = self.pad_mask.clone()
+
+        # ---- iterations in batches (tree_batch, gbdt.py:826-865 there) --
+        tb = max(1, config.tree_batch)
+        if tb > 1 and not self.supports_tree_batch:
+            Log.warning(
+                "tree_batch=%d is not supported with boosting=%s (the "
+                "per-iteration pipeline is not fully device-resident); "
+                "falling back to tree_batch=1", tb,
+                config.boosting_normalized)
+            tb = 1
+        self.tree_batch = tb
+        self._grower: Optional[TreeGrower] = None
+        self._graphs: Optional[_IterationGraphs] = None
+        self._stack = None
+        self._custom_gh = None
+        self._eager_logged: Optional[str] = None
+        # waves the last eager tree of each model needed (the first guess
+        # of a replayed tree's wave count)
+        self._waves_seen = [1] * K
 
     @staticmethod
     def _make_spec(config: Config, F: int, max_num_bin: int,
@@ -216,7 +253,6 @@ class GBDT:
             min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
             min_gain_to_split=config.min_gain_to_split,
             row_compact=config.tpu_row_compact,
-            compact_frac=config.tpu_compact_frac,
             cat_features=tuple(int(i) for i in np.nonzero(is_categorical)[0]),
             cat_smooth=config.cat_smooth,
             cat_l2=config.cat_l2,
@@ -329,6 +365,7 @@ class GBDT:
         vs.score = torch.as_tensor(base, device=self.device)
         self.valid_sets.append(vs)
         self._undo = None
+        self._grower = None           # its rows are routed by the grower
 
     # ------------------------------------------------------- step hooks
 
@@ -342,13 +379,11 @@ class GBDT:
     def _bag_mask_for_iter(self, key, it: int, prev_mask):
         """The bagging mask, drawn anew every ``bagging_freq`` iterations
         (gbdt.cpp:225-270; mask-based Bernoulli, as the JAX package)."""
-        if not self.bagging_on:
-            return self.pad_mask
-        if it % self.config.bagging_freq != 0:
-            return prev_mask
+        if not self._draws_bag(it):
+            return prev_mask if self.bagging_on else self.pad_mask
         u = prng.uniform(key, self.num_data, self.device)
-        frac = torch.tensor(self.config.bagging_fraction,
-                            dtype=torch.float32, device=self.device)
+        frac = torch.full((), self.config.bagging_fraction,
+                          dtype=torch.float32, device=self.device)
         return (u < frac).to(torch.float32) * self.pad_mask
 
     def _sampling(self, g, h, bag_mask, key, it: int):
@@ -356,35 +391,45 @@ class GBDT:
         overrides (goss.hpp:86-131)."""
         return self._bag_mask_for_iter(key, it, bag_mask), g, h
 
+    def _draws_bag(self, it: int) -> bool:
+        """Whether iteration ``it`` draws a new bagging mask: the two
+        variants of a captured iteration."""
+        return self.bagging_on and it % self.config.bagging_freq == 0
+
     def _feature_mask(self, fkey, k: int):
         """Per-model feature_fraction mask (serial_tree_learner.cpp:240)."""
+        return self._feature_mask_of(prng.fold_in(fkey, k))
+
+    def _feature_mask_of(self, key):
+        """The feature_fraction mask drawn from model ``k``'s key
+        ``fold_in(fkey, k)``."""
         if not self.use_feature_fraction:
             return self.feature_ok
-        noise = prng.uniform(prng.fold_in(fkey, k), self.spec.num_features,
-                             self.device)
+        noise = prng.uniform(key, self.spec.num_features, self.device)
         top = prng.top_k_indices(noise, self.n_feature_sample)
         fmask = torch.zeros(self.spec.num_features, dtype=torch.bool,
                             device=self.device)
-        fmask[top] = True
+        fmask.index_fill_(0, top, True)
         return fmask & self.feature_ok
 
     def _tree_output_transform(self, tree: TreeArrays) -> TreeArrays:
         """Hook: RF converts leaf outputs via the objective (rf.hpp:160)."""
         return tree
 
-    def _score_update(self, old_score_k, contrib, it: int):
-        """Hook: base adds; RF keeps a running average (rf.hpp:117-121)."""
+    def _score_update(self, old_score_k, contrib):
+        """Hook: base adds; RF keeps a running average of the iterations
+        (rf.hpp:117-121), read from the device iteration counter."""
         return old_score_k + contrib
 
     def _step_shrinkage(self) -> float:
         """Hook: per-tree shrinkage (RF overrides to 1.0, rf.hpp:44-45)."""
         return self.config.learning_rate
 
-    def _shrink(self, tree: TreeArrays, shrinkage: float) -> TreeArrays:
+    def _shrink(self, tree: TreeArrays, shrinkage) -> TreeArrays:
         """Tree::Shrinkage (tree.h:137-142), internal values and a linear
         leaf's intercept and coefficients included, then the output
-        transform."""
-        s = torch.tensor(shrinkage, dtype=torch.float32, device=self.device)
+        transform. ``shrinkage`` is a 0-d f32 tensor on the device."""
+        s = shrinkage
         tree = tree._replace(leaf_value=tree.leaf_value * s,
                              internal_value=tree.internal_value * s)
         if tree.leaf_const is not None:
@@ -404,82 +449,222 @@ class GBDT:
         (possibly bundled) training codes."""
         leaves = leaves_from_binned(tree, self.Xb, self.num_bins,
                                     self.missing_code, self.default_bin,
-                                    self.bundle)
+                                    self.bundle,
+                                    has_cat=self.spec.use_categorical)
         return self._leaf_outputs(tree, leaves, self.raw)
 
     def _valid_contrib(self, tree: TreeArrays, vs: ValidSet):
         """One tree's output for every row of a valid set."""
         leaves = leaves_from_binned(tree, vs.Xb, self.num_bins,
-                                    self.missing_code, self.default_bin)
+                                    self.missing_code, self.default_bin,
+                                    has_cat=self.spec.use_categorical)
         return self._leaf_outputs(tree, leaves, vs.raw)
 
-    def _tree_score_updates(self, score_k, valid_k, tree, leaf_ids, it):
-        """Apply one (shrunk) tree to the train score (by the grower's leaf
-        ids) and to every valid score (by a walk of its codes)."""
-        new_score_k = self._score_update(
-            score_k, self._leaf_outputs(tree, leaf_ids, self.raw), it)
-        new_valid_k = [self._score_update(v, self._valid_contrib(tree, vs),
-                                          it)
-                       for v, vs in zip(valid_k, self.valid_sets)]
-        return new_score_k, new_valid_k
+    # ------------------------------------------------ one iteration, in parts
+    #
+    # An iteration runs as four parts on buffers that keep their addresses:
+    # ``_part_start`` (gradients and row sampling), then for every model k
+    # ``_part_tree(k)`` (the tree's prologue), waves of the grower, and
+    # ``_part_tree_end(k)`` (epilogue, shrinkage, train and valid score
+    # updates, the tree written into the batch's stacked buffers). Each
+    # reads its iteration's number, keys and shrinkage from ``_in_i`` /
+    # ``_in_f``, which the host fills by one device copy per iteration, and
+    # none reads a device value on the host (but the linear fit), so on the
+    # card each is captured once in a CUDA graph and replayed
+    # (``_IterationGraphs``). Eagerly they are the same calls.
 
-    # ---------------------------------------------------------- training
+    def _prepare(self) -> None:
+        """The grower and the iteration's buffers, made once per booster
+        (and again after ``add_valid`` or ``reset_config``)."""
+        if self._grower is not None:
+            return
+        dev, K, N = self.device, self.num_models, self.num_data
+        self._grower = TreeGrower(
+            self.Xb, self.is_cat, self.num_bins, self.missing_code,
+            self.default_bin, self.spec, self.comm, self.bundle,
+            route=[vs.Xb for vs in self.valid_sets])
+        self._g = torch.zeros((K, N), dtype=torch.float32, device=dev)
+        self._h = torch.zeros((K, N), dtype=torch.float32, device=dev)
+        # iteration, batch slot, bagging key (2 words), per-model feature
+        # keys (2 words each); the shrinkage
+        self._in_i = torch.zeros(4 + 2 * K, dtype=torch.int64, device=dev)
+        self._in_f = torch.zeros(1, dtype=torch.float32, device=dev)
+        self._stack = None
+        self._graphs = None
 
-    def _run_step(self, score, shrinkage: float, custom_gh=None):
-        """One boosting iteration from ``score`` and the valid sets' current
-        scores: returns the new train score and per-valid score lists; the
-        trees are appended. The JAX package's ``step_body``."""
-        it = self.iter_
-        key = prng.fold_in(self._rng_key, it)
-        g, h = self._gradients(score) if custom_gh is None else custom_gh
-        bkey, fkey = prng.split(prng.fold_in(key, 0))
-        mask, g, h = self._sampling(g, h, self.bag_mask, bkey, it)
-        trees, new_scores = [], []
-        new_valid = [[vs.score[k] for k in range(self.num_models)]
-                     for vs in self.valid_sets]
+    def _batch_inputs(self, its: List[int], shrinkage: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The per-iteration inputs of a batch, on the device in one copy:
+        int64 ``[n, 4 + 2K]`` rows (see ``_in_i``) and f32 ``[n]``."""
+        rows = []
+        for j, it in enumerate(its):
+            key = prng.fold_in(self._rng_key, it)
+            bkey, fkey = prng.split(prng.fold_in(key, 0))
+            row = [it, j, *bkey]
+            for k in range(self.num_models):
+                row += list(prng.fold_in(fkey, k))
+            rows.append(row)
+        tab_i = torch.tensor(rows, dtype=torch.int64)
+        tab_f = torch.full((len(its),), shrinkage, dtype=torch.float32)
+        if self.device.type == "cuda":
+            # pinned, so the copies do not wait; the caching host allocator
+            # keeps each buffer until its copy has run
+            tab_i, tab_f = (t.pin_memory().to(self.device, non_blocking=True)
+                            for t in (tab_i, tab_f))
+        return tab_i, tab_f
+
+    def _part_start(self, it: int) -> None:
+        """Gradients and row sampling; the bagging mask is kept in
+        ``bag_mask``, the masked models' inputs in ``_g`` / ``_h``."""
+        ii = self._in_i
+        g, h = self._custom_gh if self._custom_gh is not None \
+            else self._gradients(self.score)
+        mask, g, h = self._sampling(g, h, self.bag_mask, (ii[2], ii[3]), it)
+        self._g.copy_(g)
+        self._h.copy_(h)
+        if mask is not self.bag_mask:
+            self.bag_mask.copy_(mask)
+
+    def _part_tree(self, k: int) -> None:
+        """Model ``k``'s tree prologue."""
+        ii = self._in_i
+        fmask = self._feature_mask_of((ii[4 + 2 * k], ii[5 + 2 * k]))
+        mask = self.bag_mask
+        self._grower.begin(self._g[k] * mask, self._h[k] * mask, mask, fmask)
+
+    def _part_tree_end(self, k: int) -> None:
+        """Model ``k``'s tree epilogue: (linear fit,) shrinkage, the train
+        score by the grower's leaf ids, every valid score by the leaf ids
+        its rows were routed to, and the shrunk tree into slot ``j * K +
+        k`` of the batch's stacked buffers."""
+        K = self.num_models
+        grower = self._grower
+        tree, leaf_ids = grower.finish()
+        if self.linear_tree:
+            # on the masked g/h the tree grew on, before shrinkage
+            # (gbdt.py:1369-1380 there)
+            tree, n_degraded = fit_linear_leaves(
+                tree, *self.raw, leaf_ids, grower.grad, grower.hess,
+                grower.included, self.is_cat,
+                max_features=self.config.linear_max_features,
+                linear_lambda=self.config.linear_lambda)
+            self.linear_degraded.append(n_degraded)
+        tree = self._shrink(tree, self._in_f[0])
+        self.score[k].copy_(self._score_update(
+            self.score[k], self._leaf_outputs(tree, leaf_ids, self.raw)))
+        for vs, lid in zip(self.valid_sets, grower.state.valid_leaf):
+            vs.score[k].copy_(self._score_update(
+                vs.score[k], self._leaf_outputs(tree, lid, vs.raw)))
+        if self._stack is None:       # first eager tree: never in a capture
+            cap = self.tree_batch * K
+            self._stack = [None if f is None else torch.empty(
+                (cap, *f.shape), dtype=f.dtype, device=f.device)
+                for f in tree]
+        slot = self._in_i[1:2] * K + k
+        for buf, f in zip(self._stack, tree):
+            if buf is not None:
+                buf.index_copy_(0, slot, f.unsqueeze(0))
+
+    def _eager_iteration(self, it: int) -> None:
+        """One iteration eagerly: the parts, and the wave loop reading
+        ``done`` after each wave."""
+        self._part_start(it)
         for k in range(self.num_models):
-            fmask = self._feature_mask(fkey, k)
-            gk, hk = g[k] * mask, h[k] * mask
-            tree, leaf_ids = grow_tree(
-                self.Xb, gk, hk, mask, fmask, self.is_cat,
-                self.num_bins, self.missing_code, self.default_bin,
-                self.spec, self.comm, self.bundle)
-            if self.linear_tree:
-                # on the masked g/h the tree grew on, before shrinkage
-                # (gbdt.py:1369-1380 there)
-                tree, n_degraded = fit_linear_leaves(
-                    tree, *self.raw, leaf_ids, gk, hk, mask, self.is_cat,
-                    max_features=self.config.linear_max_features,
-                    linear_lambda=self.config.linear_lambda)
-                self.linear_degraded.append(n_degraded)
-            tree = self._shrink(tree, shrinkage)
-            new_score_k, new_valid_k = self._tree_score_updates(
-                score[k], [nv[k] for nv in new_valid], tree, leaf_ids, it)
-            new_scores.append(new_score_k)
-            for nv, v in zip(new_valid, new_valid_k):
-                nv[k] = v
-            trees.append(tree)
-        self.bag_mask = mask
-        self.models.append(trees)
-        self._num_leaves.append([int(t.num_leaves) for t in trees])
-        self.iter_ += 1
-        self.mutations_ += 1
-        return torch.stack(new_scores), new_valid
+            self._part_tree(k)
+            self._waves_seen[k] = self._grower.run_waves()
+            self._part_tree_end(k)
 
-    def _commit(self, score, new_valid) -> None:
-        self.score = score
-        for vs, nv in zip(self.valid_sets, new_valid):
-            vs.score = torch.stack(nv)
+    def _capture_blocker(self) -> Optional[str]:
+        """Why this booster's iterations run eagerly on the card (None:
+        they are captured). The CPU always runs eagerly."""
+        if not self._capture:
+            return "the eager arm was asked for"
+        if self._custom_gh is not None:
+            return ("custom fobj: the gradients come from the host every "
+                    "iteration")
+        if not self.supports_tree_batch:
+            return (f"boosting={self.config.boosting_normalized} keeps host "
+                    f"work inside an iteration")
+        if self.linear_tree:
+            return ("linear_tree: the linear fit walks each leaf's path on "
+                    "the host (ops/linear.py:70)")
+        return None
+
+    def _run_batch(self, n: int, shrinkage: Optional[float] = None) -> None:
+        """``n`` iterations back to back (``n <= tree_batch``): replays of
+        the captured parts where the path is captured and an eager
+        iteration has run, else eager iterations. The trees are the same
+        either way; they are pushed after the batch."""
+        self._prepare()
+        K = self.num_models
+        its = list(range(self.iter_, self.iter_ + n))
+        tab_i, tab_f = self._batch_inputs(
+            its, self._step_shrinkage() if shrinkage is None else shrinkage)
+        for j, it in enumerate(its):
+            if j == n - 1:
+                self._record_undo()
+            self._in_i.copy_(tab_i[j])
+            self._in_f.copy_(tab_f[j])
+            graphs = self._graphs_for_batch()
+            if graphs is None:
+                self._eager_iteration(it)
+            else:
+                graphs.iteration(it)
+        # the batch's trees: one copy of the stacked buffers, sliced lazily
+        frozen = TreeArrays(*[None if f is None else f[:n * K].clone()
+                              for f in self._stack])
+        for j in range(n):
+            self.models.append([TreeArrays(*[
+                None if f is None else f[j * K + k] for f in frozen])
+                for k in range(K)])
+            self._num_leaves.append(frozen.num_leaves[j * K:(j + 1) * K])
+        self.iter_ += n
+        self.mutations_ += n
+
+    def _graphs_for_batch(self) -> Optional["_IterationGraphs"]:
+        """The captured iteration to replay, bound to the booster's
+        current scores; None runs the iteration eagerly: on the CPU, on a path
+        with host work inside an iteration (logged once), and for the
+        first iteration, which also warms every kernel up before any
+        capture."""
+        if self.device.type != "cuda":
+            return None
+        reason = self._capture_blocker()
+        if reason is not None:
+            if reason != self._eager_logged:
+                Log.info("not captured: %s; iterations run eagerly", reason)
+                self._eager_logged = reason
+            return None
+        if self._stack is None:
+            return None
+        if self._graphs is None:
+            self._graphs = _IterationGraphs(self)
+        self._graphs.bind()
+        return self._graphs
 
     def _record_undo(self) -> None:
-        # the step builds new tensors, so the old ones are the record
-        self._undo = (self.score, [vs.score for vs in self.valid_sets])
+        # the scores an iteration replaces, copied: it updates them in place
+        self._undo = (self.score.clone(),
+                      [vs.score.clone() for vs in self.valid_sets])
+
+    def train_batch(self, n: int) -> None:
+        """``n`` boosting iterations (tree_batch; the JAX package's
+        ``train_batch``): on a captured path ``n`` replays of the iteration
+        back to back, else ``n`` eager iterations, with the same trees.
+        Eval and callbacks are the caller's, on batch boundaries."""
+        if self.tree_batch <= 1:      # DART and GOSS keep their own step
+            for _ in range(n):
+                self.train_one_iter()
+            return
+        while n > 0:
+            m = min(n, self.tree_batch)
+            self._run_batch(m)
+            n -= m
 
     def train_one_iter(self) -> None:
         """One boosting iteration: gradients -> sampling -> grow -> shrink
         -> score updates."""
-        self._record_undo()
-        self._commit(*self._run_step(self.score, self._step_shrinkage()))
+        self._run_batch(1)
 
     def train_one_iter_custom(self, fobj) -> None:
         """One iteration with user-supplied gradients (reference
@@ -488,11 +673,13 @@ class GBDT:
         K, N = self.num_models, self.num_data
         preds = self.score.cpu().numpy().reshape(-1)
         grad, hess = fobj(preds, self.train_set)
-        gh = tuple(torch.as_tensor(np.asarray(a, np.float32).reshape(K, N),
-                                   device=self.device) for a in (grad, hess))
-        self._record_undo()
-        self._commit(*self._run_step(self.score, self.config.learning_rate,
-                                     custom_gh=gh))
+        self._custom_gh = tuple(
+            torch.as_tensor(np.asarray(a, np.float32).reshape(K, N),
+                            device=self.device) for a in (grad, hess))
+        try:
+            self._run_batch(1, shrinkage=self.config.learning_rate)
+        finally:
+            self._custom_gh = None
 
     def add_base_score(self, raw_scores: np.ndarray,
                        valid_raw: Optional[List[np.ndarray]] = None) -> None:
@@ -565,6 +752,11 @@ class GBDT:
                 1, int(round(new_config.feature_fraction * F)))
             self.use_feature_fraction = (new_config.feature_fraction < 1.0
                                          and self.n_feature_sample < F)
+        # the captured parts keep these as constants: capture them anew
+        # (the learning rate is an input of every iteration)
+        if changes or any(getattr(old, f) != getattr(new_config, f) for f in (
+                "feature_fraction", "bagging_fraction", "bagging_freq")):
+            self._grower = None
 
     def _pop_last_iteration(self) -> None:
         """Drop the last iteration's bookkeeping WITHOUT score arithmetic
@@ -577,9 +769,11 @@ class GBDT:
 
     def _check_no_splits(self) -> bool:
         """Reference gbdt.cpp:465-471: pop the trailing iterations whose
-        trees could not split and report whether training should stop."""
+        trees could not split and report whether training should stop. The
+        leaf counts stay on the device until this reads them."""
         popped = False
-        while self._num_leaves and all(n <= 1 for n in self._num_leaves[-1]):
+        while self._num_leaves and \
+                all(n <= 1 for n in self._num_leaves[-1].tolist()):
             self._pop_last_iteration()
             popped = True
         if popped:
@@ -668,6 +862,115 @@ class GBDT:
             for t in forest[0]:
                 t.add_bias(self.init_score_value)
         return forest
+
+
+class _IterationGraphs:
+    """A booster's iteration on the card as CUDA graphs, captured at first
+    use into one private memory pool and replayed: ``start`` (two variants:
+    with and without a bagging draw), per model ``tree`` and ``end``, and
+    one ``wave``. Every tensor a graph reads or writes lives outside the
+    pool, in buffers that keep their addresses (the booster's scores and
+    bagging mask, ``_in_i`` / ``_in_f``, ``_g`` / ``_h``, the grower's
+    state, the stacked trees), so graphs may share the pool and replay in
+    any order.
+
+    The waves of a tree are replayed speculatively: as many as the model's
+    last tree needed, then the host reads the grower's ``flags`` (leaves,
+    done, waves) through a pinned buffer, its one sync per tree, and
+    replays more while the tree is not done. A wave after ``done`` applies
+    nothing, so no wave count is assumed for correctness."""
+
+    def __init__(self, gbdt: "GBDT"):
+        self.gbdt = gbdt
+        self.pool = None
+        self.graphs = {}
+        self.guess = list(gbdt._waves_seen)
+        self.flags_host = None
+        self.ready = None
+        # the scores the graphs bind to
+        self.score = gbdt.score.clone()
+        self.valid_scores = [vs.score.clone() for vs in gbdt.valid_sets]
+        # measurements read by chip_smoke.py
+        self.capture_s = 0.0          # Python capture of every graph
+        self.instantiate_s = 0.0      # cudaGraphInstantiate at capture end
+        self.replays = 0
+        self.syncs = 0
+        self.trees = 0
+        self.waves_run = 0            # wave replays, no-op waves included
+        self.waves_needed = 0         # waves the trees needed
+
+    def bind(self) -> None:
+        """Point the booster at the graphs' buffers, copying in whatever
+        replaced them since (a rollback, a continued-training seed)."""
+        gb = self.gbdt
+        if gb.score is not self.score:
+            self.score.copy_(gb.score)
+            gb.score = self.score
+        for vs, buf in zip(gb.valid_sets, self.valid_scores):
+            if vs.score is not buf:
+                buf.copy_(vs.score)
+                vs.score = buf
+
+    def _capture(self, key, fn):
+        """Capture ``fn`` into a CUDA graph (nothing runs) and return it."""
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        g = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(g, pool=self.pool):
+                fn()
+                t1 = time.perf_counter()
+        except Exception as e:
+            raise RuntimeError(f"CUDA graph capture of the iteration's "
+                               f"{key} part failed: {e}") from e
+        self.capture_s += t1 - t0
+        self.instantiate_s += time.perf_counter() - t1
+        return g
+
+    def _read_flags(self, flags: torch.Tensor) -> List[int]:
+        """The grower's flags on the host: the tree's one sync."""
+        if self.flags_host is None:
+            self.flags_host = torch.empty(3, dtype=torch.int64,
+                                          pin_memory=True)
+            self.ready = torch.cuda.Event()
+        self.flags_host.copy_(flags, non_blocking=True)
+        self.ready.record()
+        self.ready.synchronize()
+        return self.flags_host.tolist()
+
+    def _replay(self, key, fn) -> None:
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = self._capture(key, fn)
+        g.replay()
+        self.replays += 1
+
+    def iteration(self, it: int) -> None:
+        gb = self.gbdt
+        # a graph keeps what its capture saw: the variant of ``it``, ``k``
+        self._replay(("start", gb._draws_bag(it)),
+                     functools.partial(gb._part_start, it))
+        for k in range(gb.num_models):
+            self._replay(("tree", k), functools.partial(gb._part_tree, k))
+            self._waves(k)
+            self._replay(("end", k), functools.partial(gb._part_tree_end, k))
+
+    def _waves(self, k: int) -> None:
+        flags = self.gbdt._grower.state.flags
+        n = self.guess[k]
+        while True:
+            for _ in range(n):
+                self._replay("wave", self.gbdt._grower.wave)
+            self.waves_run += n
+            _, done, waves = self._read_flags(flags)
+            self.syncs += 1
+            if done:
+                break
+            n = max(1, self.guess[k] // 4)
+        self.guess[k] = waves
+        self.waves_needed += waves
+        self.trees += 1
 
 
 def create_boosting(config: Config, train_set: ConstructedDataset) -> GBDT:

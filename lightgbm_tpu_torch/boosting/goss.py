@@ -20,6 +20,9 @@ from .gbdt import GBDT
 
 
 class GOSS(GBDT):
+    # as the JAX package (goss.py:24 there): a batch of iterations falls
+    # back to one at a time
+    supports_tree_batch = False
 
     def __init__(self, config: Config, train_set):
         super().__init__(config, train_set)

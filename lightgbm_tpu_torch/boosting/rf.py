@@ -37,9 +37,10 @@ class RF(GBDT):
         return tree._replace(
             leaf_value=self.objective.convert_output(tree.leaf_value))
 
-    def _score_update(self, old_score_k, contrib, it: int):
-        itf = torch.tensor(float(it), dtype=torch.float32,
-                           device=self.device)
+    def _score_update(self, old_score_k, contrib):
+        # the iteration number from the device counter the host fills, so
+        # that a replayed iteration reads its own
+        itf = self._in_i[0].to(torch.float32)
         return (old_score_k * itf + contrib) / (itf + 1.0)
 
     def _step_shrinkage(self) -> float:

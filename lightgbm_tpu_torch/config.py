@@ -856,9 +856,11 @@ def resolve_device(config: "Config"):
 
 # tpu_* tuning keys whose meaning is a TPU layout or dispatch choice: the
 # port accepts them and logs that they do nothing. The tpu_* keys the port
-# does honour are tpu_wave_size, tpu_hist_slots, tpu_row_compact and
-# tpu_compact_frac (grower wave shape) and tpu_residency (stream raises).
+# does honour are tpu_wave_size, tpu_hist_slots and tpu_row_compact (grower
+# wave shape) and tpu_residency (stream raises); every pass is compacted,
+# so tpu_compact_frac has no meaning here.
 TPU_ONLY_KEYS = (
+    "tpu_compact_frac",
     "tpu_hist_chunk", "tpu_hist_hilo", "tpu_hist_f64", "tpu_hist_kernel",
     "tpu_incremental_partition", "tpu_efb_unpack", "tpu_ingest",
     "tpu_ingest_chunk_rows", "tpu_ingest_prefetch", "tpu_hbm_budget_bytes",
@@ -880,7 +882,8 @@ def check_port_supported(config: "Config") -> None:
     the JAX package (or custom gradients, ``objective=none``), query groups,
     bagging and feature_fraction, EFB (``enable_bundle``), linear leaves,
     ``tree_learner=serial``, dense or sparse numerical and categorical
-    features and resident data. Each refusal names the ROADMAP queue item
+    features, resident data and batches of iterations (``tree_batch``).
+    Each refusal names the ROADMAP queue item
     that will port it; none of these settings is ever silently ignored."""
     if config.linear_tree and config.tree_learner != "serial":
         # the JAX package's own refusal (boosting/gbdt.py:712-732): the
@@ -893,8 +896,6 @@ def check_port_supported(config: "Config") -> None:
         _unported(f"tree_learner={config.tree_learner}", "A16")
     if config.tpu_residency == "stream":
         _unported("tpu_residency=stream", "A14")
-    if config.tree_batch > 1:
-        _unported(f"tree_batch={config.tree_batch}", "A10")
     if config.nan_policy != "none":
         _unported(f"nan_policy={config.nan_policy}", "A17")
     if config.checkpoint_dir or config.resume_from:

@@ -19,7 +19,8 @@
 //
 // Arithmetic: g and h are added as 64-bit fixed-point integers,
 // q = __double2ll_rn(x * scale), with one power-of-two scale per tree chosen
-// by the wrapper so that n_rows * max|x| * scale < 2^62; counts are 32-bit.
+// on the card (ops/histogram.py:histogram_scales) so that
+// n_rows * max|x| * scale < 2^62; counts are 32-bit.
 // Integer addition is associative, so the order in which atomics land does
 // not change a bit of the result: two launches are bit-identical and
 // training is bit-identical run to run. Error per bin against the exact f64
@@ -52,10 +53,8 @@
 //      they cross a slot boundary, found from the per-slot prefix in shared
 //      memory once per range, not per row. At the end of each slot's range
 //      the block adds its non-zero bins into the global [S, F, B] integer
-//      accumulators and zeroes them. R comes from the host's plan
-//      (ops/cuda_histogram.py:plan_ranges), sized from n_active, which the
-//      grower reads on the host anyway: no added sync. A root wave (one
-//      slot) zeroes and flushes one slot's bins per block, not S.
+//      accumulators and zeroes them. A root wave (one slot) zeroes and
+//      flushes one slot's bins per block, not S.
 //   3. Lanes over rows: each thread adds whole rows, a loop over the
 //      features of its row, so that a row's adds are independent of each
 //      other. Lanes over features (a warp adding one staged row at a time,
@@ -72,6 +71,19 @@
 //   6. A pass is three operations on the stream: a memset of the
 //      accumulators, hist_kernel and finalize_kernel (integer sums to the
 //      [S, F, B, 3] f32 output).
+//   7. Sizes on the card: n_active (the sum of slot_counts, or a device
+//      int64 the caller writes) and the two fixed-point scales are read
+//      from device memory, never from the host, so a pass needs no host
+//      read and replays from a CUDA graph. The grid is sized once per shape
+//      for the worst case, n_active = N (ops/cuda_histogram.py:
+//      grid_blocks); hist_kernel alone derives each block's run from
+//      n_active (min(grid, ceil(n_active / min_rows)) blocks of equal runs),
+//      and the blocks past the end exit at once. The sums are order-free,
+//      so any partition of the positions gives the same bits.
+//   8. Launches are counted on the card: finalize_kernel adds one to a
+//      device counter per pass, so a pass replayed from a CUDA graph is
+//      counted where it runs and a capture, which runs nothing, counts
+//      nothing.
 //
 // Malformed input (a bin code >= B, a row index outside [0, N), positions
 // past the last slot's segment) is not added and fails a device assert at
@@ -86,6 +98,7 @@
 namespace {
 
 constexpr int kMaxSlots = 64;
+constexpr int kMaxDevices = 64;      // devices a process may launch on
 constexpr int kThreads = 1024;
 constexpr int kWordsPerLoad = 8;     // code words a thread loads at once
 
@@ -205,8 +218,8 @@ hist_kernel(const CodeT* __restrict__ codes, long long num_rows,
             const int32_t* __restrict__ perm,
             const int32_t* __restrict__ slot_counts,
             const int32_t* __restrict__ slot_starts,
-            long long n_active, long long rows_per_block, int num_slots,
-            int num_bins, double scale_g, double scale_h,
+            const long long* __restrict__ n_active_dev, long long min_rows,
+            int num_slots, int num_bins, const double* __restrict__ scales,
             unsigned long long* __restrict__ acc_g,
             unsigned long long* __restrict__ acc_h,
             unsigned int* __restrict__ acc_c) {
@@ -218,8 +231,8 @@ hist_kernel(const CodeT* __restrict__ codes, long long num_rows,
                     smem + 3 * GB, smem + 4 * GB, num_bins};
   __shared__ long long s_cum[kMaxSlots];    // inclusive prefix of slot_counts
   __shared__ long long s_base[kMaxSlots];   // perm index - position, per slot
+  __shared__ long long s_n;                 // n_active
 
-  for (int i = threadIdx.x; i < 5 * GB; i += blockDim.x) smem[i] = 0u;
   if (threadIdx.x == 0) {
     long long cum = 0;
     for (int s = 0; s < num_slots; ++s) {
@@ -228,11 +241,23 @@ hist_kernel(const CodeT* __restrict__ codes, long long num_rows,
       s_cum[s] = cum;
       s_base[s] = slot_starts != nullptr ? slot_starts[s] - before : 0;
     }
+    s_n = n_active_dev != nullptr ? *n_active_dev : cum;
   }
   __syncthreads();
-
+  // this pass's ranges: min(grid, ceil(n / min_rows)) blocks of R
+  // positions (gridDim.x is the block count of a pass over every row)
+  const long long n_active = s_n;
+  if (n_active <= 0) return;
+  const long long want = (n_active + min_rows - 1) / min_rows;
+  const long long nblocks = min(static_cast<long long>(gridDim.x), want);
+  const long long rows_per_block = (n_active + nblocks - 1) / nblocks;
   const long long start = static_cast<long long>(blockIdx.x) * rows_per_block;
+  if (start >= n_active) return;            // block-uniform
   const long long end = min(start + rows_per_block, n_active);
+  const double scale_g = scales[0];
+  const double scale_h = scales[1];
+  for (int i = threadIdx.x; i < 5 * GB; i += blockDim.x) smem[i] = 0u;
+  __syncthreads();
   // set by malformed input; such a row is not added, and the thread fails
   // the assert after its rows (an assert inside the loop costs a stack frame)
   bool bad = false;
@@ -274,11 +299,17 @@ hist_kernel(const CodeT* __restrict__ codes, long long num_rows,
 __global__ void finalize_kernel(const unsigned long long* __restrict__ acc_g,
                                 const unsigned long long* __restrict__ acc_h,
                                 const unsigned int* __restrict__ acc_c,
-                                long long n, double inv_g, double inv_h,
-                                float* __restrict__ out) {
+                                long long n, const double* __restrict__ scales,
+                                float* __restrict__ out,
+                                unsigned long long* __restrict__ launches) {
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // the pass's launch, counted where it runs (a graph replay included)
+  if (i == 0 && launches != nullptr) atomicAdd(launches, 1ull);
   if (i >= n) return;
+  // IEEE division, as the host's 1.0 / scale (exact: a power of two)
+  const double inv_g = 1.0 / scales[0];
+  const double inv_h = 1.0 / scales[1];
   const double g = static_cast<double>(static_cast<long long>(acc_g[i])) * inv_g;
   const double h = static_cast<double>(static_cast<long long>(acc_h[i])) * inv_h;
   out[3 * i + 0] = static_cast<float>(g);
@@ -291,21 +322,31 @@ cudaError_t launch(const void* codes, long long num_rows, int num_features,
                    int group_features, const float* grad,
                    const float* hess, const float* inc, const int32_t* perm,
                    const int32_t* slot_counts, const int32_t* slot_starts,
-                   long long n_active, long long rows_per_block,
-                   int num_slots, int num_bins, double scale_g,
-                   double scale_h, unsigned long long* acc_g,
-                   unsigned long long* acc_h, unsigned int* acc_c,
-                   dim3 grid, long long smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_kernel<CodeT, kAligned>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+                   const long long* n_active, long long min_rows,
+                   int num_slots, int num_bins, const double* scales,
+                   unsigned long long* acc_g, unsigned long long* acc_h,
+                   unsigned int* acc_c, dim3 grid, long long smem,
+                   cudaStream_t stream) {
+  // raised once per device and size (the attribute is per device); the
+  // callers run a shape's first pass eagerly, so it is raised outside any
+  // graph capture
+  static long long opted_in[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem > opted_in[device]) {
+    err = cudaFuncSetAttribute(hist_kernel<CodeT, kAligned>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    opted_in[device] = smem;
+  }
   hist_kernel<CodeT, kAligned><<<grid, kThreads, smem, stream>>>(
       static_cast<const CodeT*>(codes), num_rows, num_features,
       group_features, grad, hess, inc, perm, slot_counts,
-      slot_starts, n_active, rows_per_block, num_slots, num_bins, scale_g,
-      scale_h, acc_g, acc_h, acc_c);
+      slot_starts, n_active, min_rows, num_slots, num_bins, scales,
+      acc_g, acc_h, acc_c);
   return cudaGetLastError();
 }
 
@@ -333,9 +374,17 @@ int gbdt_hist_threads() { return kThreads; }
 
 // Builds hist[S, F, B, 3] (f32) on `stream` from the slot-grouped positions
 // [0, n_active) of `perm`: zeroes `scratch` (gbdt_hist_scratch_bytes), then
-// launches hist_kernel on a (blocks_x, ceil(F / group_features)) grid, block
-// b taking positions [b * rows_per_block, (b + 1) * rows_per_block) (the
-// wrapper's plan, ops/cuda_histogram.py:plan_ranges), and finalize_kernel.
+// launches hist_kernel on a (blocks_x, ceil(F / group_features)) grid and
+// finalize_kernel. Every size that changes from pass to pass is read on
+// the card: n_active from `n_active` (a device int64; nullptr: the sum of
+// slot_counts) and the g and h scales from `scales` (two device doubles).
+// blocks_x is min(the blocks the SMs hold at once, ceil(num_rows /
+// min_rows)) (ops/cuda_histogram.py:grid_blocks), the most blocks any pass
+// of the shape uses; hist_kernel spreads the pass's own n_active over
+// min(blocks_x, ceil(n_active / min_rows)) blocks of equal runs, and the
+// rest exit. `launches` (a device
+// uint64, or nullptr) gains one per pass, added by finalize_kernel on the
+// card, so a pass replayed from a CUDA graph is counted where it runs.
 // code_bytes is 1 (uint8 codes) or 2 (uint16 codes, which may be stored as
 // int16: every code the kernel accepts is below 2^15).
 // Returns cudaGetLastError() after the launches (0 = cudaSuccess), or
@@ -344,13 +393,14 @@ int gbdt_hist_build(const void* codes, int code_bytes, long long num_rows,
                     int num_features, const float* grad, const float* hess,
                     const float* inc, const int32_t* perm,
                     const int32_t* slot_counts, const int32_t* slot_starts,
-                    long long n_active, int num_slots, int num_bins,
-                    int group_features, int blocks_x,
-                    long long rows_per_block, double scale_g, double scale_h,
-                    void* scratch, float* out, void* stream_ptr) {
+                    const long long* n_active, int num_slots, int num_bins,
+                    int group_features, int blocks_x, long long min_rows,
+                    const double* scales, void* scratch, float* out,
+                    unsigned long long* launches, void* stream_ptr) {
   if ((code_bytes != 1 && code_bytes != 2) || num_slots < 1 ||
       num_slots > kMaxSlots || group_features < 1 ||
-      group_features > num_features || num_bins < 1 || blocks_x < 0)
+      group_features > num_features || num_bins < 1 || blocks_x < 0 ||
+      min_rows < 1 || scales == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long n =
@@ -363,7 +413,7 @@ int gbdt_hist_build(const void* codes, int code_bytes, long long num_rows,
       stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  if (n_active > 0 && blocks_x > 0) {
+  if (blocks_x > 0) {
     const int groups = (num_features + group_features - 1) / group_features;
     const dim3 grid(static_cast<unsigned int>(blocks_x),
                     static_cast<unsigned int>(groups));
@@ -378,15 +428,14 @@ int gbdt_hist_build(const void* codes, int code_bytes, long long num_rows,
                    : (aligned ? launch<uint16_t, true>
                               : launch<uint16_t, false>);
     err = fn(codes, num_rows, num_features, group_features, grad, hess, inc,
-             perm, slot_counts, slot_starts, n_active, rows_per_block,
-             num_slots, num_bins, scale_g, scale_h, acc_g, acc_h, acc_c, grid,
-             smem, stream);
+             perm, slot_counts, slot_starts, n_active, min_rows, num_slots,
+             num_bins, scales, acc_g, acc_h, acc_c, grid, smem, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int threads = 256;
   const long long blocks = (n + threads - 1) / threads;
   finalize_kernel<<<static_cast<unsigned int>(blocks), threads, 0, stream>>>(
-      acc_g, acc_h, acc_c, n, 1.0 / scale_g, 1.0 / scale_h, out);
+      acc_g, acc_h, acc_c, n, scales, out, launches);
   return static_cast<int>(cudaGetLastError());
 }
 

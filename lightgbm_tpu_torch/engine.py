@@ -1,10 +1,13 @@
 """``train`` and ``cv`` — port of ``lightgbm_tpu/engine.py`` (reference
 python-package engine.py:18, :310).
 
-The training loop keeps the JAX package's order exactly (engine.py:354-394):
-before-iteration callbacks, one boosting iteration, metric eval at
-``metric_freq`` boundaries (then the no-splits check), after-iteration
-callbacks; early stopping ends it through ``EarlyStopException``. Left out
+The training loop keeps the JAX package's order exactly (engine.py:347-394):
+before-iteration callbacks, one batch of ``tree_batch`` boosting iterations
+(``GBDT.train_batch``), metric eval when the batch crossed a
+``metric_freq`` boundary (then the no-splits check), after-iteration
+callbacks with the batch's last iteration; early stopping ends it through
+``EarlyStopException``. A custom ``fobj`` and before-iteration callbacks
+force batches of one, with the JAX package's warnings. Left out
 (ROADMAP A17): checkpoint/resume, the hang watchdog, the gang lease, the
 profiler window and telemetry — ``resume_from`` and ``checkpoint_dir``
 raise.
@@ -133,27 +136,50 @@ def train(params: Dict[str, Any], train_set: Dataset,
                     if not getattr(cb, "before_iteration", False)),
                    key=lambda cb: getattr(cb, "order", 0))
 
+    # batches of iterations (tree_batch, boosting/gbdt.py): eval,
+    # callbacks and early stopping on batch boundaries
+    tree_batch = gbdt.tree_batch
+    if fobj is not None and tree_batch > 1:
+        Log.warning("tree_batch=%d needs a built-in objective (fobj requires "
+                    "a host round-trip per tree); falling back to "
+                    "tree_batch=1", tree_batch)
+        tree_batch = 1
+    if before and tree_batch > 1:
+        # before-iteration callbacks (reset_parameter, the learning_rates
+        # schedule) retune every iteration; under batching they would fire
+        # once per batch and train a different model
+        Log.warning("tree_batch=%d is not supported with before-iteration "
+                    "callbacks (learning_rates / reset_parameter retune "
+                    "per iteration); falling back to tree_batch=1",
+                    tree_batch)
+        tree_batch = 1
     metric_freq = max(config.metric_freq, 1)
     best_iteration = 0
     try:
-        for it in range(n_rounds):
+        it = 0
+        while it < n_rounds:
+            k = min(tree_batch, n_rounds - it)
             for cb in before:
                 cb(CallbackEnv(booster, params, it, 0, n_rounds, None))
             if fobj is not None:
                 gbdt.train_one_iter_custom(fobj)
             else:
-                gbdt.train_one_iter()
+                gbdt.train_batch(k)
+            it_end = it + k
             eval_results = []
             if gbdt.valid_sets or gbdt.config.is_training_metric:
-                if (it + 1) % metric_freq == 0:
+                # eval when the batch crossed a metric_freq boundary
+                # (== (it+1) % freq == 0 at k=1)
+                if it_end // metric_freq > it // metric_freq:
                     eval_results = gbdt.eval_all()
                     if feval is not None:
                         eval_results.extend(_run_feval(feval, gbdt))
                     if gbdt._check_no_splits():
                         break
             for cb in after:
-                cb(CallbackEnv(booster, params, it, 0, n_rounds,
+                cb(CallbackEnv(booster, params, it_end - 1, 0, n_rounds,
                                eval_results))
+            it = it_end
     except EarlyStopException as e:
         best_iteration = e.best_iteration + 1
         booster.best_score = e.best_score

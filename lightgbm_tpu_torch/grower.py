@@ -1,4 +1,4 @@
-"""Leaf-wise tree growth in waves, as eager PyTorch on one device.
+"""Leaf-wise tree growth in waves, as PyTorch on one device.
 
 Port of the serial resident path of ``lightgbm_tpu/grower.py``
 (``GrowerSpec``, ``TreeArrays``, ``BundleDecode``, ``decode_bundled_bin``,
@@ -6,16 +6,22 @@ Port of the serial resident path of ``lightgbm_tpu/grower.py``
 ``_route_rows`` :507-561, ``grow_tree`` :565-886; reference
 SerialTreeLearner::Train,
 serial_tree_learner.cpp:152-231). The JAX package runs the wave loop as a
-``lax.while_loop`` inside one jit; here it is a Python loop over waves
-that reads two scalars per wave on the host (the rows a compacted pass
-covers, and the splits the wave applied). Each wave:
+``lax.while_loop`` inside one jit. Here :class:`TreeGrower` holds the
+loop's carry in buffers allocated once per shape and grows one tree in
+three parts: ``begin`` (the per-tree prologue, in place), ``wave`` (one
+wave, which never reads a device value on the host, so that it can be
+captured in a CUDA graph and replayed) and ``finish`` (the epilogue). The
+leaf count, the ``done`` flag and the count of waves run stay on the device
+(``GrowState.flags``); a wave after ``done`` applies nothing and leaves
+every real row of the state as it was, so a caller may run more waves than
+a tree needs. :func:`grow_tree` is the eager loop: it reads ``done`` after
+each wave. Each wave:
 
 1. gives every leaf that needs a histogram a slot, in ascending leaf order;
 2. builds the pending slots' histograms in one pass of the hand-written
    kernel (``ops/cuda_histogram.py``) over the pending leaves' segments of
-   the carried partition ``perm``: on the card on every wave, on the CPU
-   (as in the JAX package, which avoids row gathers on a TPU) once fewer
-   than ``compact_frac`` of the rows are pending, a full pass before;
+   the carried partition ``perm`` (its plain version on the CPU), sized on
+   the device from the slots' row counts;
 3. derives each sibling's histogram by parent-minus-smaller-child
    subtraction from the ``[L+1, F, B, 3]`` cache (serial_tree_learner.cpp
    :354-362);
@@ -23,11 +29,14 @@ covers, and the splits the wave applied). Each wave:
 5. applies up to ``wave_size`` splits in global gain order — with
    ``wave_size=1`` exactly the reference's leaf-wise order;
 6. writes the tree arrays and per-leaf state;
-7. routes the rows of split leaves through a ``[L+1, 6]`` split table;
+7. routes the rows of split leaves through a ``[L+1, 6]`` split table, and
+   the rows of every valid set given to the grower through its first six
+   columns (the same decision ``ops/predict.leaves_from_binned`` walks);
 8. re-partitions only the split leaves' segments of ``perm``, stably, by
    prefix sums (never a sort): left rows to the front, right rows to the
    back, row order kept (the reference's DataPartition::Split,
-   data_partition.hpp:94).
+   data_partition.hpp:94), as one scatter in which a position outside the
+   split leaves maps to itself.
 
 Under EFB (``bundle`` given) ``X`` holds the bundled columns: histograms
 are built, cached and subtracted in bundle space ``[.., G, Bb, ..]``, the
@@ -37,8 +46,13 @@ so that a row's decision compares its bundled code directly. Tree arrays
 are always in original feature space.
 
 State tensors are updated in place (the JAX package's carry is immutable
-and aliased by XLA; in place here saves one copy of the histogram cache
-per wave). Each wave's steps 2, 3-6, 7 and 8 run under
+and aliased by XLA; in place here keeps every address fixed, which a
+replayed graph needs, and saves one copy of the histogram cache per wave).
+A constant is written with ``fill_`` / ``index_fill_``, never as ``t[i] =
+0.5``, which copies a host scalar and which a capture refuses.
+Rows ``L`` (leaves) and ``M`` (nodes) are scratch: masked writes land
+there, in no fixed order on the card, and ``finish`` resets the ones a
+tree's consumers read. Each wave's steps 2, 3-6, 7 and 8 run under
 ``torch.profiler.record_function`` ranges (``wave.histogram``,
 ``wave.split``, ``wave.route``, ``wave.partition``), which cost nothing
 measurable without an active profiler and give ``chip_smoke.py`` its
@@ -48,8 +62,8 @@ stable descending sort reproduces (``torch.topk`` promises no tie order).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -118,7 +132,8 @@ def decode_bundled_bin(Xb: torch.Tensor, f: torch.Tensor,
 
 @dataclass
 class GrowState:
-    """Per-tree wave state (the JAX package's while_loop carry)."""
+    """Per-tree wave state (the JAX package's while_loop carry), in buffers
+    that keep their addresses from tree to tree."""
     tree: TreeArrays
     leaf_id: torch.Tensor          # i32 [N]
     hist: torch.Tensor             # f32 [L+1, F|G, B|Bb, 3] per-leaf cache
@@ -131,13 +146,16 @@ class GrowState:
     needs_hist: torch.Tensor       # bool [L+1]
     sib_leaf: torch.Tensor         # i64 [L+1] sibling derived by subtraction
     parent_cache: torch.Tensor     # i64 [L+1] cache row of the parent
-    num_leaves_cur: int
-    done: bool
+    # i64 [3]: leaves grown, done (0/1), waves run while not done — read on
+    # the host only by the eager loop and once per tree by a replay
+    flags: torch.Tensor
     # incremental leaf partition: rows of leaf l sit at positions
     # [seg_start[l], seg_start[l] + seg_rows[l]) of perm, ascending
     perm: torch.Tensor             # i32 [N]
     seg_start: torch.Tensor        # i32 [L+1]
     seg_rows: torch.Tensor         # i32 [L+1] raw row counts
+    # leaf of every row of each valid set routed alongside: i32 [Nv]
+    valid_leaf: List[torch.Tensor] = field(default_factory=list)
 
 
 @dataclass(frozen=True)
@@ -154,9 +172,8 @@ class GrowerSpec:
     min_data_in_leaf: float
     min_sum_hessian_in_leaf: float
     min_gain_to_split: float
-    row_compact: bool = True      # passes over the pending segments
-    compact_frac: float = 0.25    # ...on the CPU, when fewer than this
-                                  # share is pending (always on the card)
+    row_compact: bool = True      # passes over the pending segments (else
+                                  # positions derived on the device)
     # categorical split search (reference config.h:230-234)
     cat_features: tuple = ()      # inner indices of categorical features;
                                   # the scan runs on these columns only
@@ -222,23 +239,27 @@ def _empty_cand(L: int, B: int, device) -> SplitCandidates:
 
 
 def _apply_wave_splits(state: GrowState, new_hist: torch.Tensor,
-                       leaf_of_slot: torch.Tensor, bm, spec: GrowerSpec,
-                       comm, num_bins: torch.Tensor,
-                       missing_code: torch.Tensor, default_bin: torch.Tensor,
+                       leaf_of_slot: torch.Tensor, live: torch.Tensor,
+                       nl: torch.Tensor, bm, spec: GrowerSpec, comm,
+                       num_bins: torch.Tensor, missing_code: torch.Tensor,
+                       default_bin: torch.Tensor, table0: torch.Tensor,
                        bundle: Optional[BundleDecode] = None):
     """Steps 3-6 of a wave plus the ``[L+1, 6]`` routing table (``[L+1,
     11]`` with ``bundle``), updating ``state`` in place except the per-row
-    fields (leaf_id and the partition), which the caller owns. Returns ``(table, map_mask, p, q,
-    n_apply)`` with ``map_mask`` the ``[L+1, B]`` categorical left sets of
-    the split leaves (None without categorical features) and ``p``/``q``
-    the per-slot split / new right leaves (``L`` where no split was
-    applied)."""
+    fields (leaf_id and the partition) and ``flags``, which the caller
+    owns. ``live`` (0-d bool) is false once the tree is done: then no split
+    is applied and only scratch rows are written. ``nl`` is the leaf count
+    before the wave (0-d i64), ``table0`` the table of a wave that splits
+    nothing. Returns ``(table, map_mask, p, q, n_apply)`` with ``map_mask``
+    the ``[L+1, B]`` categorical left sets of the split leaves (None
+    without categorical features), ``p``/``q`` the per-slot split / new
+    right leaves (``L`` where no split was applied) and ``n_apply`` a 0-d
+    i64 tensor. Reads nothing on the host."""
     L = spec.num_leaves
     M = L - 1
     S = spec.hist_slots
     dev = new_hist.device
     leaf_iota = torch.arange(L + 1, device=dev)
-    neg_inf = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
 
     # ---- 3. cache write + sibling by subtraction -----------------------
     slot_valid = leaf_of_slot < L
@@ -258,23 +279,24 @@ def _apply_wave_splits(state: GrowState, new_hist: torch.Tensor,
     for old, new in zip(state.cand, cand_new):
         old[scan_leaves] = new
     cand = state.cand
-    cand.gain[L] = NEG_INF                  # keep the scratch row inert
-    state.needs_hist.zero_()
+    cand.gain[L].fill_(NEG_INF)             # keep the scratch row inert
+    # every pending leaf was built; once done, nothing was pending
+    state.needs_hist.logical_and_(~live)
 
     # ---- 5. choose the splits to apply this wave ------------------------
-    nl = state.num_leaves_cur
     active = leaf_iota < nl
     depth_ok = ((spec.max_depth <= 0) | (state.leaf_depth < spec.max_depth))
     gains = torch.where(active & depth_ok & torch.isfinite(cand.gain),
-                        cand.gain, neg_inf)
+                        cand.gain, NEG_INF)
     # lax.top_k order: descending gain, lowest leaf index first on a tie
     top_gain, top_leaf = torch.sort(gains, descending=True, stable=True)
     top_gain, top_leaf = top_gain[:S], top_leaf[:S]
     budget = L - nl
     cap = min(spec.wave_size, S) if spec.wave_size > 0 else S
     srank = torch.arange(S, device=dev)
-    apply = torch.isfinite(top_gain) & (srank < budget) & (srank < cap)
-    n_apply = int(apply.sum())              # host sync: wave bookkeeping
+    apply = (torch.isfinite(top_gain) & (srank < budget) & (srank < cap)
+             & live)
+    n_apply = apply.sum()
 
     # ---- 6. apply: tree arrays + leaf state ----------------------------
     p = torch.where(apply, top_leaf, L)                         # split leaf
@@ -314,9 +336,9 @@ def _apply_wave_splits(state: GrowState, new_hist: torch.Tensor,
     t.leaf_value[q] = leaf_output(rg_, rh_, l1, l2)
     t.leaf_count[p] = lc
     t.leaf_count[q] = rc_
-    t.num_leaves.fill_(nl + n_apply)
-    state.leaf_is_right[p] = False
-    state.leaf_is_right[q] = True
+    t.num_leaves.copy_(nl + n_apply)
+    state.leaf_is_right.index_fill_(0, p, False)
+    state.leaf_is_right.index_fill_(0, q, True)
 
     state.sum_g[p], state.sum_g[q] = lg, rg_
     state.sum_h[p], state.sum_h[q] = lh, rh_
@@ -324,15 +346,15 @@ def _apply_wave_splits(state: GrowState, new_hist: torch.Tensor,
     new_depth = state.leaf_depth[p] + 1
     state.leaf_depth[p] = new_depth
     state.leaf_depth[q] = new_depth
-    cand.gain[p] = NEG_INF
-    cand.gain[q] = NEG_INF
+    cand.gain.index_fill_(0, p, NEG_INF)
+    cand.gain.index_fill_(0, q, NEG_INF)
 
     # next wave: histogram the smaller child, derive the larger
     left_smaller = lc <= rc_
     smaller = torch.where(left_smaller, p, q)
     larger = torch.where(left_smaller, q, p)
     state.needs_hist[smaller] = apply
-    state.needs_hist[L] = False
+    state.needs_hist[L].fill_(False)
     state.sib_leaf[smaller] = larger
     state.parent_cache[smaller] = torch.where(apply, p, L)
 
@@ -351,28 +373,20 @@ def _apply_wave_splits(state: GrowState, new_hist: torch.Tensor,
                            torch.where(mc_s == 1, db_s, -1))
     cols = [sf, cand.threshold[p].long(), miss_bin.long(), q,
             cand.default_left[p].long(), cand.is_cat[p].long()]
-    scratch = [-1, 0, -1, 0, 0, 0]
     if bundle is not None:
         cols += [bundle.col[sf_safe].long(), bundle.lo[sf_safe].long(),
                  bundle.hi[sf_safe].long(), bundle.off[sf_safe].long(),
                  db_s.long()]
-        scratch += [0, 0, 0, 0, 0]
-    rows = torch.stack(cols, dim=-1).to(torch.int32)
-    table = torch.zeros((L + 1, len(cols)), dtype=torch.int32, device=dev)
-    table[:, 0] = -1
-    table[:, 2] = -1
-    table[p] = rows
-    table[L] = torch.tensor(scratch, dtype=torch.int32, device=dev)
+    table = table0.clone()
+    table[p] = torch.stack(cols, dim=-1).to(torch.int32)
+    table[L] = table0[L]                    # the scratch leaf splits nothing
 
     map_mask = None
     if spec.use_categorical:
         map_mask = torch.zeros((L + 1, cand.cat_mask.shape[1]),
                                dtype=torch.bool, device=dev)
         map_mask[p] = cand.cat_mask[p]
-        map_mask[L] = False
-
-    state.done = n_apply == 0 or nl + n_apply >= L
-    state.num_leaves_cur = nl + n_apply
+        map_mask[L].fill_(False)
     return table, map_mask, p, q, n_apply
 
 
@@ -412,11 +426,15 @@ def _route_rows(X: torch.Tensor, lid: torch.Tensor, table: torch.Tensor,
 
 
 def _partition(state: GrowState, f_row, go_left, right_row, p, q,
-               nl_before: int) -> None:
+               nl_before: torch.Tensor) -> None:
     """Step 8: stable re-partition of the split leaves' segments of
     ``perm`` by prefix sums; leaf p keeps the front of its old segment (its
-    go-left rows, original order), new leaf q takes the back."""
+    go-left rows, original order), new leaf q takes the back. One scatter
+    writes the new permutation: a position outside the split leaves maps
+    to itself, so every position is written once (no boolean indexing,
+    hence no host read)."""
     L = state.seg_rows.shape[0] - 1
+    N = state.perm.shape[0]
     i32 = torch.int32
     k_row = torch.where(f_row >= 0, right_row - nl_before, -1)
     code_row = torch.where(f_row >= 0,
@@ -441,15 +459,216 @@ def _partition(state: GrowState, f_row, go_left, right_row, p, q,
     base_r = torch.where(k_pos >= 0, (start_k + nL - crb)[k_safe], 0)
     newpos = torch.where(left_pos, cl - left_pos.long() + base_l,
                          cr - right_pos.long() + base_r)
-    perm = state.perm.clone()
-    perm[newpos[in_split]] = state.perm[in_split]
-    state.perm = perm
+    newpos = torch.where(in_split, newpos,
+                         torch.arange(N, device=newpos.device))
+    state.perm.copy_(torch.empty_like(state.perm).scatter_(0, newpos,
+                                                           state.perm))
     state.seg_start[q] = (start_k + nL).to(i32)
     state.seg_rows[p] = nL.to(i32)
     state.seg_rows[q] = (n_k - nL).to(i32)
     # the scratch leaf must stay an empty segment
-    state.seg_start[L] = 0
-    state.seg_rows[L] = 0
+    state.seg_start[L].fill_(0)
+    state.seg_rows[L].fill_(0)
+
+
+class TreeGrower:
+    """Grows one tree at a time on buffers allocated once: the histogram
+    cache, the candidates, the tree arrays, the partition and the row
+    inputs of the tree being grown (``grad``, ``hess``, ``included``,
+    ``feature_ok``, ``scales``). ``begin`` resets them in place for a new
+    tree, ``wave`` runs one wave and ``finish`` closes the tree; none of
+    them reads a device value on the host or moves a tensor to another
+    address, so each can be captured in a CUDA graph and replayed.
+
+    ``route`` holds the binned (unbundled) codes of valid sets: every wave
+    routes their rows too, into ``state.valid_leaf``, so that a tree's
+    valid leaf ids need no walk after it."""
+
+    def __init__(self, X: torch.Tensor, is_cat: torch.Tensor,
+                 num_bins: torch.Tensor, missing_code: torch.Tensor,
+                 default_bin: torch.Tensor, spec: GrowerSpec, comm=None,
+                 bundle: Optional[BundleDecode] = None,
+                 route: Sequence[torch.Tensor] = ()):
+        if comm is None:
+            from .parallel.comm import SerialComm
+            comm = SerialComm(spec.num_features)
+        self.X, self.spec, self.comm, self.bundle = X, spec, comm, bundle
+        self.num_bins, self.missing_code = num_bins, missing_code
+        self.default_bin = default_bin
+        self.route = list(route)
+        L, S = spec.num_leaves, spec.hist_slots
+        B = spec.num_bins_padded
+        self.B_hist = spec.hist_bins or B          # Bb_pad under EFB
+        N = X.shape[0]
+        dev = X.device
+        i32, f32 = torch.int32, torch.float32
+        self.X_hist = comm.hist_X(X)
+        F_cache = comm.reduced_hist_features(self.X_hist.shape[1])
+        # the tree being grown: its rows' g/h, count mask and features
+        self.grad = torch.zeros(N, dtype=f32, device=dev)
+        self.hess = torch.zeros(N, dtype=f32, device=dev)
+        self.included = torch.zeros(N, dtype=f32, device=dev)
+        self.feature_ok = torch.ones(spec.num_features, dtype=torch.bool,
+                                     device=dev)
+        # one fixed-point scale per tree for g and one for h (ops/histogram)
+        self.scales = torch.ones(2, dtype=torch.float64, device=dev)
+        cat_idx = torch.tensor(spec.cat_features, dtype=torch.long,
+                               device=dev) if spec.use_categorical else None
+        self.bm = comm.block_meta(self.feature_ok, num_bins, missing_code,
+                                  default_bin, is_cat, cat_idx)
+        ncols = 6 if bundle is None else 11
+        self.table0 = torch.zeros((L + 1, ncols), dtype=i32, device=dev)
+        self.table0[:, 0] = -1
+        self.table0[:, 2] = -1
+        self.row_iota = torch.arange(N, dtype=i32, device=dev)
+        self.flags0 = torch.tensor([1, 0, 0], dtype=torch.int64, device=dev)
+        self.state = GrowState(
+            tree=_empty_tree(L, B, dev),
+            leaf_id=torch.zeros(N, dtype=i32, device=dev),
+            hist=torch.zeros((L + 1, F_cache, self.B_hist, 3), dtype=f32,
+                             device=dev),
+            sum_g=torch.zeros(L + 1, dtype=f32, device=dev),
+            sum_h=torch.zeros(L + 1, dtype=f32, device=dev),
+            cnt=torch.zeros(L + 1, dtype=f32, device=dev),
+            leaf_depth=torch.zeros(L + 1, dtype=i32, device=dev),
+            leaf_is_right=torch.zeros(L + 1, dtype=torch.bool, device=dev),
+            cand=_empty_cand(L, B, dev),
+            needs_hist=torch.zeros(L + 1, dtype=torch.bool, device=dev),
+            sib_leaf=torch.full((L + 1,), L, dtype=torch.int64, device=dev),
+            parent_cache=torch.full((L + 1,), L, dtype=torch.int64,
+                                    device=dev),
+            flags=self.flags0.clone(),
+            perm=self.row_iota.clone(),
+            seg_start=torch.zeros(L + 1, dtype=i32, device=dev),
+            seg_rows=torch.zeros(L + 1, dtype=i32, device=dev),
+            valid_leaf=[torch.zeros(Xv.shape[0], dtype=i32, device=dev)
+                        for Xv in self.route],
+        )
+
+    def begin(self, grad: torch.Tensor, hess: torch.Tensor,
+              included: torch.Tensor, feature_ok: torch.Tensor) -> None:
+        """The per-tree prologue: take the tree's inputs, its root sums and
+        fixed-point scales, and reset the state to a one-leaf tree."""
+        st, L = self.state, self.spec.num_leaves
+        self.grad.copy_(grad)
+        self.hess.copy_(hess)
+        self.included.copy_(included)
+        self.feature_ok.copy_(feature_ok)
+        rg, rh, rc = self.comm.reduce_scalars(
+            *root_sums(self.grad, self.hess, self.included))
+        self.scales.copy_(histogram_scales(self.grad, self.hess))
+        t = st.tree
+        for a in (t.split_feature, t.threshold_bin, t.default_left, t.is_cat,
+                  t.cat_mask, t.split_gain, t.internal_value,
+                  t.internal_count, t.leaf_value, t.leaf_count,
+                  st.leaf_id, st.hist, st.sum_g, st.sum_h, st.cnt,
+                  st.leaf_depth, st.leaf_is_right, st.needs_hist,
+                  st.seg_start, st.seg_rows, *st.valid_leaf,
+                  *[c for c in st.cand if c is not st.cand.gain]):
+            a.zero_()
+        for a in (t.left_child, t.right_child, t.leaf_parent):
+            a.fill_(-1)
+        t.num_leaves.fill_(1)
+        st.cand.gain.fill_(NEG_INF)
+        st.sib_leaf.fill_(L)
+        st.parent_cache.fill_(L)
+        st.sum_g[0], st.sum_h[0], st.cnt[0] = rg, rh, rc
+        st.needs_hist[0].fill_(True)
+        st.seg_rows[0].fill_(self.X.shape[0])
+        st.flags.copy_(self.flags0)
+        st.perm.copy_(self.row_iota)
+
+    def wave(self) -> None:
+        """One wave (steps 1-8 of the module docstring). Reads nothing on
+        the host; after ``done`` it applies no split and leaves every real
+        row of the state bit-identical."""
+        spec, st, comm = self.spec, self.state, self.comm
+        L, S = spec.num_leaves, spec.hist_slots
+        dev = self.X.device
+        nl = st.flags[0].clone()                   # leaves before the wave
+        live = st.flags[1] == 0
+
+        # ---- 1. slots for the leaves needing histograms, ascending ------
+        pending = st.needs_hist & live
+        slot_rank = torch.cumsum(pending.long(), 0) - 1
+        slot_of_leaf = torch.where(pending, slot_rank, -1).to(torch.int32)
+        leaf_of_slot = torch.full((S + 1,), L, dtype=torch.int64, device=dev)
+        leaf_of_slot[torch.where(pending & (slot_rank < S), slot_rank,
+                                 S)] = torch.arange(L + 1, device=dev)
+        leaf_of_slot = leaf_of_slot[:S]
+
+        # ---- 2. one pass builds the S histograms ------------------------
+        with record_function("wave.histogram"):
+            slot_counts = st.seg_rows[leaf_of_slot]             # [S]
+            if spec.row_compact:
+                new_hist = build_histograms_cuda(
+                    self.X_hist, self.grad, self.hess, self.included,
+                    st.leaf_id, slot_of_leaf, S, self.B_hist,
+                    row_idx=st.perm, slot_counts=slot_counts,
+                    slot_starts=st.seg_start[leaf_of_slot],
+                    scales=self.scales)
+            else:
+                new_hist = build_histograms_cuda(
+                    self.X_hist, self.grad, self.hess, self.included,
+                    st.leaf_id, slot_of_leaf, S, self.B_hist,
+                    scales=self.scales)
+            new_hist = comm.reduce_hist(new_hist)
+
+        # ---- 3-6 + routing table ------------------------------------------
+        with record_function("wave.split"):
+            table, map_mask, p, q, n_apply = _apply_wave_splits(
+                st, new_hist, leaf_of_slot, live, nl, self.bm, spec, comm,
+                self.num_bins, self.missing_code, self.default_bin,
+                self.table0, self.bundle)
+
+        # ---- 7. route the rows of split leaves ----------------------------
+        with record_function("wave.route"):
+            leaf_id, f_row, go_left, right_row = _route_rows(
+                self.X, st.leaf_id, table, map_mask)
+            for Xv, lid in zip(self.route, st.valid_leaf):
+                lid.copy_(_route_rows(Xv, lid, table[:, :6], map_mask)[0])
+
+        # ---- 8. incremental partition maintenance -------------------------
+        with record_function("wave.partition"):
+            _partition(st, f_row, go_left, right_row, p, q, nl)
+        st.leaf_id.copy_(leaf_id)
+        done = ~live | (n_apply == 0) | (nl + n_apply >= L)
+        st.flags.copy_(torch.stack([nl + n_apply, done.long(),
+                                    st.flags[2] + live.long()]))
+
+    def finish(self) -> Tuple[TreeArrays, torch.Tensor]:
+        """The epilogue: returns the state's own tree arrays and leaf ids
+        (the next ``begin`` overwrites them). Scratch rows hold masked-split
+        garbage; zero the ones consumers read (the JAX package does the same
+        so that downstream score updates stay exact). The scratch node's
+        children take many writes of one wave at the same index, which the
+        card applies in no fixed order: give them the value the ordered
+        writes of the CPU (and the JAX package) leave, so that the device
+        tree is the same on both and from run to run."""
+        L = self.spec.num_leaves
+        M = L - 1
+        tr = self.state.tree
+        tr.leaf_value[L].fill_(0.0)
+        tr.internal_value[M].fill_(0.0)
+        tr.left_child[M].fill_(-L - 1)
+        tr.right_child[M].fill_(-L - 1)
+        return tr, self.state.leaf_id
+
+    def run_waves(self) -> int:
+        """The eager loop: waves until the host reads ``done`` (one read
+        per wave); returns the waves the tree needed."""
+        while True:
+            self.wave()
+            _, done, waves = self.state.flags.tolist()
+            if done:
+                return waves
+
+    def grow(self, grad, hess, included, feature_ok
+             ) -> Tuple[TreeArrays, torch.Tensor]:
+        """``begin``, the eager loop, ``finish``."""
+        self.begin(grad, hess, included, feature_ok)
+        self.run_waves()
+        return self.finish()
 
 
 def grow_tree(
@@ -469,112 +688,6 @@ def grow_tree(
     """Grow one tree; returns (tree arrays, final leaf id per row). With
     ``bundle`` (EFB), ``X`` is the ``[N, G]`` bundled code matrix and the
     histograms have ``spec.hist_bins`` bins."""
-    if comm is None:
-        from .parallel.comm import SerialComm
-        comm = SerialComm(spec.num_features)
-    L = spec.num_leaves
-    M = L - 1
-    S = spec.hist_slots
-    B = spec.num_bins_padded
-    B_hist = spec.hist_bins or B          # Bb_pad under EFB
-    N = X.shape[0]
-    dev = X.device
-    X_hist = comm.hist_X(X)
-    F_cache = comm.reduced_hist_features(X_hist.shape[1])
-    cat_idx = torch.tensor(spec.cat_features, dtype=torch.long, device=dev) \
-        if spec.use_categorical else None
-    bm = comm.block_meta(feature_ok, num_bins, missing_code, default_bin,
-                         is_cat, cat_idx)
-    rg, rh, rc = comm.reduce_scalars(*root_sums(grad, hess, included))
-    # one fixed-point scale per tree for g and one for h (ops/histogram.py)
-    scales = histogram_scales(grad, hess)
-
-    i32, f32 = torch.int32, torch.float32
-    zeros_l = torch.zeros(L + 1, dtype=f32, device=dev)
-    sum_g, sum_h, cnt = zeros_l.clone(), zeros_l.clone(), zeros_l.clone()
-    sum_g[0], sum_h[0], cnt[0] = rg, rh, rc
-    needs_hist = torch.zeros(L + 1, dtype=torch.bool, device=dev)
-    needs_hist[0] = True
-    seg_rows = torch.zeros(L + 1, dtype=i32, device=dev)
-    seg_rows[0] = N
-    state = GrowState(
-        tree=_empty_tree(L, B, dev),
-        leaf_id=torch.zeros(N, dtype=i32, device=dev),
-        hist=torch.zeros((L + 1, F_cache, B_hist, 3), dtype=f32,
-                         device=dev),
-        sum_g=sum_g, sum_h=sum_h, cnt=cnt,
-        leaf_depth=torch.zeros(L + 1, dtype=i32, device=dev),
-        leaf_is_right=torch.zeros(L + 1, dtype=torch.bool, device=dev),
-        cand=_empty_cand(L, B, dev),
-        needs_hist=needs_hist,
-        sib_leaf=torch.full((L + 1,), L, dtype=torch.int64, device=dev),
-        parent_cache=torch.full((L + 1,), L, dtype=torch.int64, device=dev),
-        num_leaves_cur=1,
-        done=False,
-        perm=torch.arange(N, dtype=i32, device=dev),
-        seg_start=torch.zeros(L + 1, dtype=i32, device=dev),
-        seg_rows=seg_rows,
-    )
-    leaf_iota = torch.arange(L + 1, device=dev)
-    compact_rows = int(N * spec.compact_frac)
-
-    while not state.done:
-        # ---- 1. slots for the leaves needing histograms, ascending ------
-        pending = state.needs_hist
-        slot_rank = torch.cumsum(pending.long(), 0) - 1
-        slot_of_leaf = torch.where(pending, slot_rank, -1).to(i32)
-        leaf_of_slot = torch.full((S + 1,), L, dtype=torch.int64,
-                                  device=dev)
-        leaf_of_slot[torch.where(pending & (slot_rank < S), slot_rank,
-                                 S)] = leaf_iota
-        leaf_of_slot = leaf_of_slot[:S]
-
-        # ---- 2. one pass builds the S histograms ------------------------
-        with record_function("wave.histogram"):
-            slot_counts = state.seg_rows[leaf_of_slot]          # [S]
-            n_active = int(slot_counts.sum())   # host sync: pass size
-            # on the card the partition pass reads only the pending rows and
-            # is never more work; on the CPU the JAX package's choice stays
-            if spec.row_compact and (dev.type == "cuda"
-                                     or n_active < compact_rows):
-                new_hist = build_histograms_cuda(
-                    X_hist, grad, hess, included, state.leaf_id,
-                    slot_of_leaf, S, B_hist, row_idx=state.perm,
-                    n_active=n_active, slot_counts=slot_counts,
-                    slot_starts=state.seg_start[leaf_of_slot],
-                    scales=scales)
-            else:
-                new_hist = build_histograms_cuda(
-                    X_hist, grad, hess, included, state.leaf_id,
-                    slot_of_leaf, S, B_hist, scales=scales)
-            new_hist = comm.reduce_hist(new_hist)
-
-        # ---- 3-6 + routing table ------------------------------------------
-        nl_before = state.num_leaves_cur
-        with record_function("wave.split"):
-            table, map_mask, p, q, _ = _apply_wave_splits(
-                state, new_hist, leaf_of_slot, bm, spec, comm, num_bins,
-                missing_code, default_bin, bundle)
-
-        # ---- 7. route the rows of split leaves ----------------------------
-        with record_function("wave.route"):
-            leaf_id, f_row, go_left, right_row = _route_rows(
-                X, state.leaf_id, table, map_mask)
-
-        # ---- 8. incremental partition maintenance -------------------------
-        with record_function("wave.partition"):
-            _partition(state, f_row, go_left, right_row, p, q, nl_before)
-        state.leaf_id = leaf_id
-
-    # scratch rows hold masked-split garbage; zero them (the JAX package
-    # does the same so that downstream score updates stay exact). The
-    # scratch node's children take many writes of one wave at the same
-    # index, which the card applies in no fixed order: give them the value
-    # the ordered writes of the CPU (and the JAX package) leave, so that
-    # the device tree is the same on both and from run to run
-    tr = state.tree
-    tr.leaf_value[L] = 0.0
-    tr.internal_value[M] = 0.0
-    tr.left_child[M] = -L - 1
-    tr.right_child[M] = -L - 1
-    return tr, state.leaf_id
+    grower = TreeGrower(X, is_cat, num_bins, missing_code, default_bin, spec,
+                        comm, bundle)
+    return grower.grow(grad, hess, included, feature_ok)

@@ -244,10 +244,10 @@ class BinaryLogloss(Objective):
         one = torch.ones((), dtype=score.dtype, device=score.device)
         y = torch.where(is_pos, one, -one)
         lw = torch.where(
-            is_pos, torch.tensor(self.label_weights[1], dtype=score.dtype,
-                                 device=score.device),
-            torch.tensor(self.label_weights[0], dtype=score.dtype,
-                         device=score.device))
+            is_pos, torch.full((), self.label_weights[1], dtype=score.dtype,
+                               device=score.device),
+            torch.full((), self.label_weights[0], dtype=score.dtype,
+                       device=score.device))
         response = -y * sig / (1.0 + torch.exp(y * sig * score))
         abs_resp = torch.abs(response)
         g = response * lw

@@ -115,7 +115,7 @@ def per_feature_best_categorical(
     S, F, B, _ = hist.shape
     dev = hist.device
     f32 = torch.float32
-    neg_inf = torch.tensor(NEG_INF, dtype=f32, device=dev)
+    neg_inf = torch.full((), NEG_INF, dtype=f32, device=dev)
     g = hist[..., 0]
     h = hist[..., 1]
     c = hist[..., 2]
@@ -149,8 +149,8 @@ def per_feature_best_categorical(
     l2s = lambda_l2 + cat_l2
     valid = in_range & (c >= cat_smooth)                             # [S,F,B]
     ctr = g / (h + cat_smooth)
-    sort_key = torch.where(valid, ctr, torch.tensor(float("inf"),
-                                                    dtype=f32, device=dev))
+    sort_key = torch.where(valid, ctr, torch.full((), float("inf"),
+                                                  dtype=f32, device=dev))
     order = torch.argsort(sort_key, dim=2, stable=True)              # [S,F,B]
     rank = torch.empty_like(order).scatter_(
         2, order, bins.expand(S, F, B).contiguous())     # bin -> position

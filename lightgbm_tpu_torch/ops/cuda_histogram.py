@@ -5,7 +5,14 @@ reads the slot-grouped positions ``[0, n_active)`` of a partition: the
 grower passes its leaf-contiguous partition ``perm`` with the per-slot
 segment tables on every wave; a call without a partition (``row_idx`` None)
 gets such positions derived on the device by
-:func:`ops.histogram.pass_positions` (one host sync). The source note in
+:func:`ops.histogram.pass_positions`. Every size that changes from pass to
+pass stays on the card: ``n_active`` is the sum of ``slot_counts`` (or a
+0-d int64 device tensor), the fixed-point scales a ``[2]`` f64 device
+tensor, and the grid is sized once per shape for ``n_active = N``
+(:func:`grid_blocks`), ``hist_kernel`` spreading the pass's own
+``n_active`` over its blocks — as ``hist_pallas`` takes ``n_active`` as a
+scalar-prefetch device value over a fixed grid. A pass therefore reads
+nothing on the host and replays from a CUDA graph. The source note in
 ``csrc/histogram.cu`` states the arithmetic, its error bound, the bound at
 the slice's shapes and what the design does about each cost.
 
@@ -16,10 +23,13 @@ loads it. Nothing is built or imported when this module is imported.
 
 Dispatch: for tensors on the CPU the wrapper runs the plain version in
 ``ops/histogram.py``; for CUDA tensors it launches the kernel or raises —
-it never falls back. ``build_histograms_cuda.launches`` counts passes
-launched on the card, one per call (plain calls are not counted); each pass
-puts three operations on the stream: a memset of the integer accumulators,
-``hist_kernel`` and ``finalize_kernel``.
+it never falls back. Each pass puts three operations on the stream: a
+memset of the integer accumulators, ``hist_kernel`` and
+``finalize_kernel``. The passes are counted on the card:
+``finalize_kernel`` adds one to a per-device counter, so a pass replayed
+from a CUDA graph counts where it runs and a capture counts nothing.
+:func:`launch_count` reads the counters (a host sync) and
+:func:`reset_launch_count` zeroes them; plain calls are not counted.
 
 Codes: ``uint8``, or ``int16`` holding ``uint16`` codes (``max_bin`` above
 255; the dataset stores ``uint16`` on the host as the JAX package does, and
@@ -41,7 +51,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -69,6 +79,10 @@ MIN_ROWS_PER_BLOCK = 2048
 
 _lib = None            # the loaded ctypes library, once built
 _num_sms = {}          # device index -> multiprocessor count
+# device index -> [1] int64 count of the passes run there, which
+# finalize_kernel adds to; kept for the process's life, since captured
+# graphs hold its address
+_launches: Dict[int, torch.Tensor] = {}
 
 
 def find_nvcc() -> str:
@@ -122,10 +136,9 @@ def _library():
     if _lib is None:
         path, _, _ = build_library()
         lib = ctypes.CDLL(path)
-        p, i, ll, d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_double)
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.gbdt_hist_build.argtypes = [
-            p, i, ll, i, p, p, p, p, p, p, ll, i, i, i, i, ll, d, d, p, p, p]
+            p, i, ll, i, p, p, p, p, p, p, p, i, i, i, i, ll, p, p, p, p, p]
         lib.gbdt_hist_build.restype = i
         lib.gbdt_hist_scratch_bytes.argtypes = [i, i, i]
         lib.gbdt_hist_scratch_bytes.restype = ll
@@ -138,15 +151,6 @@ def _library():
                                "BLOCK_THREADS")
         _lib = lib
     return _lib
-
-
-class HistPlan(NamedTuple):
-    """Launch plan of one pass (see :func:`plan_ranges`)."""
-    group_features: int     # features per block (grid y: feature groups)
-    groups: int
-    smem: int               # dynamic shared memory bytes of a block
-    blocks: int             # grid x
-    rows_per_block: int     # block b takes positions [b*R, (b+1)*R)
 
 
 def feature_groups(num_features: int, num_bins: int,
@@ -170,26 +174,21 @@ def feature_groups(num_features: int, num_bins: int,
     return fg, -(-num_features // fg)
 
 
-def plan_ranges(n_active: int, num_features: int, num_bins: int,
-                code_bytes: int, num_sms: int) -> HistPlan:
-    """The kernel's grid for a pass over ``n_active`` slot-grouped
-    positions.
-
-    Grid: feature groups on y; on x, ``min(ceil(k * num_sms / groups),
-    ceil(n_active / MIN_ROWS_PER_BLOCK))`` blocks of equal runs of
-    positions, ``k`` the blocks an SM holds at this shared memory size (no
-    blocks when ``n_active`` is 0). ``hist_kernel`` splits each block's run
-    where it crosses a slot boundary, from the slot counts on the card."""
+def grid_blocks(n_active: int, num_features: int, num_bins: int,
+                code_bytes: int, num_sms: int) -> int:
+    """``min(ceil(k * num_sms / groups), ceil(n_active /
+    MIN_ROWS_PER_BLOCK))``, ``k`` the blocks an SM holds at this shared
+    memory size: the x extent of the grid the wrapper launches for
+    ``n_active = N`` (the worst case of the shape). ``hist_kernel`` gives
+    a pass over ``n_active`` positions to the first ``min(grid,
+    ceil(n_active / MIN_ROWS_PER_BLOCK))`` blocks, in equal runs, and the
+    rest exit."""
     fg, groups = feature_groups(num_features, num_bins, code_bytes)
     smem = fg * num_bins * BYTES_PER_BIN
     per_sm = max(1, min(THREADS_PER_SM // BLOCK_THREADS,
                         SMEM_PER_SM // (smem + 2048)))
     cap = max(1, -(-per_sm * num_sms // groups))
-    n_active = int(n_active)
-    blocks = min(cap, -(-n_active // MIN_ROWS_PER_BLOCK))
-    rows = -(-n_active // blocks) if blocks else 0
-    blocks = -(-n_active // rows) if rows else 0
-    return HistPlan(fg, groups, smem, blocks, rows)
+    return min(cap, -(-int(n_active) // MIN_ROWS_PER_BLOCK))
 
 
 def _sm_count(dev: torch.device) -> int:
@@ -200,7 +199,37 @@ def _sm_count(dev: torch.device) -> int:
     return _num_sms[idx]
 
 
+def _launch_counter(dev: torch.device) -> torch.Tensor:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    counter = _launches.get(idx)
+    if counter is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the first histogram pass on a device must run outside a "
+                "CUDA graph capture: it allocates the device's launch "
+                "counter and raises the kernel's shared memory limit")
+        counter = _launches[idx] = torch.zeros(1, dtype=torch.int64,
+                                               device=torch.device("cuda",
+                                                                   idx))
+    return counter
+
+
+def launch_count() -> int:
+    """Passes the kernel has run on the card, on every device, since the
+    last :func:`reset_launch_count`: read from the counters
+    ``finalize_kernel`` adds to (a host sync). 0 where no pass ran."""
+    return sum(int(c.item()) for c in _launches.values())
+
+
+def reset_launch_count() -> None:
+    """Zero every device's launch counter, in stream order."""
+    for c in _launches.values():
+        c.zero_()
+
+
 def _check(name: str, t: torch.Tensor, dtypes, shape=None) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype not in dtypes:
@@ -223,14 +252,16 @@ def build_histograms_cuda(
     num_slots: int,
     num_bins_padded: int,
     row_idx: Optional[torch.Tensor] = None,    # [N] i32 partition
-    n_active: Optional[int] = None,
+    n_active: Optional[torch.Tensor] = None,   # 0-d i64; None: sum of counts
     slot_counts: Optional[torch.Tensor] = None,   # [S] i32
     slot_starts: Optional[torch.Tensor] = None,   # [S] i32
-    scales: Optional[Tuple[float, float]] = None,
+    scales: Optional[torch.Tensor] = None,   # [2] f64 per-tree (g, h)
 ) -> torch.Tensor:
     """``[S, F, B, 3]`` f32 (sum_g, sum_h, count) — same signature and
     result as ``ops.histogram.build_histograms``, which it runs for CPU
-    tensors. Bin codes must be below ``num_bins_padded``."""
+    tensors. Bin codes must be below ``num_bins_padded``. The call makes
+    no host read and no host-to-device copy, and may be captured in a CUDA
+    graph once a pass has run on the device outside a capture."""
     if X.device.type == "cpu":
         return build_histograms(X, grad, hess, included, leaf_id,
                                 slot_of_leaf, num_slots, num_bins_padded,
@@ -239,6 +270,7 @@ def build_histograms_cuda(
                                 slot_starts=slot_starts, scales=scales)
     N, F = X.shape
     S, B = int(num_slots), int(num_bins_padded)
+    dev = X.device
     _check("X", X, (torch.uint8, torch.int16))
     for name, t in (("grad", grad), ("hess", hess), ("included", included)):
         _check(name, t, (torch.float32,), (N,))
@@ -249,8 +281,8 @@ def build_histograms_cuda(
         raise ValueError(f"num_slots={S} exceeds the kernel's "
                          f"{lib.gbdt_hist_max_slots()}")
     if row_idx is not None:
-        if slot_counts is None or n_active is None:
-            raise ValueError("a compacted pass needs slot_counts and n_active")
+        if slot_counts is None:
+            raise ValueError("a compacted pass needs slot_counts")
         _check("row_idx", row_idx, (torch.int32,), (N,))
         _check("slot_counts", slot_counts, (torch.int32,), (S,))
         if slot_starts is not None:
@@ -259,15 +291,19 @@ def build_histograms_cuda(
         row_idx, slot_counts, n_active = pass_positions(leaf_id,
                                                         slot_of_leaf, S)
         slot_starts = None
-    cb = X.element_size()
-    dev = X.device
-    plan = plan_ranges(n_active, F, B, cb, _sm_count(dev))
+    if n_active is not None:
+        _check("n_active", n_active, (torch.int64,), ())
     if scales is None:
         scales = histogram_scales(grad, hess)
+    _check("scales", scales, (torch.float64,), (2,))
+    cb = X.element_size()
+    fg, _ = feature_groups(F, B, cb)
+    blocks = grid_blocks(N, F, B, cb, _sm_count(dev))
     # the kernel's integer accumulators; the C entry zeroes them on the stream
     scratch = torch.empty(lib.gbdt_hist_scratch_bytes(S, F, B),
                           dtype=torch.uint8, device=dev)
     out = torch.empty((S, F, B, 3), dtype=torch.float32, device=dev)
+    launches = _launch_counter(dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -276,14 +312,9 @@ def build_histograms_cuda(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gbdt_hist_build(
             ptr(X), cb, N, F, ptr(grad), ptr(hess), ptr(included),
-            ptr(row_idx), ptr(slot_counts), ptr(slot_starts), int(n_active),
-            S, B, plan.group_features, plan.blocks, plan.rows_per_block,
-            float(scales[0]), float(scales[1]),
-            ptr(scratch), ptr(out), stream)
+            ptr(row_idx), ptr(slot_counts), ptr(slot_starts), ptr(n_active),
+            S, B, fg, blocks, MIN_ROWS_PER_BLOCK, ptr(scales),
+            ptr(scratch), ptr(out), ptr(launches), stream)
     if err != 0:
         raise RuntimeError(f"histogram kernel launch failed: CUDA error {err}")
-    build_histograms_cuda.launches += 1
     return out
-
-
-build_histograms_cuda.launches = 0

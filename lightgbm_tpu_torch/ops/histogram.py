@@ -49,12 +49,23 @@ def fixed_point_scale(max_abs: float, n_rows: int) -> float:
 
 
 def histogram_scales(grad: torch.Tensor, hess: torch.Tensor
-                     ) -> Tuple[float, float]:
-    """Per-tree fixed-point scales for g and h (one host sync)."""
+                     ) -> torch.Tensor:
+    """Per-tree fixed-point scales ``[2]`` f64 (g, h) on the rows' device:
+    :func:`fixed_point_scale` computed there, bit for bit, with no host
+    read. ``frexp`` gives the exponent of ``max|x| * n`` (f32 widened to
+    f64, times ``n`` in f64, as on the host); the scale is built from its
+    exponent bits, so it is exactly a power of two on every device."""
     n = grad.shape[0]
-    mg = float(grad.abs().max()) if n else 0.0
-    mh = float(hess.abs().max()) if n else 0.0
-    return fixed_point_scale(mg, n), fixed_point_scale(mh, n)
+    dev = grad.device
+    if n == 0:
+        return torch.ones(2, dtype=torch.float64, device=dev)
+    max_abs = torch.stack([grad.abs().max(), hess.abs().max()]).double()
+    bound = max_abs * float(n)
+    _, e = torch.frexp(bound)                       # bound < 2**e
+    exp = torch.clamp(_FIXED_POINT_BITS - e.long(), max=_MAX_SCALE_EXP)
+    scale = ((exp + 1023) << 52).view(torch.float64)   # 2.0 ** exp
+    ok = (bound > 0.0) & torch.isfinite(bound)
+    return torch.where(ok, scale, 1.0)
 
 
 def slot_from_position(pos: torch.Tensor, slot_cum: torch.Tensor
@@ -92,7 +103,8 @@ def root_sums(grad: torch.Tensor, hess: torch.Tensor, included: torch.Tensor
 
 
 def pass_rows(leaf_id: torch.Tensor, slot_of_leaf: torch.Tensor,
-              row_idx: Optional[torch.Tensor], n_active: Optional[int],
+              row_idx: Optional[torch.Tensor],
+              n_active: Optional[torch.Tensor],
               slot_counts: Optional[torch.Tensor],
               slot_starts: Optional[torch.Tensor]
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -100,15 +112,22 @@ def pass_rows(leaf_id: torch.Tensor, slot_of_leaf: torch.Tensor,
 
     Full pass (``row_idx`` None): every row whose leaf is pending, its slot
     ``slot_of_leaf[leaf_id[r]]``. Compacted pass: positions ``[0,
-    n_active)`` read through ``row_idx``, slot-grouped by ``slot_counts`` (required);
-    with ``slot_starts`` the rows of slot s sit at ``row_idx[slot_starts[s]
-    :][:slot_counts[s]]`` (the grower's incremental partition)."""
+    n_active)`` read through ``row_idx``, slot-grouped by ``slot_counts``
+    (required; ``n_active`` a 0-d int64 tensor, or None meaning
+    ``sum(slot_counts)``); with ``slot_starts`` the rows of slot s sit at
+    ``row_idx[slot_starts[s]:][:slot_counts[s]]`` (the grower's incremental
+    partition)."""
     if row_idx is None:
         slot = slot_of_leaf[leaf_id.long()]
         rows = torch.nonzero(slot >= 0).flatten()
         return rows, slot[rows].long()
     if slot_counts is None:
         raise ValueError("a compacted pass needs slot_counts")
+    if n_active is None:
+        n_active = slot_counts.long().sum()
+    elif not (isinstance(n_active, torch.Tensor) and n_active.dim() == 0
+              and n_active.dtype == torch.int64):
+        raise TypeError("n_active must be a 0-d int64 tensor or None")
     pos = torch.arange(int(n_active), device=row_idx.device)
     slot_cum = torch.cumsum(slot_counts.long(), 0)
     slot = slot_from_position(pos, slot_cum)
@@ -119,19 +138,25 @@ def pass_rows(leaf_id: torch.Tensor, slot_of_leaf: torch.Tensor,
 
 
 def pass_positions(leaf_id: torch.Tensor, slot_of_leaf: torch.Tensor,
-                   num_slots: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
+                   num_slots: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Slot-grouped positions of a pass given without a partition:
-    ``(perm, slot_counts, n_active)``, ``perm`` holding the pending rows
-    slot by slot, ascending inside each slot — what the grower's partition
-    gives, derived on the rows' device (one host sync, for ``n_active``).
-    A slot at or above ``num_slots`` sorts past the last segment, where the
-    kernel and :func:`pass_rows` refuse it."""
-    slot = slot_of_leaf[leaf_id.long()]
-    rows = torch.nonzero(slot >= 0).flatten()
-    key = slot[rows].long()
-    perm = rows[torch.sort(key, stable=True).indices].to(torch.int32)
-    counts = torch.bincount(key, minlength=num_slots)[:num_slots]
-    return perm, counts.to(torch.int32), int(rows.numel())
+    ``(perm, slot_counts, n_active)``. ``perm`` ``[N]`` holds the pending
+    rows slot by slot, ascending inside each slot (what the grower's
+    partition gives), then the other rows; ``n_active`` (0-d int64) counts
+    the pending rows. Derived on the rows' device by a stable sort and a
+    scatter count, with no host read. A slot at or above ``num_slots`` is
+    counted in no slot but in ``n_active``, so the pass runs past the last
+    segment, where the kernel and :func:`pass_rows` refuse it."""
+    slot = slot_of_leaf[leaf_id.long()].long()
+    key = torch.where(slot >= 0, torch.clamp(slot, max=num_slots),
+                      num_slots + 1)
+    perm = torch.sort(key, stable=True).indices.to(torch.int32)
+    counts = torch.zeros(num_slots + 2, dtype=torch.int64,
+                         device=leaf_id.device)
+    counts.scatter_add_(0, key, torch.ones_like(key))
+    return (perm, counts[:num_slots].to(torch.int32),
+            counts[:num_slots + 1].sum())
 
 
 def build_histograms(
@@ -144,21 +169,24 @@ def build_histograms(
     num_slots: int,
     num_bins_padded: int,
     row_idx: Optional[torch.Tensor] = None,   # [N] i32 compacted pass rows
-    n_active: Optional[int] = None,           # rows of the compacted pass
+    n_active: Optional[torch.Tensor] = None,  # 0-d i64 rows of the
+                                   # compacted pass; None = sum(slot_counts)
     slot_counts: Optional[torch.Tensor] = None,  # [S] i32 slot-grouped rows
     slot_starts: Optional[torch.Tensor] = None,  # [S] i32 segment starts
-    scales: Optional[Tuple[float, float]] = None,  # per-tree (g, h) scales
+    scales: Optional[torch.Tensor] = None,   # [2] f64 per-tree (g, h)
 ) -> torch.Tensor:
     """Plain version of the histogram kernel: ``[S, F, B, 3]`` f32.
 
     A scatter-add of the fixed-point g/h and the 0/1 counts into
     ``[S, F, B]`` int64 bins, then one conversion to f32 — the kernel's
     arithmetic exactly (module docstring), so the kernel must agree with it
-    bit for bit."""
+    bit for bit. It reads ``n_active`` and the scales on the host: it runs
+    for CPU tensors only."""
     N, F = X.shape
     S, B = num_slots, num_bins_padded
     if scales is None:
         scales = histogram_scales(grad, hess)
+    scales = float(scales[0]), float(scales[1])
     rows, slot = pass_rows(leaf_id, slot_of_leaf, row_idx, n_active,
                            slot_counts, slot_starts)
     codes = X[rows].long()                                          # [n, F]

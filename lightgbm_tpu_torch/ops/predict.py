@@ -38,12 +38,16 @@ _CATEGORICAL_HOST_ROUTE = {"logged": False}
 
 def leaves_from_binned(tree, Xb: torch.Tensor, num_bins: torch.Tensor,
                        missing_code: torch.Tensor, default_bin: torch.Tensor,
-                       bundle=None) -> torch.Tensor:
+                       bundle=None, has_cat=None) -> torch.Tensor:
     """Leaf index ``[N]`` of every row of a binned matrix, for one grower
     ``TreeArrays``; a categorical node sends a row left iff its bin is in
     the node's left set (reference Tree::CategoricalDecision,
     tree.h:257-284). With ``bundle`` (``grower.BundleDecode``) ``Xb`` holds
-    bundled codes, decoded per node."""
+    bundled codes, decoded per node. ``has_cat`` says whether the tree may
+    hold categorical splits (the booster's ``spec.use_categorical``; None:
+    read from the tree). The walk reads the host once per tree level;
+    a booster's valid sets get the same ids from the grower's routing
+    (``grower.TreeGrower``), which needs no walk."""
     N = Xb.shape[0]
     sf = tree.split_feature.long()
     mc, nb, db = missing_code[sf], num_bins[sf], default_bin[sf]
@@ -51,7 +55,8 @@ def leaves_from_binned(tree, Xb: torch.Tensor, num_bins: torch.Tensor,
     cur = torch.zeros(N, dtype=torch.int64, device=Xb.device)
     if int(tree.num_leaves) <= 1:
         return torch.zeros(N, dtype=torch.int32, device=Xb.device)
-    has_cat = bool(tree.is_cat.any())
+    if has_cat is None:
+        has_cat = bool(tree.is_cat.any())
     B = tree.cat_mask.shape[1]
     flat_mask = tree.cat_mask.reshape(-1)
     for _ in range(tree.leaf_value.shape[0]):     # depth <= num_leaves

@@ -105,7 +105,7 @@ def per_feature_best_numerical(
     value means a valid improvement."""
     S, F, B, _ = hist.shape
     dev = hist.device
-    neg_inf = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    neg_inf = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
     g = hist[..., 0]
     h = hist[..., 1]
     c = hist[..., 2]
@@ -275,7 +275,7 @@ def per_feature_best_bundled(
     T, G, Bb, _ = hist.shape
     F = num_bins.shape[0]
     dev = hist.device
-    neg_inf = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    neg_inf = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
     iota_b = torch.arange(Bb, dtype=torch.int32, device=dev)[None, :]
     owned = code_feat >= 0
     cfs = torch.where(owned, code_feat, 0).long()                # safe index

@@ -7,8 +7,9 @@ mask with ``jax.random``; this module reproduces those bits so that a
 sampled booster of this package grows the JAX package's trees:
 
 - a key is a pair of uint32 words ``(k1, k2)``, held as Python ints on the
-  host: ``prng_key(seed)`` is ``(0, seed mod 2**32)``, as ``PRNGKey``
-  gives it with 64-bit types off;
+  host, or as 0-d ``int64`` tensors on the device where a replayed CUDA
+  graph reads each iteration's key from a buffer: ``prng_key(seed)`` is
+  ``(0, seed mod 2**32)``, as ``PRNGKey`` gives it with 64-bit types off;
 - ``fold_in(key, d)`` hashes the counter pair ``(0, d)``;
 - ``split(key, n)`` hashes the pairs ``(0, i)`` for ``i < n``;
 - ``random_bits(key, shape)`` hashes the 64-bit flat index of every element
@@ -18,7 +19,8 @@ sampled booster of this package grows the JAX package's trees:
 - ``uniform(key, shape)`` puts the top 23 bits of each word under the
   exponent of 1.0 and subtracts 1.0 (JAX's ``_uniform`` for f32).
 
-Keys are derived on the host, so a key costs no device work; a draw is
+Keys are derived on the host, so a key costs no device work (the booster
+copies an iteration's words to the device once per iteration); a draw is
 plain PyTorch on the device it is asked for, with uint32 words held in
 ``int64`` and masked after every add. This is XLA-level device work in the
 JAX package, not a Pallas kernel, so it stays plain torch ops.
@@ -34,18 +36,23 @@ MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
 
-Key = Tuple[int, int]
 Word = Union[int, torch.Tensor]
+Key = Tuple[Word, Word]
 
 
 def _rotl(x: Word, r: int) -> Word:
     return ((x << r) | (x >> (32 - r))) & MASK32
 
 
+def _word(w: Word) -> Word:
+    return w & MASK32 if isinstance(w, torch.Tensor) else int(w) & MASK32
+
+
 def threefry2x32(key: Key, x1: Word, x2: Word) -> Tuple[Word, Word]:
     """The Threefry-2x32 hash of the counter words ``(x1, x2)`` under
-    ``key``: Python ints or ``int64`` tensors holding uint32 values."""
-    k1, k2 = int(key[0]) & MASK32, int(key[1]) & MASK32
+    ``key``; words and key words are Python ints or ``int64`` tensors
+    holding uint32 values."""
+    k1, k2 = _word(key[0]), _word(key[1])
     ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
     x1 = (x1 + ks[0]) & MASK32
     x2 = (x2 + ks[1]) & MASK32

@@ -487,13 +487,17 @@ def test_kernel_plan_at_the_bundled_bosch_shape():
     bins fit one feature group (one block's shared memory holds them all);
     a uint16 singleton bundle (Bb_pad 512) splits the columns into groups
     that each fit, whole 32-bit words of codes."""
-    from lightgbm_tpu_torch.ops.cuda_histogram import (SMEM_BLOCK_LIMIT,
+    from lightgbm_tpu_torch.ops.cuda_histogram import (MIN_ROWS_PER_BLOCK,
+                                                       SMEM_BLOCK_LIMIT,
                                                        feature_groups,
-                                                       plan_ranges)
+                                                       grid_blocks)
     assert feature_groups(121, 64, 1) == (121, 1)
-    plan = plan_ranges(1_184_000, 121, 64, 1, 132)
-    assert plan.smem == 121 * 64 * 20 <= SMEM_BLOCK_LIMIT
-    assert plan.blocks * plan.rows_per_block >= 1_184_000
+    assert 121 * 64 * 20 <= SMEM_BLOCK_LIMIT
+    # the grid hist_kernel spreads a pass over: one block an SM at this
+    # shared memory size, runs of at least MIN_ROWS_PER_BLOCK positions
+    grid = grid_blocks(1_184_000, 121, 64, 1, 132)
+    assert grid == 132
+    assert -(-1_184_000 // grid) >= MIN_ROWS_PER_BLOCK
     fg, groups = feature_groups(122, 512, 2)
     assert groups > 1 and fg * 512 * 20 <= SMEM_BLOCK_LIMIT
     assert fg % 2 == 0 and fg * groups >= 122

@@ -14,9 +14,9 @@ Tolerances:
 - counts are always exact.
 ``uint16`` codes (``max_bin`` above 255) go to the port as ``int16`` (the
 booster's device form) and to the JAX package as ``uint16``, with the same
-bars. The kernel's launch plan (``plan_ranges``, with the walk
-``hist_kernel`` makes over it written out here as ``_kernel_ranges``) and
-the positions the wrapper derives for a call without a partition
+bars. The kernel's ranges (its grid from ``grid_blocks``, and the walk
+``hist_kernel`` makes over it on the card, transcribed here as
+``_kernel_ranges``) and the positions the wrapper derives for a call without a partition
 (``pass_positions``) are plain Python and torch, checked here. The kernel
 itself (CUDA tensors) is held against this plain version on the card by
 ``chip_smoke.py``; on CPU tensors the wrapper runs the plain version and
@@ -33,9 +33,12 @@ import jax.numpy as jnp
 from lightgbm_tpu.ops import pallas_histogram as ph
 from lightgbm_tpu.ops.histogram import build_histograms as jax_hist
 from lightgbm_tpu_torch.interop import to_torch
-from lightgbm_tpu_torch.ops.cuda_histogram import (MAX_BINS, SMEM_BLOCK_LIMIT,
+from lightgbm_tpu_torch.ops.cuda_histogram import (MAX_BINS,
+                                                   MIN_ROWS_PER_BLOCK,
+                                                   SMEM_BLOCK_LIMIT,
                                                    build_histograms_cuda,
-                                                   feature_groups, plan_ranges)
+                                                   feature_groups, grid_blocks,
+                                                   launch_count)
 from lightgbm_tpu_torch.ops.histogram import (build_histograms,
                                               fixed_point_scale,
                                               histogram_scales, pass_positions,
@@ -86,7 +89,9 @@ def _partition(leaf_id, pending):
 
 def _port(X, g, h, inc, leaf_id, sol, num_bins=B, **kw):
     t = {k: to_torch(v) for k, v in kw.items() if not np.isscalar(v)}
-    t.update({k: v for k, v in kw.items() if np.isscalar(v)})
+    # n_active: a 0-d int64 tensor, as the grower and the card keep it
+    t.update({k: torch.tensor(v, dtype=torch.int64)
+              for k, v in kw.items() if np.isscalar(v)})
     if X.dtype == np.uint16:
         X = X.view(np.int16)                # the booster's device form
     return build_histograms(to_torch(X), to_torch(g), to_torch(h),
@@ -229,7 +234,8 @@ def test_derived_positions_give_the_plain_histogram(pending):
     assert n_active == int((slot >= 0).sum())
     np.testing.assert_array_equal(counts.numpy(),
                                   np.bincount(slot[slot >= 0], minlength=S))
-    expect = np.concatenate([np.flatnonzero(slot == s) for s in range(S)])
+    expect = np.concatenate([np.flatnonzero(slot == s) for s in range(S)]
+                            + [np.flatnonzero(slot < 0)])
     np.testing.assert_array_equal(perm.numpy(), expect)
     derived = build_histograms(to_torch(X), to_torch(g), to_torch(h),
                                to_torch(inc), to_torch(leaf_id),
@@ -253,15 +259,24 @@ def test_derived_positions_refuse_a_slot_past_num_slots():
                          slot_counts=counts)
 
 
-def _kernel_ranges(plan, counts, n_active):
-    """(block, slot, first position, length) of every range the blocks of
-    ``plan`` add: the walk ``hist_kernel`` makes on the card, block b taking
-    positions [b * R, (b + 1) * R) and splitting them at slot boundaries."""
+def _kernel_ranges(grid, counts, n_active):
+    """``(R, ranges)``: the run of positions a block takes and (block, slot,
+    first position, length) of every range the blocks add. A transcription
+    of ``hist_kernel``'s walk on the card (``csrc/histogram.cu``): of a grid
+    of ``grid`` blocks the first ``min(grid, ceil(n_active /
+    MIN_ROWS_PER_BLOCK))`` take runs of ``R`` positions, the rest exit, and
+    each run splits at slot boundaries."""
+    if n_active <= 0:
+        return 0, []
+    nblocks = min(grid, -(-n_active // MIN_ROWS_PER_BLOCK))
+    R = -(-n_active // nblocks)
     cum = np.cumsum(counts)
     ranges = []
-    for b in range(plan.blocks):
-        p = b * plan.rows_per_block
-        end = min(p + plan.rows_per_block, n_active)
+    for b in range(grid):
+        p = b * R
+        if p >= n_active:
+            continue
+        end = min(p + R, n_active)
         s = 0
         while s < len(cum) and cum[s] <= p:
             s += 1
@@ -271,39 +286,46 @@ def _kernel_ranges(plan, counts, n_active):
                 ranges.append((b, s, p, seg_end - p))
                 p = seg_end
             s += 1
-    return ranges
+    return R, ranges
 
 
-def _check_plan(plan, n_active, counts, num_features, num_bins, code_bytes,
-                num_sms):
+def _check_plan(num_rows, n_active, counts, num_features, num_bins,
+                code_bytes, num_sms):
+    """The grid the wrapper launches for a shape of ``num_rows`` rows, and
+    the ranges ``hist_kernel`` gives a pass over ``n_active`` of them."""
+    grid = grid_blocks(num_rows, num_features, num_bins, code_bytes,
+                       num_sms)
+    fg, groups = feature_groups(num_features, num_bins, code_bytes)
+    smem = fg * num_bins * 20
     # every position of [0, n_active) once, no range across a slot
     cum = np.cumsum(counts)
     seen = np.zeros(n_active, np.int64)
-    ranges = _kernel_ranges(plan, counts, n_active)
+    R, ranges = _kernel_ranges(grid, counts, n_active)
     for b, s, p, n in ranges:
-        assert n > 0 and 0 <= b < plan.blocks
-        assert b * plan.rows_per_block <= p
-        assert p + n <= min((b + 1) * plan.rows_per_block, n_active)
+        assert n > 0 and 0 <= b < grid
+        assert b * R <= p
+        assert p + n <= min((b + 1) * R, n_active)
         assert (cum[s] - counts[s]) <= p and p + n <= cum[s]
         seen[p:p + n] += 1
     assert (seen == 1).all()
     # ranges are in order: a block walks its slots upwards
     assert [r[2] for r in ranges] == sorted(r[2] for r in ranges)
     # the grid bound: at most k blocks per SM (one SM's 233,472 bytes of
-    # shared memory and 2048 threads), ceil(n_active / 2048) in all
-    per_sm = 2 if plan.smem + 2048 <= 233472 // 2 else 1
-    assert plan.blocks <= -(-per_sm * num_sms // plan.groups)
-    assert plan.blocks <= -(-n_active // 2048)
-    assert plan.blocks == 0 or plan.rows_per_block * (plan.blocks - 1) \
-        < n_active <= plan.rows_per_block * plan.blocks
+    # shared memory and 2048 threads), ceil(num_rows / 2048) in all; a pass
+    # uses at most ceil(n_active / 2048) of them
+    per_sm = 2 if smem + 2048 <= 233472 // 2 else 1
+    assert 1 <= grid <= -(-per_sm * num_sms // groups)
+    assert grid <= -(-num_rows // 2048)
+    used = len({r[0] for r in ranges})
+    assert used <= -(-n_active // 2048)
+    assert n_active == 0 or (used - 1) * R < n_active <= used * R
     # feature groups fit a block (a [group_features, B] sub-histogram, 20
     # bytes a bin, beside the kernel's 1 KB of segment tables) and cover
     # every feature
-    assert plan.smem == plan.group_features * num_bins * 20
-    assert plan.smem <= SMEM_BLOCK_LIMIT <= 232448 - 1024
-    assert plan.group_features * plan.groups >= num_features
-    assert plan.group_features * (plan.groups - 1) < num_features
-    return ranges
+    assert smem <= SMEM_BLOCK_LIMIT <= 232448 - 1024
+    assert fg * groups >= num_features
+    assert fg * (groups - 1) < num_features
+    return grid, ranges
 
 
 @pytest.mark.parametrize("counts,num_features,num_bins,code_bytes,num_sms", [
@@ -319,15 +341,19 @@ def _check_plan(plan, n_active, counts, num_features, num_bins, code_bytes,
 def test_plan_ranges_cover_every_position_once(counts, num_features,
                                                num_bins, code_bytes,
                                                num_sms):
+    """The grid is sized for every row of the shape and the pass's own
+    ``n_active`` spread over it on the card: as a pass over all rows, and
+    as one of a 2,000,000-row shape (a later wave)."""
     n_active = int(sum(counts))
-    plan = plan_ranges(n_active, num_features, num_bins, code_bytes, num_sms)
-    ranges = _check_plan(plan, n_active, np.asarray(counts), num_features,
-                         num_bins, code_bytes, num_sms)
-    if n_active == 0:
-        assert plan.blocks == 0 and ranges == []
-    # a root wave's blocks each see one slot: one flush per block
-    if sum(c > 0 for c in counts) == 1:
-        assert len(ranges) == plan.blocks
+    for num_rows in sorted({max(n_active, 1), 2_000_000}):
+        grid, ranges = _check_plan(num_rows, n_active, np.asarray(counts),
+                                   num_features, num_bins, code_bytes,
+                                   num_sms)
+        if n_active == 0:
+            assert ranges == []
+        # a root wave's blocks each see one slot: one flush per block
+        if sum(c > 0 for c in counts) == 1:
+            assert len(ranges) == len({r[0] for r in ranges})
 
 
 def test_plan_ranges_random_slot_counts():
@@ -335,8 +361,9 @@ def test_plan_ranges_random_slot_counts():
     for _ in range(50):
         S_ = int(rng.randint(1, 65))
         counts = rng.randint(0, 60_000, S_) * (rng.rand(S_) < 0.7)
-        plan = plan_ranges(int(counts.sum()), 28, 256, 1, 132)
-        _check_plan(plan, int(counts.sum()), counts, 28, 256, 1, 132)
+        n_active = int(counts.sum())
+        _check_plan(n_active + int(rng.randint(1, 500_000)), n_active,
+                    counts, 28, 256, 1, 132)
 
 
 def test_feature_groups_fit_shared_memory():
@@ -354,11 +381,11 @@ def test_feature_groups_fit_shared_memory():
 def test_wrapper_runs_plain_version_on_cpu_without_counting():
     X, g, h, inc, leaf_id = _data(seed=4)
     sol = _slot_of_leaf((0, 1))
-    before = build_histograms_cuda.launches
+    before = launch_count()
     out = build_histograms_cuda(to_torch(X), to_torch(g), to_torch(h),
                                 to_torch(inc), to_torch(leaf_id),
                                 to_torch(sol), S, B)
-    assert build_histograms_cuda.launches == before
+    assert launch_count() == before
     np.testing.assert_array_equal(out.numpy(),
                                   _port(X, g, h, inc, leaf_id, sol))
 
@@ -383,7 +410,8 @@ def test_wrapper_raises_on_out_of_range_input(fault):
         sol[2] = S
     else:
         perm, counts, starts = _partition(leaf_id, pending)
-        kw = dict(row_idx=to_torch(perm), n_active=int(counts.sum()) + 1,
+        kw = dict(row_idx=to_torch(perm),
+                  n_active=torch.tensor(int(counts.sum()) + 1),
                   slot_counts=to_torch(counts), slot_starts=to_torch(starts))
     with pytest.raises(ValueError, match="num_bins_padded|num_slots"):
         build_histograms_cuda(to_torch(X), to_torch(g), to_torch(h),
@@ -401,7 +429,8 @@ def test_fixed_point_scale_is_safe_power_of_two():
         assert n * max_abs * s * 4 >= 2.0 ** 62 or s == 2.0 ** 200
     assert fixed_point_scale(0.0, 10) == 1.0
     g = torch.tensor([0.5, -2.0, 1.0])
-    assert histogram_scales(g, g.abs()) == (fixed_point_scale(2.0, 3),) * 2
+    assert tuple(histogram_scales(g, g.abs()).tolist()) == \
+        (fixed_point_scale(2.0, 3),) * 2
 
 
 def test_root_sums_are_rounded_f64_sums():

@@ -28,7 +28,7 @@ import pytest
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
-from lightgbm_tpu_torch.ops.cuda_histogram import build_histograms_cuda
+from lightgbm_tpu_torch.ops.cuda_histogram import launch_count
 from lightgbm_tpu_torch.utils.log import LightGBMError
 
 HERE = os.path.dirname(__file__)
@@ -200,14 +200,14 @@ def test_default_device_raises_without_cuda(monkeypatch):
     import torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     X, y = _nan_det()
-    before = build_histograms_cuda.launches
+    before = launch_count()
     for device in (None, "tpu", "gpu", "cuda"):
         params = {"objective": "binary", "verbose": -1}
         if device:
             params["device"] = device
         with pytest.raises(LightGBMError, match="CUDA"):
             lgt.train(params, lgt.Dataset(X, label=y), num_boost_round=1)
-    assert build_histograms_cuda.launches == before
+    assert launch_count() == before
     # prediction on the default device takes the device walk for large
     # batches and raises likewise; device=cpu runs the same walk on the host
     model = _train_port(dict(BASE, objective="binary"), rounds=2)
@@ -228,15 +228,17 @@ def test_default_device_raises_without_cuda(monkeypatch):
     ({"tree_learner": "voting"}, "A16"),
     ({"categorical_feature": "0", "tree_learner": "voting"}, "A16"),
     ({"enable_bundle": True, "tpu_residency": "stream"}, "A14"),
-    ({"linear_tree": True, "tree_batch": 2}, "A10"),
+    ({"linear_tree": True, "tree_batch": 2, "nan_policy": "clip"}, "A17"),
     ({"objective": "multiclass", "num_class": 3, "nan_policy": "clip"},
      "A17"),
-    ({"objective": "lambdarank", "tree_batch": 3}, "A10"),
+    ({"objective": "lambdarank", "tree_batch": 3,
+      "tpu_residency": "stream"}, "A14"),
     ({"objective": "huber", "tree_learner": "feature"}, "A16"),
-    ({"tree_batch": 4, "boosting": "dart"}, "A10"),
+    ({"tree_batch": 4, "boosting": "dart", "tree_learner": "voting"},
+     "A16"),
     ({"tree_learner": "data"}, "A16"),
     ({"tpu_residency": "stream"}, "A14"),
-    ({"tree_batch": 2}, "A10"),
+    ({"tree_batch": 2, "checkpoint_dir": "checkpoints"}, "A17"),
     ({"nan_policy": "raise"}, "A17"),
     ({"checkpoint_dir": "checkpoints"}, "A17"),
     ({"resume_from": "auto"}, "A17"),
