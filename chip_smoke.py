@@ -144,10 +144,31 @@ Phases (any failure exits non-zero and prints no result line):
    captured sampled run (bagging 0.8 every 5, feature_fraction 0.8, the
    valid set, 10 rounds) and a captured multiclass run (5 classes, 3
    rounds) must be byte-identical to their eager runs. Phases 6, 8, 9, 11
-   and 12 say how many trees were replayed from graphs.
+   and 12 say how many trees were replayed from graphs;
+14. serving: phase 4's data, 255 leaves, 500 rounds (the reference GPU
+   benchmark's HIGGS setting) trained captured with ``tree_batch=8`` (B1's
+   passes counted on the card), saved to text and served from the file by
+   ``ServingEngine`` on the default ladder (1..4,096: 13 buckets). It
+   prints the captures at warmup (13 required), per bucket the capture
+   seconds, one replay's device ms, the host's encode, copy and f64
+   accumulation ms per dispatch and the replayed leaves against the eager
+   walk (bit-equal required); holds ``predict`` of 4,096 rows with NaN
+   and zero cells bit-equal to ``Booster.predict(force_host_predict=
+   True)``; drives ``MicroBatcher`` with 32 closed-loop clients (20,000
+   requests of 1-64 rows) and a Poisson open loop at half their rate,
+   every response held to the host prediction of its rows (requests/s,
+   rows/s, p50/p99, dispatches, batch fill); hot-reloads the same file at
+   ``num_iteration=250`` under the open loop (every response one of the
+   two versions, both seen, version gauge 2, the live model's captures
+   unchanged, the candidate's own 13; device memory before, with both
+   models and after); fails on any ``serve.host_fallback``,
+   ``serve.breaker_trips`` or a health other than ``ready``; and splits
+   ``Booster.predict`` of 2M rows x 10 trees (phase 4's model) into host
+   encode, H2D, walk and sum, with one host read per 65,536-row chunk.
 
-``--phases 3,11`` runs only the listed phases (and those they need); such a
-partial run prints no result lines and exits 4.
+``--phases 3,11`` runs only the listed phases (and those they need: 5-7
+and 12-14 add phase 4); such a partial run prints no result lines and
+exits 4.
 
 The card's line comes before the last two lines; the line before the last
 is one JSON object describing every kernel of the path; the last line is
@@ -2252,7 +2273,439 @@ def tree_batch_phase(mres):
     return dict(launches=launches, stats=stats)
 
 
-PHASES = tuple(range(1, 14))
+SERVE_ROUNDS = 500                 # the reference GPU benchmark's HIGGS run
+SERVE_POOL = 8192                  # request rows, predicted once on the host
+SERVE_CLIENTS = 32
+SERVE_REQUESTS = 20_000
+SERVE_OPEN_S = 4.0                 # seconds of each open loop
+
+
+def _serve_rows(X, seed):
+    """A pool of request rows from phase 4's features, as f64, with zero
+    cells planted beside the two NaN columns."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    P = np.array(X[:SERVE_POOL], np.float64)
+    P[rng.random(P.shape) < 0.03] = 0.0
+    P[rng.random(P.shape) < 0.02] = np.nan
+    return P
+
+
+def _closed_loop(mb, pool, expect, clients, requests, seed):
+    """``clients`` threads, back to back, each request 1-64 rows of the
+    pool at a random offset; every response is held to the host
+    prediction of its own rows. Returns latencies (ms), rows, wall s and
+    the mismatches."""
+    import threading
+    import numpy as np
+    per = requests // clients
+    lats = [[] for _ in range(clients)]
+    rows = [0] * clients
+    bad = []
+    gate = threading.Barrier(clients + 1)
+
+    def client(w):
+        rng = np.random.default_rng(seed + w)
+        gate.wait()
+        for _ in range(per):
+            n = int(rng.integers(1, 65))
+            lo = int(rng.integers(0, len(pool) - n))
+            t0 = time.perf_counter()
+            out = mb.predict(pool[lo:lo + n])
+            lats[w].append((time.perf_counter() - t0) * 1e3)
+            rows[w] += n
+            if not np.array_equal(out, expect[lo:lo + n]):
+                bad.append((lo, n))
+
+    threads = [threading.Thread(target=client, args=(w,), daemon=True)
+               for w in range(clients)]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    return ([v for per_w in lats for v in per_w], sum(rows),
+            time.perf_counter() - t0, bad)
+
+
+def _open_loop(mb, pool, expects, rate, seconds, seed, during=None):
+    """Poisson arrivals at ``rate`` requests/s for ``seconds`` (latency from
+    the scheduled arrival, so queueing counts), each request 1-64 rows;
+    every response must equal one of ``expects`` on its rows (the model
+    versions that may serve). ``during`` runs on this thread after a
+    quarter of the schedule. Returns latencies, rows, wall s, mismatches,
+    the versions seen and what ``during`` returned."""
+    import threading
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n_req = max(1, int(rate * seconds))
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, n_req))
+    sizes = rng.integers(1, 65, n_req)
+    offs = rng.integers(0, len(pool) - 64, n_req)
+    lats, bad, seen = [], [], set()
+    rows = [0]
+    lock = threading.Lock()
+    nxt = [0]
+    workers = max(8, min(64, int(rate * 0.02) + 8))
+    start = [0.0]
+    gate = threading.Barrier(workers + 1)
+
+    def worker():
+        gate.wait()
+        while True:
+            with lock:
+                i = nxt[0]
+                if i >= n_req:
+                    return
+                nxt[0] += 1
+            lo, n = int(offs[i]), int(sizes[i])
+            t_sched = start[0] + arrivals[i]
+            delay = t_sched - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            out = mb.predict(pool[lo:lo + n])
+            lat = (time.perf_counter() - t_sched) * 1e3
+            match = [v for v, e in enumerate(expects)
+                     if np.array_equal(out, e[lo:lo + n])]
+            with lock:
+                lats.append(lat)
+                rows[0] += n
+                if len(match) == 0:
+                    bad.append((lo, n))
+                seen.update(match)
+
+    threads = [threading.Thread(target=worker, daemon=True)
+               for _ in range(workers)]
+    for t in threads:
+        t.start()
+    start[0] = time.perf_counter()
+    gate.wait()
+    ret = None
+    if during is not None:
+        time.sleep(seconds / 4)
+        ret = during()
+    for t in threads:
+        t.join()
+    return lats, rows[0], time.perf_counter() - start[0], bad, seen, ret
+
+
+def _print_traffic(label, lats, rows, wall, dispatches, fill, bad):
+    from lightgbm_tpu_torch.serving.loadgen import latency_stats
+    st = latency_stats(lats)
+    print(f"  {label}: {len(lats)} requests, {rows} rows in {wall:.3f} s = "
+          f"{len(lats) / wall:.1f} requests/s, {rows / wall:.1f} rows/s; "
+          f"latency p50 {st['p50_ms']} ms, p99 {st['p99_ms']} ms, max "
+          f"{st['max_ms']} ms; {dispatches} dispatches, mean batch fill "
+          f"{fill:.3f}; responses equal to the host prediction of their "
+          f"rows {not bad}", flush=True)
+    if bad:
+        fail(f"{label}: {len(bad)} responses differ from the host "
+             f"prediction of their rows (first at {bad[0]})")
+    return st
+
+
+def _mem_delta(mem0):
+    """Allocated and reserved device MiB above ``mem0`` (the pair before)."""
+    import torch
+    torch.cuda.synchronize()
+    alloc = (torch.cuda.memory_allocated() - mem0[0]) / 2**20
+    reserved = (torch.cuda.memory_reserved() - mem0[1]) / 2**20
+    return f"allocated {alloc:.1f} MiB, reserved {reserved:.1f} MiB"
+
+
+def _serve_counters():
+    from lightgbm_tpu_torch import observability as obs
+    snap = obs.snapshot()
+    c = snap["counters"]
+    fill = snap["histograms"].get("serve.batch_fill_frac", {})
+    return (sum(v for k, v in c.items() if k.startswith("serve.bucket.")),
+            fill.get("count", 0), fill.get("sum", 0.0))
+
+
+def _bucket_table(eng, pool):
+    """Per bucket of the live model: capture seconds, one replay's device
+    ms, host encode ms, H2D + D2H ms and host f64 accumulation ms per
+    dispatch, and the replayed leaves against the eager walk on the same
+    device inputs (bit-equal required)."""
+    import torch
+    from lightgbm_tpu_torch.ops.predict import forest_walk_leaves
+    from lightgbm_tpu_torch.serving.engine import accumulate_leaves
+    m = eng.model_snapshot()
+    forest = m.forests[0]
+    rows = []
+    for B in eng.buckets:
+        bg = m.graphs[(0, B)]
+        Xb = pool[:B]
+        t0 = time.perf_counter()
+        for _ in range(5):
+            codes, is_nan, is_zero = forest.encode_rows(Xb)
+        enc_ms = (time.perf_counter() - t0) / 5 * 1e3
+        with m.lock:
+            bg.h_codes[:] = codes
+            bg.h_nan[:] = is_nan
+            bg.h_zero[:] = is_zero
+
+            def copies():
+                bg.d_in.copy_(bg.h_in, non_blocking=True)
+                bg.h_out.copy_(bg.d_out, non_blocking=True)
+                torch.cuda.synchronize()
+            copies()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                copies()
+            copy_ms = (time.perf_counter() - t0) / 5 * 1e3
+            replay_ms = cuda_time_ms(bg.graph.replay, 10)
+            torch.cuda.synchronize()
+            replayed = bg.d_out.clone()
+            eager = forest_walk_leaves(*m.dev[0], *bg.inputs(),
+                                       forest.max_depth)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(replayed, eager))
+            leaves = replayed.cpu().numpy()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            accumulate_leaves(forest, leaves, Xb)
+        acc_ms = (time.perf_counter() - t0) / 5 * 1e3
+        rows.append(dict(bucket=B, capture_s=m.capture_s[(0, B)],
+                         replay_ms=replay_ms, encode_ms=enc_ms,
+                         copy_ms=copy_ms, accumulate_ms=acc_ms,
+                         bit_equal=same))
+        print(f"  bucket {B:5d}: capture {m.capture_s[(0, B)]:.4f} s; one "
+              f"replay {replay_ms:.4f} ms device; host encode {enc_ms:.4f} "
+              f"ms, H2D + D2H {copy_ms:.4f} ms, host f64 accumulation "
+              f"{acc_ms:.4f} ms per dispatch; replayed leaves bit-equal to "
+              f"the eager walk {same}", flush=True)
+        if not same:
+            fail(f"bucket {B}: the replayed walk differs from the eager one")
+    return rows
+
+
+def _b6_breakdown(text, X, dev):
+    """B6: ``Booster.predict`` of 2M rows x 10 trees (phase 4's model), its
+    time once with the stacking and again from the booster's cache, the
+    host reads per chunk (``set_sync_debug_mode``), and the same chunks
+    split into host encode, H2D, walk (device ms) and leaf sum plus D2H."""
+    import warnings
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.predict import forest_walk_leaves
+    bst = lgt.Booster(params={"device": dev.type}, model_str=text)
+    t0 = time.perf_counter()
+    first = bst.predict(X)
+    t1 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t2 = time.perf_counter()
+            again = bst.predict(X)
+            t3 = time.perf_counter()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # a read is a synchronizing call made from the port's code; any other
+    # (torch's own Python) is printed beside it
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    port = os.path.join(HERE, "lightgbm_tpu_torch")
+    where = {}
+    for w in syncs:
+        key = f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+        where[key] = where.get(key, 0) + 1
+    reads = sum(os.path.abspath(w.filename).startswith(port) for w in syncs)
+    others = {str(w.message)[:120] for w in syncs
+              if not os.path.abspath(w.filename).startswith(port)}
+    chunk = 1 << 16
+    n_chunks = -(-X.shape[0] // chunk)
+    forest = bst._stacked_forests(bst.trees, 1)[0]
+    walk_args = forest.to(dev)
+    lv = forest.leaf_tables(dev)[0]
+    t_iota = torch.arange(forest.num_trees, device=dev)[None, :]
+    enc = h2d = walk = tail = 0.0
+    for lo in range(0, X.shape[0], chunk):
+        c = np.asarray(X[lo:lo + chunk], np.float64)
+        a = time.perf_counter()
+        arrs = forest.encode_rows(c)
+        b = time.perf_counter()
+        ins = [torch.from_numpy(v).to(dev, non_blocking=True)
+               for v in arrs]
+        torch.cuda.synchronize()
+        d = time.perf_counter()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        leaves = forest_walk_leaves(*walk_args, *ins, forest.max_depth)
+        e1.record()
+        torch.cuda.synchronize()
+        e = time.perf_counter()
+        lv[t_iota, leaves].sum(dim=1).cpu().numpy()
+        f = time.perf_counter()
+        enc += b - a
+        h2d += d - b
+        walk += e0.elapsed_time(e1)
+        tail += f - e
+    same = bool(np.array_equal(first, again))
+    print(f"  B6, Booster.predict of {X.shape[0]} rows x {len(bst.trees)} "
+          f"trees (phase 4's model): {(t1 - t0) * 1e3:.1f} ms with the "
+          f"stacking, {(t3 - t2) * 1e3:.1f} ms from the booster's cache "
+          f"(the per-level walk: 3,046.5 ms, PERF.md); {n_chunks} chunks, "
+          f"host reads per chunk "
+          f"{reads / n_chunks:.2f}; walk depth {forest.max_depth}; split: "
+          f"host encode {enc * 1e3:.1f} ms, H2D {h2d * 1e3:.1f} ms, walk "
+          f"{walk:.1f} ms device, leaf sum + D2H {tail * 1e3:.1f} ms; the "
+          f"two calls equal {same}; synchronizing calls by line {where}"
+          f"{'; outside the port: ' + repr(sorted(others)) if others else ''}",
+          flush=True)
+    if reads != n_chunks:
+        fail(f"B6: {reads} host reads over {n_chunks} chunks (one each "
+             f"required)")
+    if not same:
+        fail("B6: two predictions of the same rows differ")
+    return dict(ms_first=(t1 - t0) * 1e3, ms=(t3 - t2) * 1e3,
+                reads_per_chunk=reads / n_chunks)
+
+
+def serving_phase(mres, dev):
+    """Phase 14: ``ServingEngine`` at full width on the card. A 500-round
+    model of phase 4's data (captured, ``tree_batch=8``) saved to text and
+    served from the file on the default ladder: captures, per-bucket
+    costs, bit-identity to ``Booster.predict``'s host route, closed- and
+    open-loop traffic through ``MicroBatcher``, a hot reload under the
+    open loop, and B6's breakdown of ``Booster.predict``."""
+    import tempfile
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import observability as obs
+    from lightgbm_tpu_torch.ops.cuda_histogram import (
+        launch_count, reset_launch_count)
+    from lightgbm_tpu_torch.serving import MicroBatcher, ServingEngine
+    ds, X, y = mres["data"]
+    reset_launch_count()   # the phase's training starts
+    t0 = time.perf_counter()
+    bst = lgt.train(dict(MAIN_PARAMS, tree_batch=8), ds,
+                    num_boost_round=SERVE_ROUNDS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = launch_count()   # ... ends here
+    print(f"  train {SERVE_ROUNDS} rounds captured (tree_batch=8) in "
+          f"{train_s:.2f} s = {train_s / SERVE_ROUNDS * 1e3:.2f} ms per "
+          f"iteration; B1 passes counted on the card {launches} = "
+          f"{launches / SERVE_ROUNDS:.1f} per tree", flush=True)
+    if launches <= 0:
+        fail("phase 14: the histogram kernel never launched")
+    obs.reset_for_tests()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "higgs_500.txt")
+        bst.save_model(path)
+        del bst
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        pool = _serve_rows(X, SEED + 14)
+        torch.cuda.synchronize()
+        mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+        t0 = time.perf_counter()
+        eng = ServingEngine(path, params={"device": dev.type, "verbose": -1})
+        setup_s = time.perf_counter() - t0
+        live = eng.model_snapshot()
+        torch.cuda.synchronize()
+        mem_warm = _mem_delta(mem0)
+        caps = eng.captures()
+        print(f"  ServingEngine from the model file: {len(live.trees)} "
+              f"trees, walk depth {live.forests[0].max_depth}, buckets "
+              f"{eng.buckets}; load, stack and warmup {setup_s:.2f} s; "
+              f"captures after warmup {caps} "
+              f"({sum(live.capture_s.values()):.2f} s); "
+              f"device memory above the engine's start {mem_warm}",
+              flush=True)
+        if caps != len(eng.buckets):
+            fail(f"phase 14: {caps} captures at warmup, {len(eng.buckets)} "
+                 f"expected")
+        _bucket_table(eng, pool)
+        host = eng.booster
+        expect = host.predict(pool, force_host_predict=True)
+        expect_250 = host.predict(pool, num_iteration=250,
+                                  force_host_predict=True)
+        X4 = pool[:4096]
+        served = eng.predict(X4)
+        same = bool(np.array_equal(served, expect[:4096]))
+        print(f"  engine.predict of 4096 rows (NaN and zero cells) equal to "
+              f"Booster.predict(force_host_predict=True) bit for bit "
+              f"{same}", flush=True)
+        if not same:
+            fail("phase 14: served predictions differ from the host's")
+        # traffic through the micro-batcher
+        d0, f0, s0 = _serve_counters()
+        with MicroBatcher(eng) as mb:
+            lats, rows, wall, bad = _closed_loop(
+                mb, pool, expect, SERVE_CLIENTS, SERVE_REQUESTS, SEED)
+            d1, f1, s1 = _serve_counters()
+            closed = _print_traffic(
+                f"closed loop ({SERVE_CLIENTS} clients, 1-64 rows)", lats,
+                rows, wall, d1 - d0, (s1 - s0) / max(f1 - f0, 1), bad)
+            rate = len(lats) / wall / 2
+            lats, rows, wall, bad, seen, _ = _open_loop(
+                mb, pool, [expect], rate, SERVE_OPEN_S, SEED + 1)
+            d2, f2, s2 = _serve_counters()
+            opened = _print_traffic(
+                f"open loop (Poisson at {rate:.1f} requests/s)", lats, rows,
+                wall, d2 - d1, (s2 - s1) / max(f2 - f1, 1), bad)
+
+            def reload():
+                t = time.perf_counter()
+                v = eng.reload(path, params={"device": dev.type,
+                                             "verbose": -1},
+                               num_iteration=250)
+                return v, time.perf_counter() - t
+
+            lats, rows, wall, bad, seen, (ver, reload_s) = _open_loop(
+                mb, pool, [expect, expect_250], rate, SERVE_OPEN_S,
+                SEED + 2, during=reload)
+            d3, f3, s3 = _serve_counters()
+            reopened = _print_traffic(
+                "open loop with a hot reload to num_iteration=250", lats,
+                rows, wall, d3 - d2, (s3 - s2) / max(f3 - f2, 1), bad)
+        cand = eng.model_snapshot()
+        torch.cuda.synchronize()
+        mem_reload = _mem_delta(mem0)
+        snap = obs.snapshot()
+        c, g = snap["counters"], snap["gauges"]
+        print(f"  reload in {reload_s:.2f} s under traffic (the candidate's "
+              f"13 captures {sum(cand.capture_s.values()):.2f} s of it): "
+              f"version gauge "
+              f"{g.get('serve.model_version')}, versions seen "
+              f"{sorted(v + 1 for v in seen)}; live model captures "
+              f"{live.captures} (after warmup {caps}), candidate's "
+              f"{cand.captures}; device memory above the engine's start "
+              f"with both models alive {mem_reload}; serve.host_fallback "
+              f"{c.get('serve.host_fallback', 0)}, serve.breaker_trips "
+              f"{c.get('serve.breaker_trips', 0)}, health {eng.health()}",
+              flush=True)
+        if ver != 2 or g.get("serve.model_version") != 2:
+            fail("phase 14: the reload did not reach version 2")
+        if seen != {0, 1}:
+            fail(f"phase 14: the open loop saw versions {sorted(seen)} "
+                 f"across the reload, not both")
+        if live.captures != caps or cand.captures != len(eng.buckets):
+            fail("phase 14: a capture on the live model after its warmup, "
+                 "or a candidate without its own graphs")
+        if c.get("serve.host_fallback", 0) or c.get("serve.breaker_trips",
+                                                    0) or \
+                eng.health() != "ready":
+            fail("phase 14: the engine fell back to the host or degraded")
+        eng.close()
+        del eng, live, cand
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  closed and dropped: device memory above the engine's start "
+              f"{_mem_delta(mem0)}", flush=True)
+    b6 = _b6_breakdown(mres["text"], X, dev)
+    return dict(launches=launches, closed=closed, open=opened,
+                reload=reopened, b6=b6)
+
+
+PHASES = tuple(range(1, 15))
 
 
 def main():
@@ -2279,8 +2732,8 @@ def main():
     dev = torch.device("cuda", 0)
     want = set(PHASES) if not args.phases else \
         {int(p) for p in args.phases.split(",")}
-    # phases 5-7, 12 and 13 run on phase 4's data and booster
-    if want & {5, 6, 7, 12, 13}:
+    # phases 5-7 and 12-14 run on phase 4's data and booster
+    if want & {5, 6, 7, 12, 13, 14}:
         want.add(4)
 
     print("phase 1: card", flush=True)
@@ -2371,6 +2824,14 @@ def main():
               f"against eager", flush=True)
         bres = tree_batch_phase(mres)
 
+    vres = none
+    if 14 in want:
+        print(f"phase 14: serving at full width (2M x 28 binary, 255 "
+              f"leaves, {SERVE_ROUNDS} rounds from a text model file; "
+              f"ServingEngine on the default ladder, MicroBatcher traffic, "
+              f"a hot reload; B6)", flush=True)
+        vres = serving_phase(mres, dev)
+
     if want != set(PHASES):
         print(f"partial run of phases {sorted(want)}: no result lines",
               flush=True)
@@ -2381,7 +2842,7 @@ def main():
           f"phase 7 {cres['launches']}, phase 8 {gres['launches']}, phase 9 "
           f"{rres['launches']}, phase 10 {xres['launches']}, phase 11 "
           f"{eres['launches']}, phase 12 {lres['launches']}, phase 13 "
-          f"{bres['launches']}", flush=True)
+          f"{bres['launches']}, phase 14 {vres['launches']}", flush=True)
 
     full = kres["full"]
     kernels = {"kernels": [{
@@ -2391,7 +2852,7 @@ def main():
         "launches": mres["launches"] + sres["launches"]
         + sres["goss_launches"] + cres["launches"] + gres["launches"]
         + rres["launches"] + xres["launches"] + eres["launches"]
-        + lres["launches"] + bres["launches"],
+        + lres["launches"] + bres["launches"] + vres["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kres.values()),
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
@@ -2407,7 +2868,7 @@ def main():
             "7": cres["launches"], "8": gres["launches"],
             "9": rres["launches"], "10": xres["launches"],
             "11": eres["launches"], "12": lres["launches"],
-            "13": bres["launches"]},
+            "13": bres["launches"], "14": vres["launches"]},
     }]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

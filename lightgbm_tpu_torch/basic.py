@@ -21,6 +21,7 @@ import torch
 from .config import Config, resolve_device
 from .dataset import ConstructedDataset, Metadata, construct_dataset
 from .tree import Tree
+from .utils.cache import LRUCache
 from .utils.log import Log
 
 # rows x trees at and above which Booster.predict walks on the device (the
@@ -280,6 +281,9 @@ class Booster:
         self.config = Config.from_params(self.params)
         self._gbdt = None
         self.trees: List[Tree] = []
+        self._forest_rev = 0                 # bumped whenever trees change
+        # the device walk's stacked forests of recent tree slices
+        self._stacked_cache = LRUCache(capacity=4)
         self.num_model_per_iteration = 1
         self.best_iteration = 0
         self.best_score: Dict = {}
@@ -431,6 +435,7 @@ class Booster:
     def _finalize(self) -> None:
         self.trees = self._prev_trees + [
             t for it_trees in self._gbdt.finalize_model() for t in it_trees]
+        self._forest_rev += 1
         self.init_score_value = self._gbdt.init_score_value
         self._synced_mutations = self._gbdt.mutations_
 
@@ -497,12 +502,51 @@ class Booster:
             return out[0] if K == 1 else np.concatenate(list(out), axis=1)
         N = X.shape[0]
         raw = np.zeros((K, N), dtype=np.float64)
-        if N * max(len(use_trees), 1) >= DEVICE_PREDICT_MIN_WORK:
+        early_stop = bool(kwargs.get("pred_early_stop",
+                                     self.config.pred_early_stop))
+        if early_stop:
+            from .objectives import OBJECTIVE_ALIASES
+            obj = OBJECTIVE_ALIASES.get(self.config.objective,
+                                        self.config.objective)
+            if obj not in ("binary", "multiclass", "multiclassova"):
+                # reference prediction_early_stop.cpp: binary/multiclass only
+                Log.fatal("Early stopping prediction is only supported for "
+                          "binary and multiclass objectives")
+        if early_stop and not raw_score and len(use_trees):
+            # the reference's per-row margin early stop, on the host in
+            # tree order (lightgbm_tpu/basic.py:742-775): a row leaves once
+            # its margin (binary 2|raw|, multiclass top-1 minus top-2)
+            # reaches pred_early_stop_margin at a check every
+            # pred_early_stop_freq iterations
+            freq = max(int(kwargs.get("pred_early_stop_freq",
+                                      self.config.pred_early_stop_freq)), 1)
+            margin_thr = float(kwargs.get("pred_early_stop_margin",
+                                          self.config.pred_early_stop_margin))
+            active = np.ones(N, dtype=bool)
+            for it in range(len(use_trees) // K):
+                rows = np.nonzero(active)[0]
+                if len(rows) == 0:
+                    break
+                for k in range(K):
+                    raw[k, rows] += use_trees[it * K + k].predict(X[rows])
+                if (it + 1) % freq == 0:
+                    if K == 1:
+                        margin = 2.0 * np.abs(raw[0, rows])
+                    else:
+                        part = np.sort(raw[:, rows], axis=0)
+                        margin = part[-1] - part[-2]
+                    active[rows] = margin < margin_thr
+        elif N * max(len(use_trees), 1) >= DEVICE_PREDICT_MIN_WORK \
+                and not kwargs.get("force_host_predict", False):
+            # a forest with a categorical split takes the host route in
+            # forest_predict_raw, said once
             from .ops.predict import forest_predict_raw
+            forests = self._stacked_forests(use_trees, K)
             dev = resolve_device(self.config)
             for k in range(K):
-                raw[k] = forest_predict_raw(use_trees[k::K], X,
-                                            self.num_total_features, dev)
+                raw[k] = forest_predict_raw(
+                    use_trees[k::K], X, self.num_total_features, dev,
+                    forest=forests[k])
         else:
             for i, t in enumerate(use_trees):
                 raw[i % K] += t.predict(X)
@@ -513,6 +557,23 @@ class Booster:
         elif not raw_score:
             raw = self._convert_output(raw)
         return raw[0] if K == 1 else raw.T
+
+    def _stacked_forests(self, use_trees, K: int):
+        """Per-class ``StackedForest``s for the device walk, kept across
+        calls (with their device tensors, ``StackedForest.to``) in a small
+        LRU keyed by the tree slice, as the JAX package does
+        (basic.py:803-827): a serving loop that alternates
+        ``num_iteration`` keeps both entries. ``_forest_rev``, not the
+        length, keys the content: a rollback and retrain land on the same
+        length with other trees."""
+        from .ops.predict import StackedForest
+        key = (self._forest_rev, len(use_trees), K)
+        forests = self._stacked_cache.get(key)
+        if forests is None:
+            forests = [StackedForest(use_trees[k::K], self.num_total_features)
+                       for k in range(K)]
+            self._stacked_cache.put(key, forests)
+        return forests
 
     def _convert_output(self, raw: np.ndarray) -> np.ndarray:
         from .objectives import OBJECTIVE_ALIASES

@@ -13,7 +13,11 @@ its rank by f64 ``searchsorted`` (exact), each node stores its threshold's
 rank, and the device walks every tree with integer compares only — so
 traversal is exact and agrees with the host predictor row for row. Missing
 values follow NumericalDecision (tree.h:218-243) through per-(row,
-feature) NaN / zero masks. Leaf values are summed in f64 on the device.
+feature) NaN / zero masks. The forest walk runs the forest's depth in
+fixed steps and reads nothing on the host, so a batch chunk reads it once
+(its result) and the serving engine captures the walk into CUDA graphs;
+leaf values are summed in f64 on the device (``Booster.predict``) or on
+the host in tree order (the serving engine).
 The rank-encoded walk covers numerical splits; a forest holding a
 categorical split is predicted by the host ``Tree.predict`` instead, said
 once per process, as the JAX package does (predict.py:423-440). A forest
@@ -90,7 +94,16 @@ def add_tree_scores(score: torch.Tensor, tree, leaf_ids: torch.Tensor
 class StackedForest:
     """Host-built stacked arrays for a list of model-space Trees,
     rank-encoded for the integer device walk of their numerical splits
-    (``has_categorical``: the forest goes to the host instead)."""
+    (``has_categorical``: the forest goes to the host instead).
+    ``max_depth`` is the most walk steps any row needs, counted from the
+    child arrays, so the walk runs a fixed number of steps and reads
+    nothing on the host."""
+
+    # elements (rows * features) up to which ``encode_rows`` takes the one
+    # complex searchsorted over the concatenated grid; past it the
+    # per-feature loop's cheaper float compares win (the JAX package's
+    # crossover, predict.py:240-245 there; both branches give equal codes)
+    VEC_ENCODE_MAX_ELEMS = 8192
 
     def __init__(self, trees, num_features: int):
         self.has_categorical = any(
@@ -99,6 +112,7 @@ class StackedForest:
         M = max([t.num_internal for t in trees] + [1])
         L = max([t.num_leaves for t in trees] + [1])
         self.num_trees = T
+        self.max_leaves = L
         # linear leaves: -1-padded (feature, coefficient) tables per leaf
         # for the walk's epilogue; None when every leaf is constant
         self.has_linear = any(t.is_linear for t in trees)
@@ -127,10 +141,13 @@ class StackedForest:
         leaf_value = np.zeros((T, L), np.float64)
         root_is_leaf = np.zeros(T, bool)
 
+        # per-feature threshold grid over the numerical splits of the forest
         grids = [[] for _ in range(num_features)]
         for t in trees:
             for n in range(t.num_internal):
-                grids[int(t.split_feature[n])].append(float(t.threshold[n]))
+                if not (t.decision_type[n] & 1):
+                    grids[int(t.split_feature[n])].append(
+                        float(t.threshold[n]))
         self.grids = [np.array(sorted(set(g)), np.float64) for g in grids]
 
         for i, t in enumerate(trees):
@@ -146,10 +163,12 @@ class StackedForest:
             right[i, :m] = t.right_child[:m]
             leaf_value[i, :t.num_leaves] = t.leaf_value[:t.num_leaves]
             for n in range(m):
-                # with value codes c(v) = #{g < v}, v <= thr <=> c(v) <= rank
-                thr_rank[i, n] = np.searchsorted(
-                    self.grids[int(t.split_feature[n])],
-                    float(t.threshold[n]), side="left")
+                if not (t.decision_type[n] & 1):
+                    # with value codes c(v) = #{g < v}:
+                    # v <= thr <=> c(v) <= rank
+                    thr_rank[i, n] = np.searchsorted(
+                        self.grids[int(t.split_feature[n])],
+                        float(t.threshold[n]), side="left")
         self.split_feature = split_feature
         self.thr_rank = thr_rank
         self.decision = decision
@@ -157,63 +176,176 @@ class StackedForest:
         self.right = right
         self.leaf_value = leaf_value
         self.root_is_leaf = root_is_leaf
+        self.max_depth = _max_depth(left, right, root_is_leaf)
+        # the tree list, for the serving path's linear-leaf epilogue
+        # (``Tree.leaf_outputs``) on the host
+        self._trees = trees
         # rank of 0.0 per feature: what a NaN becomes when the node's
         # missing type is not nan (tree.h:224-227)
         self.zero_rank = np.array(
             [np.searchsorted(g, 0.0, side="left") for g in self.grids]
             or [0], np.int32)
+        # the grids concatenated, keyed (feature, threshold) as complex128:
+        # numpy sorts complex numbers lexicographically with exact float
+        # compares on each part, so one searchsorted over the concatenation
+        # gives every per-feature searchsorted's code (ties and +-inf
+        # included; NaN keys sort past every segment and are patched)
+        self.grid_sizes = np.array([len(g) for g in self.grids], np.int64)
+        self.grid_offsets = np.concatenate(
+            ([0], np.cumsum(self.grid_sizes))).astype(np.int64)
+        total = int(self.grid_offsets[-1]) if len(self.grid_sizes) else 0
+        self._grid_keys = np.empty(total, np.complex128)
+        if total:
+            self._grid_keys.real = np.repeat(
+                np.arange(len(self.grids)), self.grid_sizes)
+            self._grid_keys.imag = np.concatenate(
+                [g for g in self.grids if len(g)])
+        self._feat_iota = np.arange(num_features, dtype=np.float64)
+        self._device_tensors = {}
+
+    @property
+    def leaf_value64(self) -> np.ndarray:
+        """The f64 leaf values ``[T, L]`` the serving path adds on the host
+        in tree order (``leaf_value`` is already f64 here)."""
+        return self.leaf_value
 
     def encode_rows(self, X: np.ndarray):
-        """Raw ``[N, F]`` f64 -> (rank codes i32, NaN mask, zero mask)."""
+        """Raw ``[N, F]`` f64 -> (rank codes i32, NaN mask, zero mask).
+
+        c(v) = #{grid thresholds < v} (f64 on the host), so the device's
+        integer compare c(v) <= rank(thr) is the f64 compare v <= thr,
+        ties included. Small batches take the one searchsorted over the
+        concatenated grid, large ones the per-feature loop
+        (``VEC_ENCODE_MAX_ELEMS``); both give equal codes."""
         N, F = X.shape
         is_nan = np.isnan(X)
+        # missing_type zero treats NaN as 0 first (tree.h:224-227)
         is_zero = is_nan | (np.abs(np.where(is_nan, 0.0, X)) <= K_ZERO_RANGE)
+        if N * F <= self.VEC_ENCODE_MAX_ELEMS and self._grid_keys.size:
+            codes = self._encode_vectorized(X, is_nan)
+        else:
+            codes = self._encode_loop(X)
+        return codes, is_nan, is_zero
+
+    def _encode_loop(self, X: np.ndarray) -> np.ndarray:
+        """Per-feature searchsorted: the reference the vectorised branch is
+        held to, and the large-batch branch."""
+        N, F = X.shape
         codes = np.zeros((N, F), np.int32)
         for f, grid in enumerate(self.grids):
             if len(grid):
                 codes[:, f] = np.searchsorted(grid, X[:, f], side="left")
-        return codes, is_nan, is_zero
+        return codes
+
+    def _encode_vectorized(self, X: np.ndarray, is_nan: np.ndarray
+                           ) -> np.ndarray:
+        """One searchsorted over the concatenated (feature, threshold)
+        grid: the complex compare selects the feature's segment, then
+        compares the thresholds in f64."""
+        keys = np.empty(X.shape, np.complex128)
+        keys.real = self._feat_iota[None, :]
+        keys.imag = X
+        flat = np.searchsorted(self._grid_keys, keys.ravel(), side="left")
+        codes = (flat.reshape(X.shape)
+                 - self.grid_offsets[:-1][None, :]).astype(np.int32)
+        if is_nan.any():
+            # a NaN key sorts past every segment; the loop's
+            # searchsorted(grid, nan) is len(grid)
+            codes[is_nan] = np.broadcast_to(
+                self.grid_sizes[None, :].astype(np.int32), X.shape)[is_nan]
+        return codes
 
     def to(self, device):
-        """The stacked arrays as device tensors, in walk argument order."""
-        return [torch.as_tensor(a, device=device) for a in
-                (self.split_feature, self.thr_rank, self.decision, self.left,
-                 self.right, self.root_is_leaf, self.zero_rank)]
+        """The stacked arrays as device tensors, in walk argument order
+        (uploaded once per device and kept)."""
+        return self._on(device)[0]
+
+    def leaf_tables(self, device):
+        """``[leaf_value]`` f64 on ``device``, and for a linear forest the
+        f32 leaf values, constants, coefficients and features of the walk's
+        epilogue after it (uploaded once per device and kept)."""
+        return self._on(device)[1]
+
+    def _on(self, device):
+        key = str(device)
+        got = self._device_tensors.get(key)
+        if got is None:
+            walk = [torch.as_tensor(a, device=device) for a in
+                    (self.split_feature, self.thr_rank, self.decision,
+                     self.left, self.right, self.root_is_leaf,
+                     self.zero_rank)]
+            leaf = [self.leaf_value]
+            if self.has_linear:
+                leaf += [self.leaf_value.astype(np.float32),
+                         self.leaf_const32, self.leaf_coeff32,
+                         self.leaf_feat]
+            got = self._device_tensors[key] = (
+                walk, [torch.as_tensor(a, device=device) for a in leaf])
+        return got
+
+
+def _max_depth(left: np.ndarray, right: np.ndarray,
+               root_is_leaf: np.ndarray) -> int:
+    """The most internal nodes on any root-to-leaf path of a stacked
+    forest: the walk steps its deepest row takes (0 when every tree is a
+    leaf). Counted level by level over all trees at once; a child index
+    below 0 is a leaf."""
+    M = left.shape[1]
+    ti = np.nonzero(~root_is_leaf)[0]
+    ni = np.zeros(len(ti), np.int64)
+    depth = 0
+    while ti.size:
+        depth += 1
+        if depth > M:
+            raise ValueError("forest child arrays hold a cycle")
+        lc, rc = left[ti, ni], right[ti, ni]
+        ti = np.concatenate([ti[lc >= 0], ti[rc >= 0]])
+        ni = np.concatenate([lc[lc >= 0], rc[rc >= 0]]).astype(np.int64)
+    return depth
 
 
 def forest_walk_leaves(split_feature, thr_rank, decision, left, right,
-                       root_is_leaf, zero_rank, codes, is_nan, is_zero
-                       ) -> torch.Tensor:
-    """Leaf index ``[N, T]`` for every (row, tree); integer-exact. All T
-    trees advance together, one frontier step per tree level."""
+                       root_is_leaf, zero_rank, codes, is_nan, is_zero,
+                       depth: int) -> torch.Tensor:
+    """Leaf index ``[N, T]`` int32 for every (row, tree); integer-exact.
+
+    All T trees advance together, one frontier step per tree level, for
+    exactly ``depth`` steps (``StackedForest.max_depth``): a row at a leaf
+    is left as it is by a later step, so the leaves are those of the JAX
+    package's ``while_loop`` (predict.py:300-346 there), and nothing is
+    read on the host. The steps are fixed-shape device ops, so the
+    serving engine captures them into one CUDA graph per batch bucket."""
     T, M = split_feature.shape
     N = codes.shape[0]
-    t_iota = torch.arange(T, device=codes.device)[None, :]          # [1, T]
-    cur = torch.where(root_is_leaf[None, :], -1, 0).to(torch.int64)
-    cur = cur.expand(N, T).contiguous()
-    decision = decision.to(torch.int32)
-    for _ in range(M + 1):                       # depth <= internal nodes
+    # the node tables flattened, indexed by tree * M + node
+    base = torch.arange(T, device=codes.device)[None, :] * M        # [1, T]
+    sf = split_feature.reshape(-1).long()
+    thr = thr_rank.reshape(-1)
+    dt = decision.reshape(-1).to(torch.int32)
+    lc = left.reshape(-1).long()
+    rc = right.reshape(-1).long()
+    cur = torch.where(root_is_leaf, -1, 0).long()[None, :].expand(N, T)
+    for _ in range(depth):
         at_node = cur >= 0
-        if not bool(at_node.any()):
-            break
-        nid = torch.clamp(cur, min=0)
-        f = split_feature[t_iota, nid].long()                       # [N, T]
-        node_dt = decision[t_iota, nid]
+        idx = base + torch.clamp(cur, min=0)                        # [N, T]
+        f = sf[idx]
+        node_dt = dt[idx]
         v_rank = torch.gather(codes, 1, f)
         v_nan = torch.gather(is_nan, 1, f)
         v_zero = torch.gather(is_zero, 1, f)
         missing_type = (node_dt >> 2) & 3
         default_left = (node_dt & 2) != 0
+        # NaN converts to 0 unless missing_type is nan (tree.h:224-227);
+        # in rank space 0.0 is the feature's zero_rank
         v_rank_eff = torch.where(v_nan & (missing_type != 2),
                                  zero_rank[f], v_rank)
         is_default = torch.where(missing_type == 1, v_zero,
                                  (missing_type == 2) & v_nan)
         go_left = torch.where(is_default, default_left,
-                              v_rank_eff <= thr_rank[t_iota, nid])
-        child = torch.where(go_left, left[t_iota, nid],
-                            right[t_iota, nid]).long()
+                              v_rank_eff <= thr[idx])
+        child = torch.where(go_left, lc[idx], rc[idx])
         cur = torch.where(at_node, child, cur)
-    return -cur - 1
+    return (-cur - 1).to(torch.int32)
 
 
 def forest_walk_linear(leaves, leaf_value32, leaf_const, leaf_coeff,
@@ -242,15 +374,19 @@ def forest_walk_linear(leaves, leaf_value32, leaf_const, leaf_coeff,
 
 
 def forest_predict_raw(trees, X: np.ndarray, num_features: int, device,
-                       chunk_rows: int = 1 << 16) -> np.ndarray:
+                       chunk_rows: int = 1 << 16,
+                       forest: "StackedForest" = None) -> np.ndarray:
     """Raw-score batch prediction of a forest on ``device``: f64 ``[N]``.
 
     Rows are rank-encoded on the host in chunks, walked on the device, and
     their leaf values summed over trees in f64 there (a linear forest: its
-    leaf outputs in f32, as the JAX package's walk). A forest holding a
+    leaf outputs in f32, as the JAX package's walk); each chunk reads the
+    host once, for its result. Pass a prebuilt ``forest`` (the booster's
+    cache) to stack and upload it once across calls. A forest holding a
     categorical split is predicted by the host ``Tree.predict``, as in the
     JAX package (predict.py:423-440)."""
-    forest = StackedForest(trees, num_features)
+    if forest is None:
+        forest = StackedForest(trees, num_features)
     if forest.has_categorical:
         if not _CATEGORICAL_HOST_ROUTE["logged"]:
             _CATEGORICAL_HOST_ROUTE["logged"] = True
@@ -262,20 +398,17 @@ def forest_predict_raw(trees, X: np.ndarray, num_features: int, device,
             out += t.predict(Xh)
         return out
     dev = forest.to(device)
-    leaf_value = torch.as_tensor(forest.leaf_value, device=device)
+    leaf_value, *lin = forest.leaf_tables(device)
     t_iota = torch.arange(forest.num_trees, device=device)[None, :]
-    if forest.has_linear:
-        lin = [torch.as_tensor(a, device=device) for a in (
-            forest.leaf_value.astype(np.float32), forest.leaf_const32,
-            forest.leaf_coeff32, forest.leaf_feat)]
     out = np.zeros(X.shape[0], np.float64)
     for lo in range(0, X.shape[0], chunk_rows):
         chunk = np.asarray(X[lo:lo + chunk_rows], np.float64)
         codes, is_nan, is_zero = forest.encode_rows(chunk)
+        # uploads that do not wait for the card: the chunk's one host read
+        # is its result
         leaves = forest_walk_leaves(
-            *dev, torch.as_tensor(codes, device=device),
-            torch.as_tensor(is_nan, device=device),
-            torch.as_tensor(is_zero, device=device))
+            *dev, *(torch.from_numpy(a).to(device, non_blocking=True)
+                    for a in (codes, is_nan, is_zero)), forest.max_depth)
         if forest.has_linear:
             # the epilogue reads raw f32 values, NaN set to 0 beside the
             # missing plane (predict.py:470-477 there)
@@ -283,8 +416,9 @@ def forest_predict_raw(trees, X: np.ndarray, num_features: int, device,
             raw_nan = np.isnan(raw32)
             np.nan_to_num(raw32, copy=False, nan=0.0)
             outs = forest_walk_linear(
-                leaves, *lin, torch.as_tensor(raw32, device=device),
-                torch.as_tensor(raw_nan, device=device))
+                leaves, *lin, *(torch.from_numpy(a).to(device,
+                                                      non_blocking=True)
+                                for a in (raw32, raw_nan)))
             out[lo:lo + chunk_rows] = outs.sum(dim=1).cpu().numpy()
         else:
             out[lo:lo + chunk_rows] = leaf_value[t_iota, leaves].sum(

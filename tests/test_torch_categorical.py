@@ -49,6 +49,12 @@ HERE = os.path.dirname(__file__)
 BASE = {"num_leaves": 15, "max_bin": 63, "learning_rate": 0.1,
         "feature_fraction": 1.0, "bagging_freq": 0, "min_data_in_leaf": 50,
         "min_sum_hessian_in_leaf": 5.0, "verbose": -1, "tpu_wave_size": 1}
+
+# one intra-op thread: the test workers share the machine's cores, and
+# a torch pool of one thread per core on every worker oversubscribes
+# them many times over (the port's small CPU ops then wait on it)
+torch.set_num_threads(1)
+
 HYPER = dict(lambda_l1=0.0, lambda_l2=0.0, min_data_in_leaf=5.0,
              min_sum_hessian_in_leaf=1e-3, min_gain_to_split=0.0,
              cat_smooth=10.0, cat_l2=10.0, max_cat_threshold=32,

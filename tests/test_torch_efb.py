@@ -48,6 +48,11 @@ BASE = dict(objective="regression", boost_from_average=False, num_leaves=15,
             min_data_in_leaf=5, learning_rate=0.5, device="cpu", verbose=-1,
             metric="none")
 
+# one intra-op thread: the test workers share the machine's cores, and
+# a torch pool of one thread per core on every worker oversubscribes
+# them many times over (the port's small CPU ops then wait on it)
+torch.set_num_threads(1)
+
 
 # ------------------------------------------------------------ data builders
 

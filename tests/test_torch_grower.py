@@ -25,6 +25,11 @@ from lightgbm_tpu_torch.grower import GrowerSpec, grow_tree
 from lightgbm_tpu_torch.interop import (binned_dataset, to_numpy, to_torch,
                                         tree_arrays_numpy, tree_arrays_torch)
 
+# one intra-op thread: the test workers share the machine's cores, and
+# a torch pool of one thread per core on every worker oversubscribes
+# them many times over (the port's small CPU ops then wait on it)
+torch.set_num_threads(1)
+
 N, F, L = 2048, 6, 31
 
 

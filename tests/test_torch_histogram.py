@@ -44,6 +44,11 @@ from lightgbm_tpu_torch.ops.histogram import (build_histograms,
                                               histogram_scales, pass_positions,
                                               root_sums)
 
+# one intra-op thread: the test workers share the machine's cores, and
+# a torch pool of one thread per core on every worker oversubscribes
+# them many times over (the port's small CPU ops then wait on it)
+torch.set_num_threads(1)
+
 N, F, B, S, LEAVES = 4096, 6, 32, 4, 9
 
 

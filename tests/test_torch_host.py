@@ -34,6 +34,11 @@ from lightgbm_tpu_torch.interop import (binned_dataset, booster_from_model,
                                         port_mappers)
 from test_reference_models import EXAMPLES
 
+# one intra-op thread: the test workers share the machine's cores, and
+# a torch pool of one thread per core on every worker oversubscribes
+# them many times over (the port's small CPU ops then wait on it)
+torch.set_num_threads(1)
+
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 
 

@@ -39,6 +39,11 @@ PARAMS = dict(objective="regression", num_leaves=15, linear_tree=True,
               linear_lambda=0.01, min_data_in_leaf=20, device="cpu",
               verbose=-1)
 
+# one intra-op thread: the test workers share the machine's cores, and
+# a torch pool of one thread per core on every worker oversubscribes
+# them many times over (the port's small CPU ops then wait on it)
+torch.set_num_threads(1)
+
 
 def _piecewise(n=2000, f=6, seed=17):
     """``bench.py``'s ``_piecewise_linear_data``: the slope switches with

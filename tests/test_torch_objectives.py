@@ -39,6 +39,11 @@ from lightgbm_tpu.objectives import create_objective as jax_create
 from lightgbm_tpu_torch.dataset import Metadata
 from lightgbm_tpu_torch.objectives import create_objective
 
+# one intra-op thread: the test workers share the machine's cores, and
+# a torch pool of one thread per core on every worker oversubscribes
+# them many times over (the port's small CPU ops then wait on it)
+torch.set_num_threads(1)
+
 EPS32 = float(np.finfo(np.float32).eps)
 N = 4096               # a multiple of the JAX package's row chunk: no padding
 # (name, bit-equal g, bit-equal h, k) — see the module docstring

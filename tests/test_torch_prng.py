@@ -11,11 +11,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from lightgbm_tpu_torch.interop import prng_key_from_jax
 from lightgbm_tpu_torch.utils import prng
+
+# one intra-op thread: the test workers share the machine's cores, and
+# a torch pool of one thread per core on every worker oversubscribes
+# them many times over (the port's small CPU ops then wait on it)
+torch.set_num_threads(1)
 
 SEEDS = [0, 1, 3, 2**31 - 1, -1, -12345]
 DATA = [0, 1, 7, 1000, 2**31 - 1]

@@ -44,6 +44,11 @@ E2E = {"num_leaves": 15, "max_bin": 63, "learning_rate": 0.1,
        "min_data_in_leaf": 20, "min_sum_hessian_in_leaf": 1e-3,
        "verbose": -1, "tpu_wave_size": 1}
 
+# one intra-op thread: the test workers share the machine's cores, and
+# a torch pool of one thread per core on every worker oversubscribes
+# them many times over (the port's small CPU ops then wait on it)
+torch.set_num_threads(1)
+
 
 def _queries(seed=1):
     """Query sizes covering every bucket 8..2048; labels 0-4 with one query

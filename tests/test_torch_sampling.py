@@ -25,6 +25,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
@@ -37,6 +38,12 @@ HERE = os.path.dirname(__file__)
 BASE = {"num_leaves": 15, "max_bin": 63, "learning_rate": 0.1,
         "min_data_in_leaf": 50, "min_sum_hessian_in_leaf": 5.0,
         "verbose": -1, "tpu_wave_size": 1}
+
+# one intra-op thread: the test workers share the machine's cores, and
+# a torch pool of one thread per core on every worker oversubscribes
+# them many times over (the port's small CPU ops then wait on it)
+torch.set_num_threads(1)
+
 ROUNDS = 8
 
 _DATA = {}

@@ -26,6 +26,11 @@ from lightgbm_tpu_torch.ops.split_finder import (find_best_splits_numerical,
                                                  leaf_split_gain,
                                                  prefix_sums)
 
+# one intra-op thread: the test workers share the machine's cores, and
+# a torch pool of one thread per core on every worker oversubscribes
+# them many times over (the port's small CPU ops then wait on it)
+torch.set_num_threads(1)
+
 S, B = 5, 16
 # per feature: (num_bins, missing_code, default_bin)
 FEATURES = [(16, 0, 0), (12, 2, 0), (10, 1, 3), (2, 2, 0), (16, 0, 0),

@@ -25,6 +25,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
@@ -36,6 +37,11 @@ ROOT = os.path.dirname(HERE)
 BASE = {"num_leaves": 15, "max_bin": 63, "learning_rate": 0.1,
         "feature_fraction": 1.0, "bagging_freq": 0, "min_data_in_leaf": 50,
         "min_sum_hessian_in_leaf": 5.0, "verbose": -1, "tpu_wave_size": 1}
+
+# one intra-op thread: the test workers share the machine's cores, and
+# a torch pool of one thread per core on every worker oversubscribes
+# them many times over (the port's small CPU ops then wait on it)
+torch.set_num_threads(1)
 
 _NAN_DET = {}
 

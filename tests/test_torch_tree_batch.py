@@ -39,6 +39,11 @@ from lightgbm_tpu_torch.ops.histogram import (fixed_point_scale,
                                               pass_positions)
 from lightgbm_tpu_torch.ops.predict import leaves_from_binned
 
+# one intra-op thread: the test workers share the machine's cores, and
+# a torch pool of one thread per core on every worker oversubscribes
+# them many times over (the port's small CPU ops then wait on it)
+torch.set_num_threads(1)
+
 
 def _make_binary(n=1500, f=10, seed=7):
     rng = np.random.RandomState(seed)

@@ -33,6 +33,12 @@ BASE = {"num_leaves": 15, "max_bin": 63, "learning_rate": 0.3,
         "verbose": -1, "tpu_wave_size": 1}
 METRICS = {"binary": ["auc", "binary_logloss", "binary_error"],
            "regression": ["l2", "l1"]}
+
+# one intra-op thread: the test workers share the machine's cores, and
+# a torch pool of one thread per core on every worker oversubscribes
+# them many times over (the port's small CPU ops then wait on it)
+torch.set_num_threads(1)
+
 NT = 2000
 
 _DATA = {}
