@@ -166,8 +166,31 @@ Phases (any failure exits non-zero and prints no result line):
    ``Booster.predict`` of 2M rows x 10 trees (phase 4's model) into host
    encode, H2D, walk and sum, with one host read per 65,536-row chunk.
 
+15. device ingest, checkpoint/resume and ``nan_policy`` at the main
+   path's width (phase 4's data and parameters). (a) ``tpu_ingest=device``
+   against ``host``: the placed ``Xb`` ``torch.equal``, again with prefetch
+   off (every chunk a counted stall), and on a 20,000-row cut with a
+   categorical column; the ingest report (rows/s, chunks, chunk rows,
+   stalls, stall fraction, H2D MB, ``compiles`` 1), the construct time
+   split into mapper finding and binning for host and device, and the bin
+   step (B7) alone on one chunk in device ms beside its bytes bound. (b)
+   8 captured rounds at ``tree_batch=8`` with phase 13's valid set and AUC
+   every 8, ``checkpoint_dir`` + ``checkpoint_interval=8``, then a fresh
+   ``Dataset`` and ``Booster`` resumed (``resume_from="auto"``) to round
+   16: model text byte-equal to phase 13's K=8 arm; save ms, file MB, load
+   and restore ms, the first resumed (eager) iteration's ms. (c)
+   ``nan_policy``: ``clip`` captured against eager on L2 with 0.01% of the
+   labels +inf (equal model text, the clip warning logged); ``skip_iter``
+   captured with every label +inf (``NonFiniteError`` "consecutive", the
+   score buffer bit-equal to its value before training); ``raise`` through
+   a ``fobj`` poisoned at iteration 2; 1.00 host syncs per replayed tree on
+   the captured arms. Dense f32 data of 65,536 rows or more (the main
+   path's, phase 9's) is binned on the card under the default
+   ``tpu_ingest=auto`` in every phase, so phase 4's and phase 9's ``host
+   binning`` lines time the mapper finding only.
+
 ``--phases 3,11`` runs only the listed phases (and those they need: 5-7
-and 12-14 add phase 4); such a partial run prints no result lines and
+and 12-15 add phase 4); such a partial run prints no result lines and
 exits 4.
 
 The card's line comes before the last two lines; the line before the last
@@ -2270,7 +2293,8 @@ def tree_batch_phase(mres):
     dm.construct(lgt.Config.from_params(mparams))
     _eager_and_captured(f"multiclass ({NUM_CLASS} classes, 3 rounds)",
                         mparams, dm, 3)
-    return dict(launches=launches, stats=stats)
+    return dict(launches=launches, stats=stats,
+                k8_text=texts["captured K=8"])
 
 
 SERVE_ROUNDS = 500                 # the reference GPU benchmark's HIGGS run
@@ -2705,7 +2729,364 @@ def serving_phase(mres, dev):
                 reload=reopened, b6=b6)
 
 
-PHASES = tuple(range(1, 15))
+INGEST_SMALL = 20_000              # phase 15's categorical cut
+CK_ROUNDS = 16                     # phase 15's resumed run: phase 13's K=8
+POISON_FRAC = 1e-4                 # phase 15's share of +inf labels
+
+
+def _timed(cls, name, store):
+    """Wrap ``cls.name`` so that each call's wall seconds (the card
+    synchronised before and after) are appended to ``store``; returns the
+    undo."""
+    import torch
+    orig = getattr(cls, name)
+
+    def wrapped(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **k)
+        finally:
+            torch.cuda.synchronize()
+            store.append(time.perf_counter() - t0)
+    setattr(cls, name, wrapped)
+    return lambda: setattr(cls, name, orig)
+
+
+def _ingest_report_line(label, rep):
+    print(f"  {label}: {rep['rows']} rows in {rep['seconds']:.3f} s = "
+          f"{rep['rows_per_s'] / 1e6:.2f} Mrow/s; {rep['n_chunks']} chunks "
+          f"of {rep['chunk_rows']} rows; stalls {rep['stalls']} (stall "
+          f"fraction {rep['stall_fraction']:.3f}, prefetch hits "
+          f"{rep['prefetch_hits']}); H2D {rep['bytes_h2d'] / 1e6:.1f} MB; "
+          f"compiles {rep['compiles']}", flush=True)
+
+
+def ingest_checks(mres, dev):
+    """Phase 15 (a): device ingest against host binning at the main
+    path's data, with prefetch on and off, and a categorical cut."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.dataset import bin_dense_host
+    from lightgbm_tpu_torch.ops.ingest import (DeviceIngestor,
+                                               device_ingest_blocker)
+    _, X, y = mres["data"]
+    params = dict(MAIN_PARAMS)
+
+    def booster(ingest, Xs, ys, extra=None, cats="auto"):
+        p = dict(params, tpu_ingest=ingest, **(extra or {}))
+        ds = lgt.Dataset(Xs, label=ys, params=p, categorical_feature=cats)
+        t0 = time.perf_counter()
+        ds.construct(lgt.Config.from_params(p))
+        t1 = time.perf_counter()
+        bst = lgt.Booster(params=p, train_set=ds)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return bst, ds, t1 - t0, t2 - t1
+
+    bh, dsh, host_construct_s, _ = booster("host", X, y)
+    bd, dsd, find_s, setup_s = booster("device", X, y)
+    cd = dsd.constructed
+    X64 = dsd.raw_data
+    t0 = time.perf_counter()
+    bin_dense_host(X64, cd.mappers, np.asarray(cd.real_feature_idx,
+                                               np.int64), cd.num_data,
+                   cd.code_dtype)
+    host_bin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    device_ingest_blocker(X64, cd.mappers)       # the f32-lossless check
+    check_s = time.perf_counter() - t0
+    rep = bd._gbdt._ingest_report
+    same = torch.equal(bh._gbdt.Xb, bd._gbdt.Xb)
+    print(f"  construct split, host: mapper finding "
+          f"{host_construct_s - host_bin_s:.2f} s + host binning "
+          f"{host_bin_s:.2f} s (construct with tpu_ingest=host "
+          f"{host_construct_s:.2f} s); device: mapper finding "
+          f"{find_s - check_s:.2f} s + eligibility check {check_s:.2f} s "
+          f"(construct {find_s:.2f} s) + device ingest "
+          f"{rep['seconds']:.3f} s (booster set-up {setup_s:.2f} s)",
+          flush=True)
+    _ingest_report_line("tpu_ingest=device, 2M x 28 f32", rep)
+    print(f"  placed Xb equal to tpu_ingest=host (torch.equal, "
+          f"{tuple(bd._gbdt.Xb.shape)} {bd._gbdt.Xb.dtype}) {same}",
+          flush=True)
+    if not same or rep is None or rep["compiles"] != 1:
+        fail("device ingest: the codes differ from host binning")
+    del bd
+    bn, _, _, _ = booster("device", X, y, {"tpu_ingest_prefetch": 0})
+    rep0 = bn._gbdt._ingest_report
+    _ingest_report_line("prefetch off (tpu_ingest_prefetch=0)", rep0)
+    same0 = torch.equal(bh._gbdt.Xb, bn._gbdt.Xb)
+    print(f"  prefetch off: placed Xb equal to host {same0}", flush=True)
+    if not same0 or rep0["stalls"] != rep0["n_chunks"]:
+        fail("device ingest with prefetch off differs from host binning")
+    del bn
+
+    # B7's bin step alone on one chunk of the main path's shape
+    C = cd.num_features
+    R = rep["chunk_rows"]
+    ing = DeviceIngestor(cd.mappers, num_cols=C, n_rows=cd.num_data,
+                         out_dtype=cd.code_dtype, device=dev)
+    chunk = torch.as_tensor(np.ascontiguousarray(
+        X[:R, cd.real_feature_idx], np.float32), device=dev)
+    ms = cuda_time_ms(lambda: ing.bin_chunk(chunk, 0), 20)
+    bound = R * C * (4 + 1) / HBM_BYTES_PER_S * 1e3
+    print(f"  B7 bin step, one {R} x {C} chunk: {ms:.4f} ms of device time "
+          f"({R / ms / 1e3:.1f} Mrow/s), {ing.k_steps} lower-bound steps; "
+          f"bytes bound {bound:.5f} ms", flush=True)
+
+    # a categorical cut below the auto threshold, asked for explicitly
+    Xc = np.array(X[:INGEST_SMALL], np.float32)
+    Xc[:, 5] = np.floor(np.abs(Xc[:, 5]) * 4.0)
+    Xc[::97, 5] = -1.0
+    yc = y[:INGEST_SMALL]
+    ch, _, _, _ = booster("host", Xc, yc, cats=[5])
+    cdev, _, _, _ = booster("device", Xc, yc, cats=[5])
+    samec = torch.equal(ch._gbdt.Xb, cdev._gbdt.Xb)
+    print(f"  {INGEST_SMALL} rows with a categorical column "
+          f"({int(Xc[:, 5].max()) + 1} categories, negatives): device codes "
+          f"equal to host {samec}, deferred "
+          f"{cdev._gbdt._ingest_report is not None}", flush=True)
+    if not samec or cdev._gbdt._ingest_report is None:
+        fail("device ingest of the categorical cut differs from host")
+    del bh
+    torch.cuda.empty_cache()
+    return dict(rep=rep, rep0=rep0, chunk_ms=ms, chunk_bound=bound,
+                find_s=find_s, check_s=check_s, host_bin_s=host_bin_s,
+                host_construct_s=host_construct_s)
+
+
+def checkpoint_checks(mres, k8_text):
+    """Phase 15 (b): 8 captured rounds at tree_batch=8 with a snapshot at
+    8, then a fresh Dataset and Booster resumed to round 16: phase 13's K=8
+    model text."""
+    import shutil
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.robustness.checkpoint import (CheckpointManager,
+                                                          verify_checkpoint)
+    _, X, y = mres["data"]
+    Xv, yv = higgs_like(NV, SEED + 1)
+    params = dict(MAIN_PARAMS, metric="auc", metric_freq=8, tree_batch=8)
+    ck = os.path.join(HERE, "lightgbm_tpu_torch", "build", "phase15_ck")
+    shutil.rmtree(ck, ignore_errors=True)
+    ckp = dict(params, checkpoint_dir=ck, checkpoint_interval=8)
+    saves, loads, eager = [], [], []
+    undo = [_timed(lgt.Booster, "save_checkpoint", saves),
+            _timed(lgt.Booster, "resume", loads)]
+    try:
+        def run(rounds, **kw):
+            ds = lgt.Dataset(X, label=y)
+            dv = lgt.Dataset(Xv, label=yv, reference=ds)
+            ev = {}
+            bst = lgt.train(ckp, ds, num_boost_round=rounds, valid_sets=[dv],
+                            valid_names=["valid"], evals_result=ev,
+                            verbose_eval=False, keep_training_booster=True,
+                            **kw)
+            torch.cuda.synchronize()
+            return bst, ev
+        first, _ = run(8)
+        if first._gbdt._graphs is None:
+            fail("checkpoint: the first run replayed no tree")
+        path = CheckpointManager(ck).latest()
+        ok, detail = verify_checkpoint(path)
+        mb = os.path.getsize(path) / 1e6
+        del first
+        undo.append(_timed(GBDT, "_eager_iteration", eager))
+        resumed, ev = run(CK_ROUNDS, resume_from="auto")
+        text = resumed.model_to_string()
+        # the first 10 trees' text: phase 4's up to the feature importances
+        head = resumed.model_to_string(num_iteration=10).split(
+            "feature importances:")[0] == \
+            mres["text"].split("feature importances:")[0]
+        r = resumed._gbdt._graphs
+        replayed = r.trees if r is not None else 0
+    finally:
+        for u in undo:
+            u()
+        shutil.rmtree(ck, ignore_errors=True)
+    same = text == k8_text
+    print(f"  snapshot at iteration 8: save {saves[0] * 1e3:.1f} ms, file "
+          f"{mb:.2f} MB, verify {ok} ({detail}); load + restore "
+          f"{loads[0] * 1e3:.1f} ms; first resumed iteration (eager) "
+          f"{eager[0] * 1e3:.1f} ms; then {replayed} trees replayed; valid "
+          f"AUC at 16 {ev['valid']['auc']}", flush=True)
+    print(f"  resumed to {CK_ROUNDS} rounds: sha256 {text_digest(text)}, "
+          f"byte-equal to phase 13's K=8 arm {same}; its first 10 trees "
+          f"phase 4's (sha256 {mres['digest']}) {head}", flush=True)
+    # the resumed run writes its own snapshot at 16
+    if not ok or len(saves) != 2 or len(loads) != 1 or not same or not head:
+        fail("checkpoint/resume: the resumed model differs from phase 13's")
+    if replayed != CK_ROUNDS - 8 - 1:
+        fail(f"checkpoint/resume: {replayed} trees replayed after resume")
+    return dict(save_ms=saves[0] * 1e3, mb=mb, load_ms=loads[0] * 1e3,
+                eager_ms=eager[0] * 1e3)
+
+
+class _Records:
+    """Warnings of the port's logger, collected."""
+
+    def __init__(self):
+        import logging
+        self.logger = logging.getLogger("lightgbm_tpu_torch")
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = lambda rec: self.messages.append(
+            rec.getMessage())
+        self.messages = []
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self.messages
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def nan_policy_checks(mres):
+    """Phase 15 (c): clip captured against eager on +inf labels;
+    skip_iter captured with every label poisoned; raise through a poisoned
+    fobj."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.robustness.numeric import NonFiniteError
+    _, X, _ = mres["data"]
+    rng = np.random.default_rng(SEED + 15)
+    yr = (2.0 * np.nan_to_num(X[:, 0]) + X[:, 3]).astype(np.float64)
+    yr[rng.choice(N, int(N * POISON_FRAC), replace=False)] = np.inf
+    params = dict(MAIN_PARAMS, objective="regression", metric="none",
+                  boost_from_average=False, verbose=0, tree_batch=8)
+    ds = lgt.Dataset(X, label=yr)
+    ds.construct(lgt.Config.from_params(params))
+    texts, syncs = {}, {}
+    for capture in (False, True):
+        GBDT._capture = capture
+        try:
+            with _Records() as msgs:
+                bst = lgt.train(dict(params, nan_policy="clip"), ds,
+                                num_boost_round=8, keep_training_booster=True)
+        finally:
+            GBDT._capture = True
+        arm = "captured" if capture else "eager"
+        texts[arm] = bst.model_to_string()
+        clipped = sum("nan_policy=clip" in m for m in msgs)
+        r = bst._gbdt._graphs
+        if capture:
+            if r is None or r.trees == 0:
+                fail("nan_policy=clip: the captured run replayed no tree")
+            syncs["clip"] = r.syncs / r.trees
+        print(f"  clip, {arm}: {int(N * POISON_FRAC)} labels +inf, 8 rounds, "
+              f"{len(bst.trees)} trees, clip warnings {clipped}"
+              + (f", host syncs per replayed tree {syncs['clip']:.2f}"
+                 if capture else ""), flush=True)
+        if clipped == 0:
+            fail("nan_policy=clip: no clip warning was logged")
+        del bst
+    same = texts["eager"] == texts["captured"]
+    print(f"  clip: captured model text identical to eager {same}",
+          flush=True)
+    if not same:
+        fail("nan_policy=clip: captured and eager models differ")
+
+    ds.set_label(np.full(N, np.inf))
+    bst = lgt.Booster(params=dict(params, nan_policy="skip_iter"),
+                      train_set=ds)
+    gb = bst._gbdt
+    before = gb.score.clone()
+    err = None
+    try:
+        for _ in range(4):
+            gb.train_batch(8)
+    except NonFiniteError as e:
+        err = str(e)
+    r = gb._graphs
+    syncs["skip_iter"] = r.syncs / r.trees if r is not None and r.trees \
+        else float("nan")
+    kept = torch.equal(gb.score, before)
+    print(f"  skip_iter, every label +inf, captured at tree_batch=8: "
+          f"NonFiniteError after {gb.iter_} iterations "
+          f"({'consecutive' in (err or '')}), models kept {len(gb.models)}, "
+          f"score buffer bit-equal to its value before training {kept}, "
+          f"host syncs per replayed tree {syncs['skip_iter']:.2f}",
+          flush=True)
+    if err is None or "consecutive" not in err or not kept or gb.models:
+        fail(f"nan_policy=skip_iter: {err!r}, score kept {kept}")
+    if r is None or r.trees == 0:
+        fail("nan_policy=skip_iter: the captured run replayed no tree")
+    del bst, gb
+
+    yc = np.asarray(yr, np.float32).copy()
+    yc[~np.isfinite(yc)] = 0.0
+    calls = {"n": 0}
+
+    def poisoned(preds, dataset):
+        g = (np.asarray(preds, np.float32) - yc)
+        if calls["n"] == 2:
+            g[::1000] = np.nan
+        calls["n"] += 1
+        return g, np.ones_like(g)
+
+    ds.set_label(yc)
+    raised = None
+    try:
+        lgt.train(dict(params, objective="none", nan_policy="raise",
+                       tree_batch=1), ds, num_boost_round=5, fobj=poisoned)
+    except NonFiniteError as e:
+        raised = str(e)
+    print(f"  raise through a poisoned fobj at iteration 2: {raised}",
+          flush=True)
+    if raised is None or "iteration 2" not in raised:
+        fail("nan_policy=raise: no NonFiniteError at iteration 2")
+    for arm, s in syncs.items():
+        if abs(s - 1.0) > 1e-9:
+            fail(f"nan_policy={arm}: {s} host syncs per replayed tree")
+    return dict(syncs=syncs)
+
+
+def ingest_checkpoint_phase(mres, bres, dev):
+    """Phase 15: device ingest, checkpoint/resume and nan_policy at the main
+    path's width."""
+    import torch
+    from lightgbm_tpu_torch.ops.cuda_histogram import launch_count
+    start = launch_count()
+    print("  (a) device ingest", flush=True)
+    ires = ingest_checks(mres, dev)
+    print("  (b) checkpoint/resume", flush=True)
+    k8 = bres["k8_text"] if bres is not None else None
+    if k8 is None:
+        k8 = _straight_k8(mres)
+    cres = checkpoint_checks(mres, k8)
+    print("  (c) nan_policy", flush=True)
+    nres = nan_policy_checks(mres)
+    launches = launch_count() - start
+    print(f"  histogram kernel launches in phase 15: {launches}", flush=True)
+    if launches <= 0:
+        fail("phase 15 never launched the histogram kernel")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ingest=ires, checkpoint=cres,
+                nan=nres)
+
+
+def _straight_k8(mres):
+    """Phase 13's K=8 arm's model text, when phase 13 did not run."""
+    import lightgbm_tpu_torch as lgt
+    _, X, y = mres["data"]
+    Xv, yv = higgs_like(NV, SEED + 1)
+    ds = lgt.Dataset(X, label=y)
+    dv = lgt.Dataset(Xv, label=yv, reference=ds)
+    bst = lgt.train(dict(MAIN_PARAMS, metric="auc", metric_freq=8,
+                         tree_batch=8), ds, num_boost_round=CK_ROUNDS,
+                    valid_sets=[dv], verbose_eval=False)
+    text = bst.model_to_string()
+    print(f"  uninterrupted K=8 run (phase 13 not run): sha256 "
+          f"{text_digest(text)}", flush=True)
+    return text
+
+
+PHASES = tuple(range(1, 16))
 
 
 def main():
@@ -2732,8 +3113,8 @@ def main():
     dev = torch.device("cuda", 0)
     want = set(PHASES) if not args.phases else \
         {int(p) for p in args.phases.split(",")}
-    # phases 5-7 and 12-14 run on phase 4's data and booster
-    if want & {5, 6, 7, 12, 13, 14}:
+    # phases 5-7 and 12-15 run on phase 4's data and booster
+    if want & {5, 6, 7, 12, 13, 14, 15}:
         want.add(4)
 
     print("phase 1: card", flush=True)
@@ -2832,6 +3213,13 @@ def main():
               f"a hot reload; B6)", flush=True)
         vres = serving_phase(mres, dev)
 
+    nres = none
+    if 15 in want:
+        print("phase 15: device ingest, checkpoint/resume and nan_policy at "
+              "the main path's width (2M x 28, 255 leaves)", flush=True)
+        nres = ingest_checkpoint_phase(mres, bres if 13 in want else None,
+                                       dev)
+
     if want != set(PHASES):
         print(f"partial run of phases {sorted(want)}: no result lines",
               flush=True)
@@ -2842,7 +3230,8 @@ def main():
           f"phase 7 {cres['launches']}, phase 8 {gres['launches']}, phase 9 "
           f"{rres['launches']}, phase 10 {xres['launches']}, phase 11 "
           f"{eres['launches']}, phase 12 {lres['launches']}, phase 13 "
-          f"{bres['launches']}, phase 14 {vres['launches']}", flush=True)
+          f"{bres['launches']}, phase 14 {vres['launches']}, phase 15 "
+          f"{nres['launches']}", flush=True)
 
     full = kres["full"]
     kernels = {"kernels": [{
@@ -2852,7 +3241,8 @@ def main():
         "launches": mres["launches"] + sres["launches"]
         + sres["goss_launches"] + cres["launches"] + gres["launches"]
         + rres["launches"] + xres["launches"] + eres["launches"]
-        + lres["launches"] + bres["launches"] + vres["launches"],
+        + lres["launches"] + bres["launches"] + vres["launches"]
+        + nres["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kres.values()),
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
@@ -2868,7 +3258,8 @@ def main():
             "7": cres["launches"], "8": gres["launches"],
             "9": rres["launches"], "10": xres["launches"],
             "11": eres["launches"], "12": lres["launches"],
-            "13": bres["launches"], "14": vres["launches"]},
+            "13": bres["launches"], "14": vres["launches"],
+            "15": nres["launches"]},
     }]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

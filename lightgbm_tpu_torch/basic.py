@@ -54,6 +54,18 @@ def _data_from_pandas(df, pandas_categorical=None):
         pandas_categorical
 
 
+def _plain(obj):
+    """Nested containers as builtins (``OrderedDict`` -> ``dict``): a
+    checkpoint payload holds builtins and numpy only."""
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_plain(v) for v in obj]
+    if isinstance(obj, tuple):
+        return tuple(_plain(v) for v in obj)
+    return obj
+
+
 def _is_frame(data) -> bool:
     return hasattr(data, "values") and hasattr(data, "columns")
 
@@ -438,6 +450,93 @@ class Booster:
         self._forest_rev += 1
         self.init_score_value = self._gbdt.init_score_value
         self._synced_mutations = self._gbdt.mutations_
+
+    # -- checkpoint/resume (robustness/checkpoint.py) -------------------------
+
+    def save_checkpoint(self, directory: Optional[str] = None) -> str:
+        """Write one atomic snapshot of the training state (the device
+        forest, scores, bagging mask, threefry key, counters, eval history
+        and the config fingerprint) to ``directory`` (default: the config's
+        ``checkpoint_dir``), resumable by :meth:`resume` or
+        ``train(resume_from=...)`` (``lightgbm_tpu/basic.py:573-625``).
+        The payload holds builtins and numpy arrays only. Returns the
+        written path."""
+        from .robustness.checkpoint import (CheckpointManager,
+                                            config_fingerprint,
+                                            fingerprinted_config)
+        from .io.model_text import _tree_to_string
+        if self._gbdt is None:
+            Log.fatal("save_checkpoint needs live training state — the "
+                      "booster was freed or loaded from a model file")
+        if self.config.boosting_normalized == "dart":
+            Log.fatal("checkpoint/resume does not support boosting=dart "
+                      "(host-side drop state is not captured)")
+        directory = directory or self.config.checkpoint_dir
+        mgr = CheckpointManager(directory,
+                                keep_last_n=self.config.checkpoint_keep_last_n)
+        state = self._gbdt.checkpoint_state()
+        payload = {
+            "config_fingerprint": config_fingerprint(self.config),
+            "config": fingerprinted_config(self.config),
+            "iteration": state["iter"],
+            "state": state,
+            "eval_history": _plain(self.eval_history),
+            "booster": {
+                "prev_trees": [_tree_to_string(t) for t in self._prev_trees],
+                "best_iteration": int(self.best_iteration),
+                "best_score": _plain(self.best_score),
+                "feature_names": list(self.feature_names),
+            },
+        }
+        path = mgr.save(payload)
+        Log.info("checkpoint written: %s (iteration %d)", path,
+                 state["iter"])
+        return path
+
+    def resume(self, path_or_dir: Optional[str] = None) -> "Booster":
+        """Replay a checkpoint into this booster's training state
+        (``lightgbm_tpu/basic.py:627-680``): a snapshot file, or a directory
+        whose latest snapshot is used (default: the config's
+        ``checkpoint_dir``). The booster must be built on the same dataset
+        and training config: a config-fingerprint mismatch fails naming the
+        fields. Training on is bit-identical to a run never interrupted."""
+        from .robustness.checkpoint import (CheckpointError,
+                                            CheckpointManager,
+                                            config_fingerprint,
+                                            config_mismatch_fields)
+        from .io.model_text import _parse_tree_block
+        if self._gbdt is None:
+            Log.fatal("resume needs a constructed training setup — build "
+                      "the Booster with the same train_set/params first")
+        if self.config.boosting_normalized == "dart":
+            Log.fatal("checkpoint/resume does not support boosting=dart "
+                      "(host-side drop state is not captured)")
+        target = path_or_dir or self.config.checkpoint_dir
+        if not target:
+            Log.fatal("resume: no checkpoint path given and checkpoint_dir "
+                      "is empty")
+        payload = CheckpointManager.load(target)
+        if payload["config_fingerprint"] != config_fingerprint(self.config):
+            fields = config_mismatch_fields(payload["config"], self.config)
+            raise CheckpointError(
+                f"config fingerprint mismatch resuming from {target}: the "
+                f"snapshot was written under a config whose training "
+                f"semantics differ in: {', '.join(fields) or '<unknown>'}. "
+                f"Resume requires an identical training config (run-control "
+                f"fields like num_iterations and paths are exempt).")
+        self._gbdt.restore_checkpoint_state(payload["state"])
+        b = payload.get("booster", {})
+        self._prev_trees = [_parse_tree_block(dict(
+            ln.split("=", 1) for ln in text.splitlines() if "=" in ln))
+            for text in b.get("prev_trees", [])]
+        self.best_iteration = int(b.get("best_iteration", 0))
+        self.best_score = b.get("best_score", {}) or {}
+        self.eval_history = payload.get("eval_history", {}) or {}
+        self._finalize()
+        Log.info("resumed from checkpoint (id %s) at iteration %d "
+                 "(%d trees)", payload.get("checkpoint_id", "?"),
+                 self._gbdt.iter_, len(self.trees))
+        return self
 
     def free_dataset(self) -> "Booster":
         """Release device-side training state; predict/save keep working."""

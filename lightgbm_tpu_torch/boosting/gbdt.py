@@ -41,13 +41,28 @@ the training rows' raw f32 values (NaN set to 0) and their missing plane on
 the device, each valid set its own; each tree's leaves are fitted after
 growth and before shrinkage (``ops/linear.py``), and the score updates add
 the leaves' linear outputs.
+
+Device ingest (gbdt.py:455-490 and :1087-1110 there): when the dataset's
+binning is deferred, the code matrix is binned on the device
+(``ops/ingest.py``) and EFB plans from host-binned sample rows; the data
+fingerprint hashes host-oracle codes either way.
+
+``nan_policy`` (gbdt.py:1194-1215, :1335-1410, :1514-1562 and :1804-1875
+there): the iteration's gradient, hessian and leaf-output flags go into
+``_nf``; under raise/skip_iter the last model's epilogue gates the scores,
+valid scores and bagging mask back to pre-step copies, and the host pops
+a poisoned iteration's bookkeeping; clip sanitises g/h and leaf values.
+On the card the flags are read with the grower's, once per tree.
+``checkpoint_state`` / ``restore_checkpoint_state`` (gbdt.py:2153-2290
+there) carry the training state as builtins and numpy for one device.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +75,8 @@ from ..objectives import create_objective
 from ..ops.cuda_histogram import feature_groups
 from ..ops.linear import fit_linear_leaves, linear_leaf_scores
 from ..ops.predict import leaves_from_binned
+from ..robustness.numeric import (FLAG_NAMES, NonFiniteError, clip_nonfinite,
+                                  nonfinite_flag)
 from ..parallel.comm import SerialComm
 from ..tree import Tree, tree_from_device_arrays
 from ..utils import prng
@@ -119,6 +136,28 @@ def _raw_tensors(raw: np.ndarray, device) -> Tuple[torch.Tensor,
             torch.as_tensor(miss, device=device))
 
 
+def _data_fingerprint(codes: Optional[np.ndarray],
+                      train_set: ConstructedDataset, label) -> str:
+    """The checkpoint's data fingerprint (gbdt.py:471-490 there): a strided
+    row sample of the (possibly bundled) host codes and the labels. Under
+    deferred binning the same rows are binned by the host oracle
+    (``bin_rows``), so the fingerprint does not depend on where binning
+    runs and ``tpu_ingest`` stays checkpoint-volatile."""
+    fp = hashlib.sha256()
+    N = train_set.num_data
+    if codes is None:
+        n0, n1 = train_set.num_data, train_set.num_features
+        fp.update(np.int64([N, n0, n1]).tobytes())
+        fp.update(train_set.bin_rows(
+            np.arange(0, n0, max(1, n0 // 256))).tobytes())
+    else:
+        fp.update(np.int64([N, codes.shape[0], codes.shape[1]]).tobytes())
+        stride = max(1, codes.shape[0] // 256)
+        fp.update(np.ascontiguousarray(codes[::stride]).tobytes())
+    fp.update(np.asarray(label, np.float32).tobytes())
+    return fp.hexdigest()
+
+
 class GBDT:
     """Boosting driver (reference class GBDT, src/boosting/gbdt.h:25)."""
 
@@ -151,15 +190,21 @@ class GBDT:
                                     meta["is_categorical"])
         self.comm = SerialComm(F)
         dev = self.device
+        # None: the codes are binned on the device from the deferred raw
+        # rows (device ingest, gbdt.py:455-470 there)
         codes = self._plan_bundles(config, train_set, meta)
         if dev.type == "cuda":
             try:            # the histogram kernel's shared-memory limit
-                feature_groups(codes.shape[1], self.spec.hist_bins
+                feature_groups(F if codes is None else codes.shape[1],
+                               self.spec.hist_bins
                                or self.spec.num_bins_padded)
             except ValueError as e:
                 Log.fatal("max_bin=%d: %s; not ported to lightgbm_tpu_torch "
                           "yet (ROADMAP B1)", config.max_bin, e)
-        self.Xb = _codes_tensor(codes, dev)
+        self._data_fingerprint = _data_fingerprint(codes, train_set, md.label)
+        self._ingest_report = None
+        self.Xb = self._ingest_device(train_set) if codes is None \
+            else _codes_tensor(codes, dev)
         del codes
         self._setup_linear(config, train_set)
         self.label = torch.as_tensor(md.label, dtype=torch.float32,
@@ -223,6 +268,17 @@ class GBDT:
                 "falling back to tree_batch=1", tb,
                 config.boosting_normalized)
             tb = 1
+        if (tb > 1 and self.average_output
+                and config.nan_policy in ("raise", "skip_iter")):
+            # RF's running average weighs by the iteration number, which
+            # goes on through a batch: a gated no-op inside a batch would
+            # leave a phantom iteration in it (gbdt.py:852-863 there)
+            Log.warning(
+                "tree_batch=%d with nan_policy=%s cannot compose with a "
+                "mid-batch skip/rollback under boosting=rf (scores are "
+                "running averages weighted by the iteration counter); "
+                "falling back to tree_batch=1", tb, config.nan_policy)
+            tb = 1
         self.tree_batch = tb
         self._grower: Optional[TreeGrower] = None
         self._graphs: Optional[_IterationGraphs] = None
@@ -232,6 +288,12 @@ class GBDT:
         # waves the last eager tree of each model needed (the first guess
         # of a replayed tree's wave count)
         self._waves_seen = [1] * K
+
+        # the non-finite guard (robustness/numeric.py): flags of the
+        # gradients, hessians and leaf outputs of every iteration
+        self.nan_policy = config.nan_policy
+        self._consecutive_skips = 0
+        self.best_iteration = 0
 
     @staticmethod
     def _make_spec(config: Config, F: int, max_num_bin: int,
@@ -265,19 +327,32 @@ class GBDT:
                       meta) -> np.ndarray:
         """EFB set-up (gbdt.py:184-275 and :435-460 there): plan, decide,
         and when bundling, put the ``BundleDecode`` tables on the device and
-        set ``spec.hist_bins``. Returns the code matrix to train on."""
-        from ..efb import build_code_feat, plan_bundles
+        set ``spec.hist_bins``. Returns the host code matrix to train on, or
+        None when the dataset's binning is deferred and stays so (the
+        codes are then binned on the device)."""
+        from ..efb import (build_code_feat, materialize_bundles,
+                           plan_bundles, sample_row_indices)
         self.bundle: Optional[BundleDecode] = None
         self.efb_plan = None          # the kept plan, its codes dropped
         self.efb_wins = None          # whether a plan won the rule
-        F = train_set.num_features
+        F, N = train_set.num_features, train_set.num_data
+        deferred = train_set.deferred
+        unbundled = None if deferred else train_set.X_binned
         if config.enable_bundle == "false" or F < 2:
-            return train_set.X_binned
+            return unbundled
         nb = meta["num_bins"].astype(np.int64)
         db = meta["default_bin"].astype(np.int64)
-        plan = plan_bundles(train_set.X_binned, nb, db, config)
+        if deferred:
+            # plan from a host-binned row sample (the plan is a function of
+            # the sample, and bin_rows bins the rows sample_rows would take)
+            plan = plan_bundles(None, nb, db, config,
+                                sample=train_set.bin_rows(
+                                    sample_row_indices(N)),
+                                num_data=N)
+        else:
+            plan = plan_bundles(train_set.X_binned, nb, db, config)
         if plan is None:
-            return train_set.X_binned
+            return unbundled
         Bpad = self.spec.num_bins_padded
         Bb_pad = max(8, _round_up(plan.max_bundle_bins, 8))
         G = plan.num_groups
@@ -294,7 +369,11 @@ class GBDT:
                       F * Bpad)
         self.efb_wins = wins
         if not (wins or config.enable_bundle == "true"):
-            return train_set.X_binned
+            return unbundled
+        if plan.X_bundled is None:
+            # the plan won under deferral: bundling needs the host codes
+            # after all (device ingest serves the unbundled layout only)
+            plan.X_bundled = materialize_bundles(plan, train_set.X_binned, db)
         codes = plan.X_bundled
         plan.X_bundled = None
         self.efb_plan = plan
@@ -314,6 +393,27 @@ class GBDT:
         Log.info("EFB: %d features bundled into %d columns (%d max bundle "
                  "bins, %s codes), scan=bundle-space", F, G,
                  plan.max_bundle_bins, codes.dtype)
+        return codes
+
+    def _ingest_device(self, train_set: ConstructedDataset) -> torch.Tensor:
+        """The deferred raw rows binned on the device (``ops/ingest.py``,
+        gbdt.py:1087-1110 there): the same shape, dtype and bytes as
+        ``_codes_tensor`` of the host codes."""
+        from ..ops.ingest import device_ingest
+        cfg = self.config
+        N, F = train_set.num_data, train_set.num_features
+        codes, report = device_ingest(
+            train_set.deferred_raw(), train_set.mappers,
+            np.asarray(train_set.real_feature_idx),
+            n_rows=N, n_rows_padded=N, num_cols=F,
+            out_dtype=train_set.code_dtype, device=self.device,
+            chunk_rows=int(cfg.tpu_ingest_chunk_rows),
+            prefetch_depth=int(cfg.tpu_ingest_prefetch))
+        self._ingest_report = report
+        Log.info("device ingest: %d rows binned+packed on device "
+                 "(%.2f Mrow/s, %d chunks, stall fraction %.2f)",
+                 N, (report["rows_per_s"] or 0.0) / 1e6, report["n_chunks"],
+                 report["stall_fraction"])
         return codes
 
     def _setup_linear(self, config: Config,
@@ -489,6 +589,14 @@ class GBDT:
         # keys (2 words each); the shrinkage
         self._in_i = torch.zeros(4 + 2 * K, dtype=torch.int64, device=dev)
         self._in_f = torch.zeros(1, dtype=torch.float32, device=dev)
+        # the iteration's non-finite flags (gradients, hessians, leaf
+        # outputs), and under raise/skip_iter the state it may be gated to
+        self._nf = torch.zeros(3, dtype=torch.bool, device=dev)
+        if self._gates:
+            self._pre_score = torch.empty_like(self.score)
+            self._pre_valid = [torch.empty_like(vs.score)
+                               for vs in self.valid_sets]
+            self._pre_bag = torch.empty_like(self.bag_mask)
         self._stack = None
         self._graphs = None
 
@@ -513,12 +621,35 @@ class GBDT:
                             for t in (tab_i, tab_f))
         return tab_i, tab_f
 
+    @property
+    def _guarded(self) -> bool:
+        return self.nan_policy != "none"
+
+    @property
+    def _gates(self) -> bool:
+        """raise / skip_iter gate a poisoned iteration's outputs back to
+        their values before it."""
+        return self.nan_policy in ("raise", "skip_iter")
+
     def _part_start(self, it: int) -> None:
         """Gradients and row sampling; the bagging mask is kept in
-        ``bag_mask``, the masked models' inputs in ``_g`` / ``_h``."""
+        ``bag_mask``, the masked models' inputs in ``_g`` / ``_h``. Under
+        ``nan_policy`` the gradients' and hessians' flags are taken before
+        any clip (gbdt.py:1335-1345 there)."""
         ii = self._in_i
+        if self._gates:
+            self._pre_score.copy_(self.score)
+            for pre, vs in zip(self._pre_valid, self.valid_sets):
+                pre.copy_(vs.score)
+            self._pre_bag.copy_(self.bag_mask)
         g, h = self._custom_gh if self._custom_gh is not None \
             else self._gradients(self.score)
+        if self._guarded:
+            self._nf[0].copy_(nonfinite_flag(g))
+            self._nf[1].copy_(nonfinite_flag(h))
+            self._nf[2].fill_(False)
+            if self.nan_policy == "clip":
+                g, h = clip_nonfinite(g), clip_nonfinite(h)
         mask, g, h = self._sampling(g, h, self.bag_mask, (ii[2], ii[3]), it)
         self._g.copy_(g)
         self._h.copy_(h)
@@ -550,6 +681,12 @@ class GBDT:
                 linear_lambda=self.config.linear_lambda)
             self.linear_degraded.append(n_degraded)
         tree = self._shrink(tree, self._in_f[0])
+        if self._guarded:
+            self._nf[2].logical_or_(nonfinite_flag(tree.leaf_value))
+            if self.nan_policy == "clip":
+                tree = tree._replace(
+                    leaf_value=clip_nonfinite(tree.leaf_value),
+                    internal_value=clip_nonfinite(tree.internal_value))
         self.score[k].copy_(self._score_update(
             self.score[k], self._leaf_outputs(tree, leaf_ids, self.raw)))
         for vs, lid in zip(self.valid_sets, grower.state.valid_leaf):
@@ -564,15 +701,41 @@ class GBDT:
         for buf, f in zip(self._stack, tree):
             if buf is not None:
                 buf.index_copy_(0, slot, f.unsqueeze(0))
+        if self._gates and k == K - 1:
+            # a poisoned iteration leaves the scores and the bagging mask
+            # bit-identical to their values before it (gbdt.py:1398-1410
+            # there); its trees stay in the stacked buffers and the host
+            # pops their bookkeeping
+            bad = self._nf.any()
+            self.score.copy_(torch.where(bad, self._pre_score, self.score))
+            for pre, vs in zip(self._pre_valid, self.valid_sets):
+                vs.score.copy_(torch.where(bad, pre, vs.score))
+            self.bag_mask.copy_(torch.where(bad, self._pre_bag,
+                                            self.bag_mask))
 
-    def _eager_iteration(self, it: int) -> None:
+    def _nan_flags_now(self) -> torch.Tensor:
+        """The iteration's flags as the captured runner reads them with
+        the grower's, after the last wave of the current tree and before
+        its epilogue: the tree's own leaf flag is taken from the grower's
+        leaf values, shrunk and transformed as the epilogue will (int64
+        [3], eager operations between replays)."""
+        tr = self._grower.state.tree
+        lv = tr.leaf_value[:self.spec.num_leaves] * self._in_f[0]
+        leaf = nonfinite_flag(self._tree_output_transform(
+            tr._replace(leaf_value=lv)).leaf_value) | self._nf[2]
+        return torch.stack([self._nf[0], self._nf[1], leaf]).long()
+
+    def _eager_iteration(self, it: int) -> Optional[List[int]]:
         """One iteration eagerly: the parts, and the wave loop reading
-        ``done`` after each wave."""
+        ``done`` after each wave. Returns the iteration's non-finite flags
+        under ``nan_policy`` (one more host read), else None."""
         self._part_start(it)
         for k in range(self.num_models):
             self._part_tree(k)
             self._waves_seen[k] = self._grower.run_waves()
             self._part_tree_end(k)
+        return [int(f) for f in self._nf.tolist()] if self._guarded \
+            else None
 
     def _capture_blocker(self) -> Optional[str]:
         """Why this booster's iterations run eagerly on the card (None:
@@ -600,6 +763,7 @@ class GBDT:
         its = list(range(self.iter_, self.iter_ + n))
         tab_i, tab_f = self._batch_inputs(
             its, self._step_shrinkage() if shrinkage is None else shrinkage)
+        flags = []
         for j, it in enumerate(its):
             if j == n - 1:
                 self._record_undo()
@@ -607,9 +771,9 @@ class GBDT:
             self._in_f.copy_(tab_f[j])
             graphs = self._graphs_for_batch()
             if graphs is None:
-                self._eager_iteration(it)
+                flags.append(self._eager_iteration(it))
             else:
-                graphs.iteration(it)
+                flags.append(graphs.iteration(it))
         # the batch's trees: one copy of the stacked buffers, sliced lazily
         frozen = TreeArrays(*[None if f is None else f[:n * K].clone()
                               for f in self._stack])
@@ -618,8 +782,15 @@ class GBDT:
                 None if f is None else f[j * K + k] for f in frozen])
                 for k in range(K)])
             self._num_leaves.append(frozen.num_leaves[j * K:(j + 1) * K])
+        base_iter, base_len = self.iter_, len(self.models) - n
         self.iter_ += n
         self.mutations_ += n
+        if self._guarded:
+            if n == 1:
+                self._apply_nan_policy(flags[0])
+            else:
+                self._apply_nan_policy_batch(np.array(flags, bool),
+                                             base_iter, base_len, n)
 
     def _graphs_for_batch(self) -> Optional["_IterationGraphs"]:
         """The captured iteration to replay, bound to the booster's
@@ -766,6 +937,212 @@ class GBDT:
         self.iter_ -= 1
         self.mutations_ += 1
         self._undo = None
+
+    # ---------------------------------------------------- nan_policy
+
+    def _record_nan_event(self, what: str, iteration: int) -> None:
+        """Counters and a trace event per poisoned iteration
+        (gbdt.py:1514-1525 there)."""
+        from .. import observability as obs
+        reg = obs.get_registry()
+        reg.counter("nan.events").inc()
+        reg.counter({"clip": "nan.clipped", "raise": "nan.raised",
+                     "skip_iter": "nan.skipped_iters"}.get(
+                         self.nan_policy, "nan.other")).inc()
+        obs.event("nan_policy", policy=self.nan_policy, what=what,
+                  iteration=int(iteration))
+
+    def _apply_nan_policy(self, flags: List[int]) -> bool:
+        """The host leg of the guard for one iteration (gbdt.py:1527-1562
+        there): the step already gated its outputs, so recovery pops the
+        iteration's bookkeeping. Returns True iff it was dropped."""
+        if not any(flags):
+            self._consecutive_skips = 0
+            return False
+        what = ", ".join(n for n, f in zip(FLAG_NAMES, flags) if f)
+        self._record_nan_event(what, self.iter_ - 1)
+        if self.nan_policy == "clip":
+            Log.warning("nan_policy=clip: non-finite %s at iteration %d "
+                        "were sanitized (NaN->0, Inf->+/-cap)", what,
+                        self.iter_ - 1)
+            self._consecutive_skips = 0
+            return False
+        self._pop_last_iteration()
+        if self.nan_policy == "raise":
+            raise NonFiniteError(
+                f"non-finite {what} detected at iteration {self.iter_} "
+                f"(nan_policy=raise); booster state is rolled back to the "
+                f"last clean iteration and remains checkpointable")
+        self._consecutive_skips += 1
+        Log.warning("nan_policy=skip_iter: dropped iteration %d "
+                    "(non-finite %s); %d consecutive skip(s)", self.iter_,
+                    what, self._consecutive_skips)
+        if self._consecutive_skips >= 10:
+            raise NonFiniteError(
+                f"nan_policy=skip_iter: {self._consecutive_skips} "
+                f"consecutive iterations produced non-finite {what} — the "
+                f"poison is deterministic, aborting instead of spinning")
+        return True
+
+    def _apply_nan_policy_batch(self, flags: np.ndarray, base_iter: int,
+                                base_len: int, n: int) -> None:
+        """The host leg for a batch of ``n > 1`` iterations
+        (gbdt.py:1804-1875 there): a poisoned iteration was gated to a
+        no-op; ``skip_iter`` drops its entry but keeps ``iter_`` advanced
+        (its draw is consumed), ``raise`` rolls the batch back to the last
+        clean iteration."""
+        if not flags.any():
+            self._consecutive_skips = 0
+            return
+
+        def _what(i):
+            return ", ".join(nm for nm, f in zip(FLAG_NAMES, flags[i]) if f)
+
+        bad = [int(i) for i in np.nonzero(flags.any(axis=1))[0]]
+        for i in bad:
+            self._record_nan_event(_what(i), base_iter + i)
+        if self.nan_policy == "clip":
+            for i in bad:
+                Log.warning("nan_policy=clip: non-finite %s at iteration %d "
+                            "were sanitized (NaN->0, Inf->+/-cap)",
+                            _what(i), base_iter + i)
+            self._consecutive_skips = 0
+            return
+        if self.nan_policy == "raise":
+            i = bad[0]
+            what = _what(i)
+            # trailing clean iterations are rolled back (their trees trained
+            # from the gated state and are subtracted); trailing poisoned
+            # ones were no-ops whose trees may hold non-finite values, so
+            # they are popped without arithmetic; then the first poisoned
+            for j in range(n - 1, i, -1):
+                if flags[j].any():
+                    self._pop_last_iteration()
+                else:
+                    self.rollback_one_iter()
+            self._pop_last_iteration()
+            raise NonFiniteError(
+                f"non-finite {what} detected at iteration {base_iter + i} "
+                f"(nan_policy=raise, tree_batch={n}); booster state is "
+                f"rolled back to the last clean iteration and remains "
+                f"checkpointable")
+        for i in reversed(bad):
+            Log.warning("nan_policy=skip_iter: dropped iteration %d "
+                        "(non-finite %s)", base_iter + i, _what(i))
+            del self.models[base_len + i]
+            del self._num_leaves[base_len + i]
+        self.mutations_ += 1
+        self._undo = None             # the last entry is another iteration
+        for i in range(n):
+            if flags[i].any():
+                self._consecutive_skips += 1
+                if self._consecutive_skips >= 10:
+                    raise NonFiniteError(
+                        f"nan_policy=skip_iter: {self._consecutive_skips} "
+                        f"consecutive iterations produced non-finite values "
+                        f"— the poison is deterministic, aborting instead "
+                        f"of spinning")
+            else:
+                self._consecutive_skips = 0
+
+    # ------------------------------------------------------ checkpoint
+
+    def checkpoint_state(self) -> Dict:
+        """Every array and counter an iteration reads or writes, as host
+        values of builtins and numpy (gbdt.py:2153-2184 there): scores, the
+        bagging mask, the raw threefry key, the forest as one dict of
+        arrays per tree, the leaf counts, the counters and the valid
+        scores. One device: ``n_devices`` 1, ``tree_learner`` serial."""
+        def tree_dict(t: TreeArrays) -> Dict:
+            return {f: None if a is None else a.cpu().numpy()
+                    for f, a in zip(t._fields, t)}
+        return {
+            "iter": int(self.iter_),
+            "data_fingerprint": self._data_fingerprint,
+            "mutations": int(self.mutations_),
+            "consecutive_skips": int(self._consecutive_skips),
+            "num_data": int(self.num_data),
+            "num_data_padded": int(self.num_data),
+            "num_models": int(self.num_models),
+            "n_devices": 1,
+            "tree_learner": "serial",
+            "block_layout": None,
+            "init_score_value": float(self.init_score_value),
+            "score": self.score.cpu().numpy().astype(np.float32),
+            "bag_mask": self.bag_mask.cpu().numpy().astype(np.float32),
+            "rng_key": np.asarray(self._rng_key, np.uint32),
+            "models": [[tree_dict(t) for t in it_trees]
+                       for it_trees in self.models],
+            "num_leaves": [nl.cpu().numpy() for nl in self._num_leaves],
+            "valid_scores": {vs.name: vs.score.cpu().numpy()
+                             for vs in self.valid_sets},
+            "best_iteration": int(self.best_iteration),
+        }
+
+    def restore_checkpoint_state(self, state: Dict) -> None:
+        """Replay a snapshot into this booster (gbdt.py:2186-2290 there).
+        A snapshot of another mesh or learner, shape or dataset is refused.
+        Scores, valid scores and the bagging mask are copied into the
+        booster's buffers (captured graphs replay fixed addresses), and the
+        next iteration runs as a booster's first: eagerly, then captured."""
+        saved_d = state.get("n_devices")
+        if saved_d is not None and int(saved_d) != 1:
+            Log.fatal(
+                "checkpoint/mesh mismatch: the snapshot was written on %d "
+                "device(s) (tree_learner=%s) but this booster runs on 1 "
+                "(serial) — sharded training state does not resume across "
+                "device counts, and lightgbm_tpu_torch trains on one card",
+                int(saved_d), state.get("tree_learner", "?"))
+        saved_tl = state.get("tree_learner")
+        if saved_tl is not None and saved_tl != "serial":
+            Log.fatal(
+                "checkpoint/learner mismatch: the snapshot was written "
+                "under tree_learner=%s but this booster runs serial on the "
+                "same device count — resume needs the same tree_learner",
+                saved_tl)
+        for name, mine in (("num_data", self.num_data),
+                           ("num_models", self.num_models),
+                           ("num_data_padded", self.num_data)):
+            if int(state[name]) != int(mine):
+                Log.fatal("checkpoint/booster mismatch: %s is %d in the "
+                          "snapshot but %d here — resume needs the same "
+                          "dataset and training config", name,
+                          int(state[name]), int(mine))
+        fp = state.get("data_fingerprint")
+        if fp and fp != self._data_fingerprint:
+            Log.fatal("checkpoint/dataset mismatch: the snapshot was written "
+                      "against different training data (binned-code/label "
+                      "fingerprint differs) — a shape-compatible but "
+                      "different dataset would silently corrupt the resumed "
+                      "model")
+        dev = self.device
+
+        def put(a):
+            return torch.as_tensor(np.asarray(a), device=dev)
+        self.score.copy_(put(np.asarray(state["score"], np.float32)))
+        self.bag_mask.copy_(put(np.asarray(state["bag_mask"], np.float32)))
+        self._rng_key = tuple(int(w) for w in np.asarray(state["rng_key"]))
+        self.models = [[TreeArrays(**{f: None if a is None else put(a)
+                                      for f, a in t.items()})
+                        for t in it_trees] for it_trees in state["models"]]
+        self._num_leaves = [put(nl) for nl in state["num_leaves"]]
+        self.iter_ = int(state["iter"])
+        self.mutations_ = int(state["mutations"])
+        self._consecutive_skips = int(state.get("consecutive_skips", 0))
+        self.init_score_value = float(state["init_score_value"])
+        self.best_iteration = int(state.get("best_iteration", 0))
+        self._undo = None
+        restored = state.get("valid_scores", {})
+        for vs in self.valid_sets:
+            if vs.name in restored:
+                vs.score.copy_(put(np.asarray(restored[vs.name],
+                                              np.float32)))
+            else:
+                Log.warning("checkpoint has no saved scores for valid set "
+                            "%r — its eval scores restart from the initial "
+                            "model", vs.name)
+        # rebuilt at the next iteration, which runs eagerly and captures
+        self._grower = None
 
     def _check_no_splits(self) -> bool:
         """Reference gbdt.cpp:465-471: pop the trailing iterations whose
@@ -929,9 +1306,11 @@ class _IterationGraphs:
         return g
 
     def _read_flags(self, flags: torch.Tensor) -> List[int]:
-        """The grower's flags on the host: the tree's one sync."""
-        if self.flags_host is None:
-            self.flags_host = torch.empty(3, dtype=torch.int64,
+        """The grower's flags (and under ``nan_policy`` the iteration's
+        non-finite flags) on the host: the tree's one sync."""
+        if self.flags_host is None or \
+                self.flags_host.numel() != flags.numel():
+            self.flags_host = torch.empty(flags.numel(), dtype=torch.int64,
                                           pin_memory=True)
             self.ready = torch.cuda.Event()
         self.flags_host.copy_(flags, non_blocking=True)
@@ -946,31 +1325,40 @@ class _IterationGraphs:
         g.replay()
         self.replays += 1
 
-    def iteration(self, it: int) -> None:
+    def iteration(self, it: int) -> Optional[List[int]]:
+        """Replay one iteration; returns its non-finite flags under
+        ``nan_policy`` (read with the last tree's flags), else None."""
         gb = self.gbdt
         # a graph keeps what its capture saw: the variant of ``it``, ``k``
         self._replay(("start", gb._draws_bag(it)),
                      functools.partial(gb._part_start, it))
+        nan_flags = None
         for k in range(gb.num_models):
             self._replay(("tree", k), functools.partial(gb._part_tree, k))
-            self._waves(k)
+            nan_flags = self._waves(k)
             self._replay(("end", k), functools.partial(gb._part_tree_end, k))
+        return nan_flags
 
-    def _waves(self, k: int) -> None:
-        flags = self.gbdt._grower.state.flags
+    def _waves(self, k: int) -> Optional[List[int]]:
+        gb = self.gbdt
+        flags = gb._grower.state.flags
         n = self.guess[k]
         while True:
             for _ in range(n):
-                self._replay("wave", self.gbdt._grower.wave)
+                self._replay("wave", gb._grower.wave)
             self.waves_run += n
-            _, done, waves = self._read_flags(flags)
+            read = flags if not gb._guarded else torch.cat(
+                [flags, gb._nan_flags_now()])
+            vals = self._read_flags(read)
             self.syncs += 1
+            _, done, waves = vals[:3]
             if done:
                 break
             n = max(1, self.guess[k] // 4)
         self.guess[k] = waves
         self.waves_needed += waves
         self.trees += 1
+        return [int(f) for f in vals[3:]] if gb._guarded else None
 
 
 def create_boosting(config: Config, train_set: ConstructedDataset) -> GBDT:

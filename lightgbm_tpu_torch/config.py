@@ -857,13 +857,14 @@ def resolve_device(config: "Config"):
 # tpu_* tuning keys whose meaning is a TPU layout or dispatch choice: the
 # port accepts them and logs that they do nothing. The tpu_* keys the port
 # does honour are tpu_wave_size, tpu_hist_slots and tpu_row_compact (grower
-# wave shape) and tpu_residency (stream raises); every pass is compacted,
-# so tpu_compact_frac has no meaning here.
+# wave shape), tpu_residency (stream raises) and tpu_ingest,
+# tpu_ingest_chunk_rows and tpu_ingest_prefetch (device ingest); every
+# pass is compacted, so tpu_compact_frac has no meaning here, and there is
+# one card, so neither has tpu_reshard_on_resume.
 TPU_ONLY_KEYS = (
     "tpu_compact_frac",
     "tpu_hist_chunk", "tpu_hist_hilo", "tpu_hist_f64", "tpu_hist_kernel",
-    "tpu_incremental_partition", "tpu_efb_unpack", "tpu_ingest",
-    "tpu_ingest_chunk_rows", "tpu_ingest_prefetch", "tpu_hbm_budget_bytes",
+    "tpu_incremental_partition", "tpu_efb_unpack", "tpu_hbm_budget_bytes",
     "tpu_time_tag", "tpu_profile_dir", "tpu_profile_iters",
     "tpu_cost_analysis", "tpu_stream_shard_rows", "tpu_stream_verify",
     "tpu_mesh_axis", "tpu_reshard_on_resume", "tpu_linear_warn_fallback",
@@ -882,7 +883,10 @@ def check_port_supported(config: "Config") -> None:
     the JAX package (or custom gradients, ``objective=none``), query groups,
     bagging and feature_fraction, EFB (``enable_bundle``), linear leaves,
     ``tree_learner=serial``, dense or sparse numerical and categorical
-    features, resident data and batches of iterations (``tree_batch``).
+    features, resident data binned on the host or the device
+    (``tpu_ingest``), batches of iterations (``tree_batch``), single-device
+    checkpoint/resume (``checkpoint_dir``, ``resume_from``) and
+    ``nan_policy``.
     Each refusal names the ROADMAP queue item
     that will port it; none of these settings is ever silently ignored."""
     if config.linear_tree and config.tree_learner != "serial":
@@ -896,10 +900,6 @@ def check_port_supported(config: "Config") -> None:
         _unported(f"tree_learner={config.tree_learner}", "A16")
     if config.tpu_residency == "stream":
         _unported("tpu_residency=stream", "A14")
-    if config.nan_policy != "none":
-        _unported(f"nan_policy={config.nan_policy}", "A17")
-    if config.checkpoint_dir or config.resume_from:
-        _unported("checkpoint/resume", "A17")
     defaults = Config.__dataclass_fields__
     for key in TPU_ONLY_KEYS:
         if getattr(config, key) != defaults[key].default:

@@ -7,10 +7,14 @@ before-iteration callbacks, one batch of ``tree_batch`` boosting iterations
 ``metric_freq`` boundary (then the no-splits check), after-iteration
 callbacks with the batch's last iteration; early stopping ends it through
 ``EarlyStopException``. A custom ``fobj`` and before-iteration callbacks
-force batches of one, with the JAX package's warnings. Left out
-(ROADMAP A17): checkpoint/resume, the hang watchdog, the gang lease, the
-profiler window and telemetry — ``resume_from`` and ``checkpoint_dir``
-raise.
+force batches of one, with the JAX package's warnings. Checkpoints
+(``checkpoint_dir`` + ``checkpoint_interval``) are written by a callback
+after the record callbacks, when a batch crosses an interval boundary, at
+the JAX engine's iterations for the same ``tree_batch``; ``resume_from``
+(a file, a directory, or ``"auto"``: the newest snapshot of
+``checkpoint_dir`` that verifies) resumes before the loop
+(``lightgbm_tpu/engine.py:160-226``). Left out (ROADMAP A17b): the hang
+watchdog, the gang lease, the profiler window and telemetry.
 """
 from __future__ import annotations
 
@@ -43,9 +47,6 @@ def train(params: Dict[str, Any], train_set: Dataset,
           resume_from: Optional[str] = None) -> Booster:
     """Mirror of reference engine.py:18 lgb.train, on the config's device
     (CUDA unless ``device=cpu``)."""
-    if resume_from:
-        Log.fatal("checkpoint/resume is not ported to lightgbm_tpu_torch "
-                  "yet (ROADMAP A17)")
     params = dict(params or {})
     _v = params.get("verbose", params.get("verbosity"))
     if _v is not None:
@@ -113,7 +114,44 @@ def train(params: Dict[str, Any], train_set: Dataset,
         gbdt.add_base_score(raw.T if raw.ndim == 2 else raw, valid_raw)
         booster._prev_trees = list(prev_booster.trees[: n_prev_iters * Kp])
 
+    # ---- checkpoint/resume (robustness/checkpoint.py) ----------------------
+    resume_from = resume_from or config.resume_from or None
+    start_iter = 0
+    if resume_from:
+        if prev_booster is not None:
+            Log.fatal("resume_from cannot be combined with init_model — a "
+                      "checkpoint already contains the full training state")
+        resolved = resume_from
+        if resume_from == "auto":
+            # walk back to the newest snapshot that verifies, so a corrupt
+            # latest costs one interval, not the run
+            from .robustness.checkpoint import CheckpointManager
+            resolved = CheckpointManager(config.checkpoint_dir) \
+                .latest_verified() if config.checkpoint_dir else None
+            if resolved is None:
+                Log.info("resume_from=auto: no checkpoint under %r — "
+                         "starting fresh", config.checkpoint_dir)
+        if resolved:
+            booster.resume(resolved)
+            start_iter = gbdt.iter_
+            if start_iter >= n_rounds:
+                Log.warning("resumed checkpoint is already at iteration %d "
+                            ">= num_iterations=%d — no further training",
+                            start_iter, n_rounds)
+
     callbacks = list(callbacks or [])
+    if config.checkpoint_dir and config.checkpoint_interval > 0:
+        # interval-crossing, not modulo: under tree_batch > 1 the callback
+        # runs at batch boundaries, which may skip an exact multiple
+        ck_state = {"last": start_iter}
+
+        def _checkpoint_cb(env):
+            if env.iteration + 1 - ck_state["last"] >= \
+                    config.checkpoint_interval:
+                env.model.save_checkpoint()
+                ck_state["last"] = env.iteration + 1
+        _checkpoint_cb.order = 40     # after record_evaluation (order 20):
+        callbacks.append(_checkpoint_cb)  # the snapshot sees this eval
     if learning_rates is not None:
         callbacks.append(reset_parameter(learning_rate=learning_rates))
     if early_stopping_rounds is not None and early_stopping_rounds > 0:
@@ -156,7 +194,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
     metric_freq = max(config.metric_freq, 1)
     best_iteration = 0
     try:
-        it = 0
+        it = start_iter
         while it < n_rounds:
             k = min(tree_batch, n_rounds - it)
             for cb in before:

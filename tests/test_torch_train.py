@@ -234,9 +234,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
     ({"tree_learner": "voting"}, "A16"),
     ({"categorical_feature": "0", "tree_learner": "voting"}, "A16"),
     ({"enable_bundle": True, "tpu_residency": "stream"}, "A14"),
-    ({"linear_tree": True, "tree_batch": 2, "nan_policy": "clip"}, "A17"),
-    ({"objective": "multiclass", "num_class": 3, "nan_policy": "clip"},
-     "A17"),
+    ({"tpu_residency": "stream", "nan_policy": "skip_iter"}, "A14"),
+    ({"tree_learner": "data", "checkpoint_dir": "checkpoints"}, "A16"),
     ({"objective": "lambdarank", "tree_batch": 3,
       "tpu_residency": "stream"}, "A14"),
     ({"objective": "huber", "tree_learner": "feature"}, "A16"),
@@ -244,10 +243,11 @@ def test_default_device_raises_without_cuda(monkeypatch):
      "A16"),
     ({"tree_learner": "data"}, "A16"),
     ({"tpu_residency": "stream"}, "A14"),
-    ({"tree_batch": 2, "checkpoint_dir": "checkpoints"}, "A17"),
-    ({"nan_policy": "raise"}, "A17"),
-    ({"checkpoint_dir": "checkpoints"}, "A17"),
-    ({"resume_from": "auto"}, "A17"),
+    ({"tree_batch": 2, "tpu_residency": "stream",
+      "checkpoint_dir": "checkpoints"}, "A14"),
+    ({"tree_learner": "feature", "nan_policy": "raise"}, "A16"),
+    ({"tpu_residency": "stream", "tpu_ingest": "device"}, "A14"),
+    ({"tree_learner": "voting", "resume_from": "auto"}, "A16"),
 ])
 def test_unported_configs_raise_with_roadmap_item(params, item):
     X, y = _nan_det()
@@ -257,12 +257,50 @@ def test_unported_configs_raise_with_roadmap_item(params, item):
         lgt.train(full, lgt.Dataset(X, label=y), num_boost_round=1)
 
 
-def test_resume_from_argument_raises_naming_a17():
+def test_resume_from_with_init_model_raises(tmp_path):
+    """The JAX engine's refusal (engine.py:164-166): a checkpoint holds the
+    whole training state, so ``init_model`` cannot be added to it."""
     X, y = _nan_det()
-    with pytest.raises(LightGBMError, match=r"ROADMAP A17\b"):
-        lgt.train({"objective": "binary", "verbose": -1, "device": "cpu"},
-                  lgt.Dataset(X, label=y), num_boost_round=1,
-                  resume_from="auto")
+    params = {"objective": "binary", "verbose": -1, "device": "cpu",
+              "checkpoint_dir": str(tmp_path)}
+    first = lgt.train(params, lgt.Dataset(X, label=y), num_boost_round=1)
+    with pytest.raises(LightGBMError, match="init_model"):
+        lgt.train(params, lgt.Dataset(X, label=y), num_boost_round=2,
+                  init_model=first, resume_from="auto")
+
+
+@pytest.mark.parametrize("params", [
+    {"linear_tree": True, "tree_batch": 2, "nan_policy": "clip"},
+    {"objective": "multiclass", "num_class": 3, "nan_policy": "clip"},
+], ids=["linear_tree", "multiclass"])
+def test_nan_policy_clip_trains_like_jax(params):
+    """Configurations the port refused before ``nan_policy`` was ported:
+    on finite input the clip guard never fires, and the port trains the
+    JAX package's trees at the bars of ``test_torch_linear.py`` and
+    ``test_torch_objectives.py`` (the multiclass case on the latter's data
+    and config): same split features and thresholds, predictions within
+    1e-5 (linear) and 1e-4 (multiclass)."""
+    from test_torch_objectives import E2E_BASE, _synthetic
+    if "num_class" in params:
+        X, labels, _ = _synthetic()
+        y = labels["multiclass"]
+        full, tol = dict(E2E_BASE, **params), 1e-4
+    else:
+        X, y = _nan_det()
+        full, tol = dict(BASE, objective="binary", **params), 1e-5
+    ref = lgb.train(dict(full, tpu_hist_f64=True),
+                    lgb.Dataset(X, label=y, params=full), num_boost_round=4)
+    ours = lgt.train(dict(full, device="cpu"),
+                     lgt.Dataset(X, label=y, params=full), num_boost_round=4,
+                     keep_training_booster=True)
+    assert ours._gbdt.nan_policy == "clip"
+    ref._ensure_finalized()
+    assert len(ours.trees) == len(ref.trees) > 0
+    for a, b in zip(ref.trees, ours.trees):
+        np.testing.assert_array_equal(b.split_feature, a.split_feature)
+        np.testing.assert_array_equal(b.threshold, a.threshold)
+    np.testing.assert_allclose(ours.predict(X), ref.predict(X), rtol=0,
+                               atol=tol)
 
 
 def test_tpu_only_keys_are_accepted_no_ops():

@@ -236,6 +236,83 @@ def test_replayed_iterations_equal_eager_ones(binary_data, case,
     assert torch.equal(gb.valid_sets[0].score, eager._gbdt.valid_sets[0].score)
 
 
+# ------------------------------------- resume and nan_policy, replayed
+
+@pytest.mark.parametrize("tree_batch", [1, 4])
+def test_replayed_resume_equals_uninterrupted(binary_data, tree_batch,
+                                              monkeypatch, tmp_path):
+    """Checkpoint and resume on the replayed path: a run stopped after 6
+    iterations and resumed from its snapshot at 4 writes the uninterrupted
+    eager run's model text; the resumed booster's first iteration runs
+    eagerly and the rest replay. ``Booster.resume`` into a booster whose
+    graphs are bound copies into their buffers (a rebind would leave the
+    replays reading the old ones)."""
+    X, y = binary_data
+    params = dict(BASE, device="cpu", tree_batch=tree_batch)
+    straight = lgt.train(params, lgt.Dataset(X, label=y),
+                         num_boost_round=10).model_to_string()
+    monkeypatch.setattr(gbdt_mod.GBDT, "_graphs_for_batch", _emulated_graphs)
+    ck = dict(params, checkpoint_dir=str(tmp_path), checkpoint_interval=4,
+              checkpoint_keep_last_n=0)
+    first = lgt.train(ck, lgt.Dataset(X, label=y), num_boost_round=6,
+                      keep_training_booster=True)
+    assert first._gbdt._graphs.trees == 5
+    resumed = lgt.train(ck, lgt.Dataset(X, label=y), num_boost_round=10,
+                        resume_from=str(tmp_path / "ckpt_0000000001.pkl"),
+                        keep_training_booster=True)
+    assert resumed._gbdt._graphs.trees == 5      # iterations 5-9
+    assert resumed.model_to_string() == straight
+    gb = first._gbdt
+    bound = gb._graphs.score
+    first.resume(str(tmp_path / "ckpt_0000000001.pkl"))
+    assert gb.score is bound and gb.iter_ == 4
+    gb.train_batch(6)
+    assert first.model_to_string() == straight
+
+
+@pytest.mark.parametrize("policy", ["skip_iter", "raise", "clip"])
+def test_replayed_nan_policy_equals_eager(policy, monkeypatch):
+    """``tests/test_tree_batch.py``'s infinite-weight input at
+    ``tree_batch=4``: the replayed guard ends as the eager one (error,
+    iteration counter, kept iterations, scores bit-equal), and on clean
+    input it adds no host read to the runner's one per tree."""
+    rng = np.random.RandomState(7)
+    X = rng.rand(400, 10).astype(np.float32)
+    y = (X[:, 0] > 0.5).astype(np.float32)
+    w = np.ones(400, np.float32)
+    w[7] = np.inf
+    params = dict(objective="binary", num_leaves=7, min_data_in_leaf=5,
+                  device="cpu", verbose=-1, nan_policy=policy,
+                  tree_batch=4, metric="none")
+
+    def run(weight):
+        bst = lgt.Booster(params=params, train_set=lgt.Dataset(
+            X, label=y, weight=weight))
+        err = None
+        try:
+            for _ in range(4):
+                bst._gbdt.train_batch(4)
+        except Exception as e:                  # noqa: BLE001
+            err = str(e)
+        return bst._gbdt, err
+
+    eager, err_e = run(w)
+    monkeypatch.setattr(gbdt_mod.GBDT, "_graphs_for_batch", _emulated_graphs)
+    replayed, err_r = run(w)
+    assert replayed._graphs is not None and replayed._graphs.trees > 0
+    assert err_r == err_e and (err_e is None) == (policy == "clip")
+    assert replayed.iter_ == eager.iter_
+    assert len(replayed.models) == len(eager.models)
+    assert torch.equal(replayed.score, eager.score)
+    assert torch.equal(replayed.bag_mask, eager.bag_mask)
+    guarded, _ = run(None)
+    params["nan_policy"] = "none"
+    plain, _ = run(None)
+    assert guarded._graphs.syncs == plain._graphs.syncs
+    assert guarded._graphs.trees == plain._graphs.trees == 15
+    assert torch.equal(guarded.score, plain.score)
+
+
 # ------------------------------------------------------------ the wave
 
 N, F, L = 2048, 6, 31
@@ -504,12 +581,20 @@ def _booster_case(case):
     elif case == "no_row_compact":
         # positions derived on the device by a sort (ops/histogram.py)
         p.update(objective="binary", tpu_row_compact=False)
+    elif case == "nan_skip_iter":
+        # the guard's flags and the gate of scores, valid scores and mask
+        p.update(objective="binary", nan_policy="skip_iter",
+                 bagging_fraction=0.7, bagging_freq=1)
+        kw["valid"] = X[:300], y[:300]
+    elif case == "nan_clip":
+        p.update(objective="regression", nan_policy="clip")
     return X, y, p, kw
 
 
 @pytest.mark.parametrize("case", ["binary", "sampled", "multiclass",
                                   "categorical", "efb", "lambdarank", "rf",
-                                  "no_row_compact"])
+                                  "no_row_compact", "nan_skip_iter",
+                                  "nan_clip"])
 def test_iteration_parts_read_nothing_on_the_host(case, monkeypatch):
     X, y, params, kw = _booster_case(case)
     ds = lgt.Dataset(X, label=y, group=kw.get("group"),
