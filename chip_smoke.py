@@ -189,8 +189,30 @@ Phases (any failure exits non-zero and prints no result line):
    ``tpu_ingest=auto`` in every phase, so phase 4's and phase 9's ``host
    binning`` lines time the mapper finding only.
 
+16. the host front ends at the main path's width (phase 4's data and
+   parameters). (a) ``Dataset.save_binary`` (host binning and write
+   seconds apart, MB; the file's codes equal to those phase 4 trained
+   from on the card), then ``task=train`` from a conf file naming the
+   binary file, through ``cli.main`` in this process (B1's launches
+   counted) and ``python -m lightgbm_tpu_torch`` in a child: both model
+   texts must be phase 4's. (b) the first 200,000 rows written as a
+   ``%.9g`` TSV (label first): pandas' reader (text files need it) and
+   ``max |parsed - original|``; ``task=predict`` from phase 4's model
+   whose ``output_result`` must equal, as printed, ``Booster.predict`` on
+   the parsed array; ``task=train`` on the TSV with
+   a 50,000-row ``valid_data`` for 2 rounds. (c) phase 4's model saved as
+   ``.json`` and ``.proto``, each loaded by ``Booster`` and
+   ``ServingEngine``: predictions on the 200,000 rows bit-equal to the
+   text model's on the device walk and in the engine; ``task=serve_bench``
+   on the ``.proto`` file (its JSON line). (d) the C shim
+   (``csrc/lgbm_capi.c``) built with ``cc`` and loaded with ``ctypes``:
+   ``LGBM_DatasetCreateFromFile`` on the binary file,
+   ``LGBM_BoosterCreate`` with phase 4's parameters and no ``device`` key,
+   ten ``LGBM_BoosterUpdateOneIter``, ``LGBM_BoosterSaveModel``: phase 4's
+   model text, B1 launched; a missing ``Python.h`` fails the phase.
+
 ``--phases 3,11`` runs only the listed phases (and those they need: 5-7
-and 12-15 add phase 4); such a partial run prints no result lines and
+and 12-16 add phase 4); such a partial run prints no result lines and
 exits 4.
 
 The card's line comes before the last two lines; the line before the last
@@ -748,8 +770,14 @@ def main_path_phase():
             fail(f"max_bin {max_bin}: the histogram kernel never launched")
         if (max_bin > 255) != (codes == torch.int16):
             fail(f"max_bin {max_bin}: {codes} codes on the card")
+    # the codes the card trained from (device-ingested when the dataset
+    # was deferred), for phase 16's binary file
+    codes_digest = hashlib.sha256(
+        again._gbdt.Xb.cpu().numpy().tobytes()).hexdigest()
     return dict(launches=launches, ms_per_iter=ms_per_iter, auc=auc,
-                booster=again, data=(ds, X, y), text=text, digest=digest)
+                booster=again, data=(ds, X, y), text=text, digest=digest,
+                codes_digest=codes_digest,
+                ingested=again._gbdt._ingest_report is not None)
 
 
 # the profiler ranges grower.py opens around each wave step
@@ -3086,7 +3114,293 @@ def _straight_k8(mres):
     return text
 
 
-PHASES = tuple(range(1, 16))
+FRONT_ROWS = 200_000               # phase 16's text cut
+FRONT_VALID = 50_000               # ... and its valid file
+
+
+def _conf_file(path, params):
+    with open(path, "w") as fh:
+        for k, v in params.items():
+            fh.write(f"{k} = {v}\n")
+
+
+def _cli_in_process(argv):
+    """``cli.main(argv)``: (exit code, seconds, B1 launches in the call)."""
+    from lightgbm_tpu_torch import cli
+    from lightgbm_tpu_torch.ops.cuda_histogram import launch_count
+    before = launch_count()
+    t0 = time.perf_counter()
+    rc = cli.main(list(argv))
+    return rc, time.perf_counter() - t0, launch_count() - before
+
+
+def _file_digest(path):
+    with open(path) as fh:
+        return text_digest(fh.read())
+
+
+def _same_floats(a, b):
+    """Bit-equal float arrays (NaN where the other has NaN)."""
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def binary_and_cli_leg(mres, tmp):
+    """(a) ``save_binary``, then ``task=train`` from the binary file through
+    ``cli.main`` in this process and ``python -m lightgbm_tpu_torch`` in a
+    child: both model texts must be phase 4's."""
+    import lightgbm_tpu_torch as lgt
+    _, X, y = mres["data"]
+    bin_path = os.path.join(tmp, "train.bin")
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X, label=y)
+    ds.construct(lgt.Config.from_params(MAIN_PARAMS))
+    t1 = time.perf_counter()
+    deferred = ds.constructed.deferred
+    codes = ds.constructed.X_binned     # bins deferred rows on the host
+    t2 = time.perf_counter()
+    ds.save_binary(bin_path)
+    t3 = time.perf_counter()
+    mb = os.path.getsize(bin_path) / 1e6
+    loaded = lgt.Dataset(bin_path)
+    loaded.construct()
+    t4 = time.perf_counter()
+    file_codes = loaded.constructed.X_binned
+    same_codes = hashlib.sha256(
+        file_codes.tobytes()).hexdigest() == mres["codes_digest"]
+    print(f"  save_binary: construct {t1 - t0:.2f} s (deferred {deferred}), "
+          f"host binning {t2 - t1:.3f} s, write {t3 - t2:.3f} s, {mb:.2f} "
+          f"MB; load {t4 - t3:.3f} s; file's {file_codes.dtype} codes "
+          f"equal to the codes phase 4 trained from (device-ingested "
+          f"{mres['ingested']}) {same_codes}", flush=True)
+    if not same_codes:
+        fail("the binary file's codes differ from phase 4's")
+    del codes, file_codes
+    del ds, loaded
+    conf = os.path.join(tmp, "train.conf")
+    _conf_file(conf, dict(MAIN_PARAMS, task="train", data=bin_path,
+                          num_iterations=10,
+                          output_model=os.path.join(tmp, "model.txt")))
+    rc, secs, launches = _cli_in_process([f"config={conf}"])
+    digest = _file_digest(os.path.join(tmp, "model.txt"))
+    print(f"  cli.main(config=train.conf) in process: exit {rc}, {secs:.2f} s "
+          f"(load + 10 rounds), B1 launches {launches}, model text sha256 "
+          f"{digest}, phase 4's {digest == mres['digest']}", flush=True)
+    if rc != 0 or digest != mres["digest"]:
+        fail("the CLI's model from the binary file is not phase 4's")
+    if launches <= 0:
+        fail("the CLI's training never launched the histogram kernel")
+    sub_model = os.path.join(tmp, "model_sub.txt")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lightgbm_tpu_torch", f"config={conf}",
+         f"output_model={sub_model}"], cwd=HERE, env=env,
+        capture_output=True, text=True, timeout=300)
+    sub_s = time.perf_counter() - t0
+    sub_digest = _file_digest(sub_model) if proc.returncode == 0 else None
+    print(f"  python -m lightgbm_tpu_torch config=train.conf: exit "
+          f"{proc.returncode}, {sub_s:.2f} s of process, phase 4's model "
+          f"{sub_digest == mres['digest']}", flush=True)
+    if proc.returncode != 0 or sub_digest != mres["digest"]:
+        fail(f"python -m lightgbm_tpu_torch failed or trained another "
+             f"model:\n{proc.stderr[-3000:]}")
+    return dict(launches=launches, bin_path=bin_path, save_s=t3 - t2,
+                bin_s=t2 - t1, construct_s=t1 - t0, load_s=t4 - t3, mb=mb,
+                cli_s=secs, sub_s=sub_s)
+
+
+def text_cli_leg(mres, tmp):
+    """(b) a tab-separated cut: the reader's parse against the array,
+    ``task=predict`` against ``Booster.predict`` on the reader's own array,
+    and ``task=train`` with a 2-round ``valid_data``."""
+    import numpy as np
+    import lightgbm_tpu_torch as lgt
+    import pandas
+    from lightgbm_tpu_torch.io.file_io import load_data_file
+    _, X, y = mres["data"]
+    rows = FRONT_ROWS + FRONT_VALID
+    tsv, vtsv = os.path.join(tmp, "cut.tsv"), os.path.join(tmp, "valid.tsv")
+    t0 = time.perf_counter()
+    for path, sl in ((tsv, slice(0, FRONT_ROWS)),
+                     (vtsv, slice(FRONT_ROWS, rows))):
+        np.savetxt(path, np.column_stack([y[sl], X[sl]]), fmt="%.9g",
+                   delimiter="\t")
+    t1 = time.perf_counter()
+    Xp, yp, _ = load_data_file(tsv, {})
+    t2 = time.perf_counter()
+    orig = np.asarray(X[:FRONT_ROWS], np.float64)
+    nan_same = bool(np.array_equal(np.isnan(Xp), np.isnan(orig)))
+    err = float(np.nanmax(np.abs(Xp - orig)))
+    print(f"  {FRONT_ROWS} x {X.shape[1]} written as %.9g TSV in "
+          f"{t1 - t0:.2f} s; reader pandas {pandas.__version__}: parsed in "
+          f"{t2 - t1:.3f} s, max |parsed - original| {err:.3e}, NaN cells "
+          f"equal {nan_same}, labels equal "
+          f"{bool(np.array_equal(yp, y[:FRONT_ROWS]))}", flush=True)
+    if not nan_same or not err <= 1e-6 * float(np.nanmax(np.abs(orig))):
+        fail("the text reader does not give back the written values")
+    model = os.path.join(tmp, "model.txt")
+    out = os.path.join(tmp, "pred.txt")
+    rc, secs, _ = _cli_in_process([
+        "task=predict", f"data={tsv}", f"input_model={model}",
+        f"output_result={out}", "verbose=-1"])
+    with open(out) as fh:
+        printed = fh.read().splitlines()
+    bst = lgt.Booster(model_file=model)
+    want = [f"{v:.18g}" for v in bst.predict(Xp)]
+    same = printed == want
+    print(f"  cli task=predict: exit {rc}, {secs:.2f} s, output_result equal "
+          f"to Booster.predict on the parsed array {same} ({len(printed)} "
+          f"lines)", flush=True)
+    if rc != 0 or not same:
+        fail("task=predict differs from Booster.predict")
+    text_model = os.path.join(tmp, "model_text.txt")
+    rc, secs, launches = _cli_in_process([
+        "task=train", f"data={tsv}", f"valid_data={vtsv}", "metric=auc",
+        "num_iterations=2", f"output_model={text_model}",
+        *(f"{k}={v}" for k, v in MAIN_PARAMS.items())])
+    trees = lgt.Booster(model_file=text_model).num_trees()
+    print(f"  cli task=train on the TSV with a {FRONT_VALID}-row valid_data, "
+          f"2 rounds: exit {rc}, {secs:.2f} s, {trees} trees, B1 launches "
+          f"{launches}", flush=True)
+    if rc != 0 or trees != 2 or launches <= 0:
+        fail("task=train on the text file failed")
+    return dict(launches=launches, Xp=Xp, tsv=tsv,
+                parse_s=t2 - t1, max_err=err)
+
+
+def model_formats_leg(mres, tmp, tres):
+    """(c) phase 4's model as .json and .proto: loaded by ``Booster`` and by
+    ``ServingEngine``, predicting bit-equal to the text model; a short
+    ``task=serve_bench`` on the .proto file."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.serving import ServingEngine
+    Xp = tres["Xp"]
+    text_path = os.path.join(tmp, "model.txt")
+    base = lgt.Booster(model_file=text_path)
+    t0 = time.perf_counter()
+    want = base.predict(Xp)
+    walk_ms = (time.perf_counter() - t0) * 1e3
+    eng = ServingEngine(text_path)
+    want_eng = eng.predict(Xp)
+    eng.close()
+    print(f"  text model: Booster.predict of {len(Xp)} rows {walk_ms:.1f} ms "
+          f"(device walk), ServingEngine equal to it "
+          f"{_same_floats(want, want_eng)}", flush=True)
+    for ext in ("json", "proto"):
+        path = os.path.join(tmp, f"model.{ext}")
+        t0 = time.perf_counter()
+        base.save_model(path)
+        t1 = time.perf_counter()
+        bst = lgt.Booster(model_file=path)
+        t2 = time.perf_counter()
+        walk = bst.predict(Xp)
+        eng = ServingEngine(path)
+        served = eng.predict(Xp)
+        eng.close()
+        ok = _same_floats(walk, want) and _same_floats(served, want_eng)
+        print(f"  .{ext}: save {(t1 - t0) * 1e3:.1f} ms, "
+              f"{os.path.getsize(path) / 1e6:.3f} MB, load "
+              f"{(t2 - t1) * 1e3:.1f} ms; device walk bit-equal to the text "
+              f"model {_same_floats(walk, want)}, ServingEngine bit-equal "
+              f"{_same_floats(served, want_eng)}", flush=True)
+        if not ok:
+            fail(f"the .{ext} model predicts differently from the text model")
+    rc, secs, _ = _cli_in_process([
+        "task=serve_bench", f"input_model={os.path.join(tmp, 'model.proto')}",
+        f"data={tres['tsv']}", "verbose=-1"])
+    print(f"  cli task=serve_bench on model.proto: exit {rc}, {secs:.2f} s "
+          f"(its JSON line above)", flush=True)
+    if rc != 0:
+        fail("task=serve_bench failed")
+
+
+def c_api_leg(mres, bres):
+    """(d) the port's C shim built with cc and loaded with ctypes:
+    ``LGBM_DatasetCreateFromFile`` on the binary file, ``LGBM_BoosterCreate``
+    with the main path's parameters (no ``device`` key),
+    ``LGBM_BoosterUpdateOneIter`` x10, ``LGBM_BoosterSaveModel``."""
+    import ctypes
+    import sysconfig
+    from lightgbm_tpu_torch import capi_shim
+    from lightgbm_tpu_torch.ops.cuda_histogram import launch_count
+    include = sysconfig.get_paths()["include"]
+    print(f"  Python.h under {include}: "
+          f"{os.path.exists(os.path.join(include, 'Python.h'))}; "
+          f"python3-config {capi_shim.python_config()}", flush=True)
+    try:
+        path, secs = capi_shim.build_shim()
+    except RuntimeError as e:
+        fail(f"the C API shim does not build: {e}")
+    lib = capi_shim.load_shim()
+    print(f"  built {os.path.relpath(path, HERE)} in {secs:.2f} s",
+          flush=True)
+
+    def check(ret, what):
+        if ret != 0:
+            fail(f"{what}: {lib.LGBM_GetLastError().decode()}")
+
+    model = os.path.join(os.path.dirname(bres["bin_path"]), "model_capi.txt")
+    params = " ".join(f"{k}={v}" for k, v in MAIN_PARAMS.items()).encode()
+    before = launch_count()
+    t0 = time.perf_counter()
+    ds, bst, fin = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_int()
+    check(lib.LGBM_DatasetCreateFromFile(bres["bin_path"].encode(), b"",
+                                         None, ctypes.byref(ds)),
+          "LGBM_DatasetCreateFromFile")
+    check(lib.LGBM_BoosterCreate(ds, params, ctypes.byref(bst)),
+          "LGBM_BoosterCreate")
+    for _ in range(10):
+        check(lib.LGBM_BoosterUpdateOneIter(bst, ctypes.byref(fin)),
+              "LGBM_BoosterUpdateOneIter")
+    check(lib.LGBM_BoosterSaveModel(bst, 0, model.encode()),
+          "LGBM_BoosterSaveModel")
+    secs = time.perf_counter() - t0
+    launches = launch_count() - before
+    check(lib.LGBM_BoosterFree(bst), "LGBM_BoosterFree")
+    check(lib.LGBM_DatasetFree(ds), "LGBM_DatasetFree")
+    digest = _file_digest(model)
+    print(f"  C API (hosted, ctypes): dataset from train.bin, 10 "
+          f"UpdateOneIter, SaveModel in {secs:.2f} s; B1 launches "
+          f"{launches}; model text phase 4's {digest == mres['digest']}",
+          flush=True)
+    if digest != mres["digest"]:
+        fail("the C API's model is not phase 4's")
+    if launches <= 0:
+        fail("the C API's training never launched the histogram kernel")
+    return dict(launches=launches, secs=secs)
+
+
+def front_end_phase(mres):
+    """Phase 16: the host front ends at the main path's width."""
+    import tempfile
+    import torch
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_16_")
+    legs = {}
+    for name, fn in (("a", lambda: binary_and_cli_leg(mres, tmp)),
+                     ("b", lambda: text_cli_leg(mres, tmp)),
+                     ("c", lambda: model_formats_leg(mres, tmp, legs["b"])),
+                     ("d", lambda: c_api_leg(mres, legs["a"]))):
+        print(f"  ({name})", flush=True)
+        t0 = time.perf_counter()
+        legs[name] = fn()
+        print(f"  ({name}) took {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches = legs["a"]["launches"] + legs["b"]["launches"] \
+        + legs["d"]["launches"]
+    print(f"  histogram kernel launches in phase 16: {launches} (CLI "
+          f"{legs['a']['launches']}, text train {legs['b']['launches']}, "
+          f"C API {legs['d']['launches']})", flush=True)
+    return dict(launches=launches)
+
+
+PHASES = tuple(range(1, 17))
 
 
 def main():
@@ -3113,8 +3427,8 @@ def main():
     dev = torch.device("cuda", 0)
     want = set(PHASES) if not args.phases else \
         {int(p) for p in args.phases.split(",")}
-    # phases 5-7 and 12-15 run on phase 4's data and booster
-    if want & {5, 6, 7, 12, 13, 14, 15}:
+    # phases 5-7 and 12-16 run on phase 4's data and booster
+    if want & {5, 6, 7, 12, 13, 14, 15, 16}:
         want.add(4)
 
     print("phase 1: card", flush=True)
@@ -3220,6 +3534,14 @@ def main():
         nres = ingest_checkpoint_phase(mres, bres if 13 in want else None,
                                        dev)
 
+    fres = none
+    if 16 in want:
+        print(f"phase 16: the host front ends at the main path's width "
+              f"(2M x 28, 255 leaves): binary dataset and the CLI, a "
+              f"{FRONT_ROWS}-row TSV, JSON and proto models, the C API",
+              flush=True)
+        fres = front_end_phase(mres)
+
     if want != set(PHASES):
         print(f"partial run of phases {sorted(want)}: no result lines",
               flush=True)
@@ -3231,7 +3553,7 @@ def main():
           f"{rres['launches']}, phase 10 {xres['launches']}, phase 11 "
           f"{eres['launches']}, phase 12 {lres['launches']}, phase 13 "
           f"{bres['launches']}, phase 14 {vres['launches']}, phase 15 "
-          f"{nres['launches']}", flush=True)
+          f"{nres['launches']}, phase 16 {fres['launches']}", flush=True)
 
     full = kres["full"]
     kernels = {"kernels": [{
@@ -3242,7 +3564,7 @@ def main():
         + sres["goss_launches"] + cres["launches"] + gres["launches"]
         + rres["launches"] + xres["launches"] + eres["launches"]
         + lres["launches"] + bres["launches"] + vres["launches"]
-        + nres["launches"],
+        + nres["launches"] + fres["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kres.values()),
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
@@ -3259,7 +3581,7 @@ def main():
             "9": rres["launches"], "10": xres["launches"],
             "11": eres["launches"], "12": lres["launches"],
             "13": bres["launches"], "14": vres["launches"],
-            "15": nres["launches"]},
+            "15": nres["launches"], "16": fres["launches"]},
     }]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

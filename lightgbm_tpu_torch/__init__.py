@@ -16,7 +16,10 @@ groups) or custom gradients, bagging and feature_fraction with
 sklearn wrappers, ``tree_learner=serial``, dense or ``scipy.sparse``
 numerical and categorical features (NaN handling included), EFB
 (``enable_bundle``), piecewise-linear leaves (``linear_tree``), data
-resident on the device. Everything else raises with its ROADMAP item.
+resident on the device; CSV / TSV / LibSVM and binary dataset files, text,
+proto and JSON model files, C++ and PMML export, plotting, the command line
+(``python -m lightgbm_tpu_torch``) and the C API (``capi_impl.py`` behind
+``csrc/lgbm_capi.c``). Everything else raises with its ROADMAP item.
 """
 
 __version__ = "0.1.0"
@@ -26,6 +29,8 @@ from .callback import (early_stopping, log_evaluation, print_evaluation,
                        record_evaluation, reset_parameter)
 from .config import Config
 from .engine import cv, train
+from .plotting import (create_tree_digraph, plot_importance, plot_metric,
+                       plot_tree)
 from .utils.log import LightGBMError
 
 _SKLEARN_NAMES = ("LGBMModel", "LGBMClassifier", "LGBMRegressor",
@@ -44,4 +49,5 @@ def __getattr__(name):
 __all__ = ["Booster", "Config", "Dataset", "LightGBMError", "cv",
            "early_stopping", "log_evaluation", "print_evaluation",
            "record_evaluation", "reset_parameter", "train",
-           *_SKLEARN_NAMES]
+           "plot_importance", "plot_metric", "plot_tree",
+           "create_tree_digraph", *_SKLEARN_NAMES]

@@ -76,16 +76,44 @@ class Dataset:
     categorical features binned on the host at first use, with optional
     query sizes (``group``). A set built with ``reference=`` (a validation
     set) is binned with the reference's mappers (the analog of
-    LoadFromFileAlignWithOtherDataset)."""
+    LoadFromFileAlignWithOtherDataset). ``data`` may also be a file path:
+    CSV, TSV or LibSVM text (``io/file_io.py``; ``two_round`` streams it
+    in two passes) or a binary dataset file written by either package."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, group=None, init_score=None,
                  feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = False, silent: bool = False):
+        self._binary_path: Optional[str] = None
+        self._stream_path: Optional[str] = None
         if isinstance(data, str):
-            Log.fatal("loading data files is not ported to "
-                      "lightgbm_tpu_torch yet (ROADMAP A18)")
+            # a file (lightgbm_tpu/basic.py:74-140): a binary dataset file
+            # (auto-detected, dataset_loader.cpp:265), a two-round load
+            # deferred to construct(), or CSV / TSV / LibSVM text with its
+            # label, side columns and side files
+            from .config import _parse_bool, resolve_aliases
+            from .io.file_io import is_binary_dataset, load_data_file
+            resolved = resolve_aliases(dict(params or {}))
+            if is_binary_dataset(data):
+                self._binary_path = data
+                data = np.zeros((0, 1))
+            elif _parse_bool(resolved.get("use_two_round_loading", False),
+                             "use_two_round_loading"):
+                self._stream_path = data
+                data = np.zeros((0, 1))
+            else:
+                data, file_label, side = load_data_file(data, resolved)
+                if label is None:
+                    label = file_label
+                if weight is None:
+                    weight = side.get("weight")
+                if group is None:
+                    group = side.get("group")
+                if init_score is None:
+                    init_score = side.get("init_score")
+                if feature_name == "auto" and side.get("feature_names"):
+                    feature_name = side["feature_names"]
         self.pandas_categorical = None
         inferred_names = None
         if _is_frame(data):
@@ -123,6 +151,21 @@ class Dataset:
     def construct(self, config: Optional[Config] = None) -> "Dataset":
         if self._constructed is not None or self._binned_aligned is not None:
             return self
+        if self._binary_path is not None:
+            # host codes from the file: no ingest
+            self._constructed = ConstructedDataset.load_binary(
+                self._binary_path)
+            self.label = self._constructed.metadata.label
+            return self
+        if self._stream_path is not None:
+            from .io.file_io import stream_construct_dataset
+            self._constructed = stream_construct_dataset(
+                self._stream_path, config or Config.from_params(self.params),
+                feature_names=None if self.feature_name in (None, "auto")
+                else self.feature_name,
+                categorical_features=self.categorical_feature)
+            self.label = self._constructed.metadata.label
+            return self
         if self.reference is not None:
             ref = self.reference
             ref.construct(config)
@@ -152,11 +195,17 @@ class Dataset:
         return self._constructed
 
     def num_data(self) -> int:
+        if self._constructed is None and (self._binary_path
+                                          or self._stream_path):
+            self.construct()
         if self._constructed is not None:
             return self._constructed.num_data
         return self.raw_data.shape[0]
 
     def num_feature(self) -> int:
+        if self._constructed is None and (self._binary_path
+                                          or self._stream_path):
+            self.construct()
         if self._constructed is not None:
             return self._constructed.num_total_features
         return self.raw_data.shape[1]
@@ -243,6 +292,60 @@ class Dataset:
         self.reference = reference
         return self
 
+    def get_ref_chain(self, ref_limit: int = 100):
+        """Set of datasets reachable through ``.reference`` links
+        (reference basic.py:878)."""
+        head, chain = self, set()
+        while head is not None and len(chain) < ref_limit:
+            if head in chain:
+                break
+            chain.add(head)
+            head = head.reference
+        return chain
+
+    def set_feature_name(self, feature_name) -> "Dataset":
+        """Rename the features (``lightgbm_tpu/basic.py:283-300``); the
+        count must match, and a constructed set renames in place."""
+        if feature_name is not None and feature_name != "auto":
+            feature_name = list(feature_name)
+            if self._constructed is not None:
+                nf = self._constructed.num_total_features
+            elif self.raw_data is not None and self.raw_data.shape[0] > 0:
+                nf = self.raw_data.shape[1]
+            else:           # a file's placeholder, before construction
+                nf = None
+            if nf is not None and len(feature_name) != nf:
+                raise ValueError(
+                    f"Length of feature_name ({len(feature_name)}) does "
+                    f"not equal the number of features ({nf})")
+            self.feature_name = feature_name
+            if self._constructed is not None:
+                self._constructed.feature_names = list(feature_name)
+        return self
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        """Must precede construction, as binning depends on it
+        (``lightgbm_tpu/basic.py:302-316``); ``"auto"`` keeps the setting."""
+        if isinstance(categorical_feature, str) and \
+                categorical_feature == "auto":
+            return self
+        old = self.categorical_feature
+        same = (categorical_feature is old
+                or (old is not None and categorical_feature is not None
+                    and list(categorical_feature) == list(old)))
+        if (self._constructed is not None
+                or self._binned_aligned is not None) and not same:
+            raise ValueError("Cannot change categorical_feature after the "
+                             "dataset was constructed")
+        self.categorical_feature = categorical_feature
+        return self
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the binned set in the JAX package's binary format
+        (``ConstructedDataset.save_binary``)."""
+        self.constructed.save_binary(filename)
+        return self
+
     def create_valid(self, data, label=None, weight=None, group=None,
                      init_score=None, params=None) -> "Dataset":
         return Dataset(data, label=label, reference=self, weight=weight,
@@ -309,6 +412,7 @@ class Booster:
         self._synced_mutations = -1
         self._train_data_name = "training"
         self._valid_registry: List = []      # (Dataset, name) identity pairs
+        self._attr: Dict[str, str] = {}
         if model_file is not None:
             from .io.model_text import load_model_file
             load_model_file(self, model_file)
@@ -757,7 +861,58 @@ class Booster:
         self._train_data_name = name
         return self
 
+    # -- attributes (reference basic.py:1932-1969: in-memory k/v store) ------
+
+    def attr(self, key: str):
+        return self._attr.get(key)
+
+    def set_attr(self, **kwargs) -> "Booster":
+        for k, v in kwargs.items():
+            if v is None:
+                self._attr.pop(k, None)
+            else:
+                self._attr[k] = str(v)
+        return self
+
+    # -- network (reference basic.py:1374-1399) ------------------------------
+
+    def set_network(self, machines, local_listen_port: int = 12400,
+                    listen_time_out: int = 120,
+                    num_machines: int = 1) -> "Booster":
+        """Record the distributed wiring params (reference SetNetwork), as
+        the JAX package does with one machine. More than one machine is
+        multi-GPU training, which is not ported yet (ROADMAP A16)."""
+        if int(num_machines) > 1:
+            Log.fatal("set_network with num_machines=%d: multi-GPU training "
+                      "is not ported to lightgbm_tpu_torch yet (ROADMAP "
+                      "A16)", int(num_machines))
+        if not isinstance(machines, str):
+            machines = ",".join(machines)
+        self.params.update(machines=machines,
+                           local_listen_port=local_listen_port,
+                           time_out=listen_time_out,
+                           num_machines=num_machines)
+        self.config = Config.from_params(self.params)
+        if self._gbdt is not None:
+            Log.warning("set_network after training setup applies to the "
+                        "next training, not the current booster")
+        return self
+
+    def free_network(self) -> "Booster":
+        for k in ("machines", "local_listen_port", "time_out",
+                  "num_machines"):
+            self.params.pop(k, None)
+        self.config = Config.from_params(self.params)
+        return self
+
     # -- model io ------------------------------------------------------------
+
+    def dump_model(self, num_iteration: Optional[int] = None) -> Dict:
+        """The JSON model dict (reference GBDT::DumpModel;
+        ``io/model_json.py``)."""
+        from .io.model_json import dump_model_dict
+        self._ensure_finalized()
+        return dump_model_dict(self, num_iteration)
 
     def save_model(self, filename: str,
                    num_iteration: Optional[int] = None) -> "Booster":
@@ -791,3 +946,24 @@ class Booster:
 
     def num_feature(self) -> int:
         return int(self.num_total_features)
+
+    def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
+        """Output value of one leaf (reference basic.py:1746 /
+        LGBM_BoosterGetLeafValue)."""
+        self._ensure_finalized()
+        return float(self.trees[tree_id].leaf_value[leaf_id])
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state.pop("_gbdt", None)
+        state.pop("train_dataset", None)
+        # the stacked forests hold device tensors; the registry holds live
+        # Datasets: both are rebuilt after unpickling
+        state.pop("_stacked_cache", None)
+        state["_valid_registry"] = []
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._gbdt = None
+        self._stacked_cache = LRUCache(capacity=4)

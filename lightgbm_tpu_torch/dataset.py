@@ -24,12 +24,15 @@ Deferred binning (``tpu_ingest=device|auto``,
 ``DeferredBinning`` in place of the code matrix; the booster bins them on
 its device (``ops/ingest.py``). ``X_binned`` then bins on the host only if
 something reads it, and ``bin_rows`` gives host codes of chosen rows
-without doing so. Valid sets are binned on the host. Left out (it raises,
-ROADMAP A18): file input.
+without doing so. Valid sets are binned on the host. Text files
+(``io/file_io.py``) and binary dataset files (``save_binary`` /
+``load_binary``, the JAX package's format) come in through ``basic.Dataset``;
+a set loaded from a binary file trains from its host codes.
 """
 from __future__ import annotations
 
 import os
+import pickle
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -212,14 +215,17 @@ class ConstructedDataset(MetadataDuckTyping):
             self.mappers[inner].value_to_bin(sub[:, real], out=out[:, inner])
         return out
 
+    def _host_codes(self) -> np.ndarray:
+        """The deferred rows binned through the host oracle."""
+        return bin_dense_host(self._deferred.raw, self.mappers,
+                              np.asarray(self.real_feature_idx, np.int64),
+                              self._shape[0], self._code_dtype)
+
     def _materialize_host(self) -> np.ndarray:
-        d = self._deferred
         Log.info("deferred binning: materializing host X_binned "
                  "(%d x %d %s) through the host oracle",
                  self._shape[0], self._shape[1], self._code_dtype)
-        X = bin_dense_host(d.raw, self.mappers,
-                           np.asarray(self.real_feature_idx, np.int64),
-                           self._shape[0], self._code_dtype)
+        X = self._host_codes()
         self._deferred = None
         return X
 
@@ -255,6 +261,55 @@ class ConstructedDataset(MetadataDuckTyping):
         return int(self.num_bins_per_feature.max()) if len(self.mappers) \
             else 1
 
+    # -- binary serialization (reference: Dataset::SaveBinaryFile,
+    #    dataset.cpp:496; auto-detect load, dataset_loader.cpp:265) ----------
+
+    def save_binary(self, path: str) -> None:
+        """The JAX package's file (``lightgbm_tpu/dataset.py:331-348``): the
+        same pickled keys and ``format`` tag. A deferred dataset's codes are
+        binned on the host for the file (the codes host binning gives)
+        and the dataset stays deferred."""
+        codes = self._X_binned if self._X_binned is not None \
+            else self._host_codes()
+        with open(path, "wb") as fh:
+            pickle.dump({
+                "format": BINARY_FORMAT,
+                "X_binned": codes,
+                "mappers": self.mappers,
+                "real_feature_idx": self.real_feature_idx,
+                "num_total_features": self.num_total_features,
+                "feature_names": self.feature_names,
+                "label": self.metadata.label,
+                "weight": self.metadata.weight,
+                "query_boundaries": self.metadata.query_boundaries,
+                "init_score": self.metadata.init_score,
+                "config": self.config.to_dict(),
+                "X_raw": self.X_raw,
+            }, fh, protocol=pickle.HIGHEST_PROTOCOL)
+
+    @classmethod
+    def load_binary(cls, path: str) -> "ConstructedDataset":
+        """Read a binary dataset file written by either package
+        (``lightgbm_tpu/dataset.py:350-366``) through
+        :class:`_BinaryDatasetUnpickler`: the JAX package's
+        ``lightgbm_tpu.binning.BinMapper`` becomes this package's copy, and
+        ``lightgbm_tpu`` is never imported."""
+        with open(path, "rb") as fh:
+            blob = _BinaryDatasetUnpickler(fh).load()
+        if not isinstance(blob, dict) or blob.get("format") != BINARY_FORMAT:
+            Log.fatal("Not a lightgbm_tpu binary dataset file: %s", path)
+        meta = Metadata(blob["X_binned"].shape[0])
+        meta.set_label(blob["label"])
+        meta.set_weight(blob["weight"])
+        meta.query_boundaries = blob["query_boundaries"]
+        meta.init_score = blob["init_score"]
+        features = [FeatureInfo(int(r), m)
+                    for r, m in zip(blob["real_feature_idx"], blob["mappers"])]
+        ds = cls(blob["X_binned"], features, blob["num_total_features"], meta,
+                 blob["feature_names"], Config.from_params(blob["config"]))
+        ds.X_raw = blob.get("X_raw")   # present iff saved under linear_tree
+        return ds
+
     def feature_meta_arrays(self) -> Dict[str, np.ndarray]:
         """Static per-feature arrays consumed by the split scan."""
         missing_code = np.array(
@@ -267,6 +322,33 @@ class ConstructedDataset(MetadataDuckTyping):
         return {"is_categorical": is_categorical,
                 "missing_code": missing_code, "default_bin": default_bin,
                 "num_bins": self.num_bins_per_feature}
+
+
+BINARY_FORMAT = "lightgbm_tpu.dataset.v1"
+
+
+class _BinaryDatasetUnpickler(pickle.Unpickler):
+    """Unpickler of binary dataset files: builtins and numpy arrays, dtypes
+    and scalars (``robustness/checkpoint.py``'s set), plus the bin mapper
+    class of either package, which both load as this package's
+    :class:`BinMapper` (the two have the same attributes); any other
+    global is refused before its module is imported."""
+
+    _MAPPERS = (("lightgbm_tpu.binning", "BinMapper"),
+                ("lightgbm_tpu_torch.binning", "BinMapper"))
+
+    def find_class(self, module: str, name: str):
+        from .robustness.checkpoint import _SAFE_BUILTINS, _SAFE_NUMPY
+        if (module, name) in self._MAPPERS:
+            return BinMapper
+        if module == "builtins" and name in _SAFE_BUILTINS:
+            return super().find_class(module, name)
+        if (module, name) in _SAFE_NUMPY or (
+                module in ("numpy", "numpy.dtypes") and name.endswith("DType")):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"the binary dataset file holds {module}.{name}: a binary "
+            f"dataset holds builtins, numpy arrays and bin mappers only")
 
 
 def _parse_column_spec(spec: str, feature_names: List[str]) -> List[int]:

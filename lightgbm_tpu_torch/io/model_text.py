@@ -1,7 +1,8 @@
 """LightGBM text model format, round-trippable with the reference — a copy
 of ``lightgbm_tpu/io/model_text.py``, so a model trained by either package
-loads in the other. The proto and JSON formats are not ported yet (ROADMAP
-A7) and raise.
+loads in the other. ``save_model_file`` and ``load_model_file`` dispatch
+``.proto`` names (or ``model_format=proto``) to ``model_proto.py`` and
+``.json`` names to ``model_json.py``, as the JAX package's do.
 
 Writers/readers for the `Tree=i` block format of
 src/boosting/gbdt_model_text.cpp:169-239 (SaveModelToString) /
@@ -162,15 +163,18 @@ def model_to_string(booster, num_iteration: Optional[int] = None) -> str:
     return "\n".join(ss)
 
 
-def _text_format_only(filename: str, params: dict) -> None:
-    if (str(filename).endswith((".proto", ".json"))
-            or params.get("model_format") == "proto"):
-        Log.fatal("proto and JSON model files are not ported to "
-                  "lightgbm_tpu_torch yet (ROADMAP A7): %s", filename)
-
-
 def save_model_file(booster, filename: str, num_iteration: Optional[int] = None) -> None:
-    _text_format_only(filename, booster.params)
+    if booster.config.model_format == "proto" or str(filename).endswith(".proto"):
+        from .model_proto import save_model_proto
+        save_model_proto(booster, filename, num_iteration)
+        return
+    if str(filename).endswith(".json"):
+        # mirror of the loader's .json dispatch: a model SAVED under a
+        # .json name must be the dump_model artifact the loader parses —
+        # writing text here would break its own round trip
+        from .model_json import save_model_json
+        save_model_json(booster, filename, num_iteration)
+        return
     # atomic write: every rank of a distributed run saves (the reference's
     # behavior — each machine keeps a local copy), and same-host ranks must
     # not interleave into a truncated file; tmp-per-pid + rename means the
@@ -312,6 +316,15 @@ def load_model_string(booster, model_str: str) -> None:
 
 
 def load_model_file(booster, filename: str) -> None:
-    _text_format_only(filename, booster.params)
+    if str(filename).endswith(".proto") or booster.params.get("model_format") == "proto":
+        from .model_proto import load_model_proto
+        load_model_proto(booster, filename)
+        return
+    if str(filename).endswith(".json"):
+        # dump_model() artifact — re-hydrated so the serving engine (and
+        # Booster(model_file=...)) ingest JSON next to text/proto
+        from .model_json import load_model_json
+        load_model_json(booster, filename)
+        return
     with open(filename, "r") as fh:
         load_model_string(booster, fh.read())

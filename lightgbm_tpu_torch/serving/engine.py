@@ -273,9 +273,10 @@ class ServingEngine:
 
     @staticmethod
     def _load_booster(model, params: Optional[Dict]):
-        """A ``Booster`` (``params`` merged into its config) or a text model
-        file; proto and JSON files raise naming ROADMAP A7
-        (``io/model_text.load_model_file``)."""
+        """A ``Booster`` (``params`` merged into its config) or a model
+        file: text, proto or JSON, through the one format dispatcher
+        ``io/model_text.load_model_file`` (the JAX engine's,
+        ``lightgbm_tpu/serving/engine.py:179-182``)."""
         from ..basic import Booster
         if isinstance(model, Booster):
             booster = model
