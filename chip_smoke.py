@@ -37,8 +37,14 @@ Phases (any failure exits non-zero and prints no result line):
    graph and replays it with 25 leaves holding every row (n_active = N),
    25 empty leaves (n_active = 0) and 10% of the rows in 25 of 250 leaves,
    each replay required bit-equal to the plain version; the first layout's
-   replay is timed. A child process then feeds the kernel a bin code >= B
-   and must see a device-side assert, not a silently dropped row;
+   replay is timed. ``stream`` folds the ``wrapper`` case's pass over 8
+   shards of 250,000 rows, each in a code buffer of its own, into one
+   accumulator (B11: a memset, one ``hist_kernel`` per shard at its row
+   offset, one ``finalize_kernel``), required bit-equal to the plain
+   one-pass histogram and counted as one pass; its bound is the resident
+   pass's (the accumulator is scratch held in L2). A child process then
+   feeds the kernel a bin code >= B and must see a device-side assert, not
+   a silently dropped row;
 4. main path at full width: a Higgs-shaped synthetic binary problem
    (2,000,000 x 28 f32, 5% NaN in two columns, a planted logit) through
    ``lgt.Dataset`` -> ``lgt.train`` (binary, 255 leaves, max_bin 255,
@@ -211,8 +217,30 @@ Phases (any failure exits non-zero and prints no result line):
    ten ``LGBM_BoosterUpdateOneIter``, ``LGBM_BoosterSaveModel``: phase 4's
    model text, B1 launched; a missing ``Python.h`` fails the phase.
 
+17. out-of-core training (``tpu_residency=stream|auto``, A14 and B11) on
+   phase 4's data and parameters, 10 rounds. (a) ``tpu_residency=auto``
+   with ``tpu_hbm_budget_bytes`` halfway between the booster's estimates
+   of a streamed and a resident run (``observability/memory.py``; a
+   streamed booster that trains nothing gives both): ``auto`` must choose
+   stream, in its default 8 shards of 250,000 rows, and the model text
+   must be phase 4's; then the resident arm. Each leg prints ms per
+   iteration (the first apart), host flag reads per wave (1.00 required),
+   the synchronizing calls ``set_sync_debug_mode`` flags in iterations
+   2-10, the prefetcher's stalls, hits and H2D MB, B1's passes, and the
+   peak allocated device memory, absolute and above what was allocated
+   before (at most 64 MiB: library workspaces), beside the estimate; the
+   peak above the base must lie within half and twice the estimate, and
+   the streamed peak must be below the resident one. (b) the same with
+   ``LGBM_TPU_STREAM_NO_PREFETCH=1`` (no hit allowed) and with
+   ``tpu_stream_verify=false``. (c) 7 shards of 300,000 rows whose last
+   holds 200,000 rows and padding, and 4 shards of 500,000. (d) ``max_bin=15``: ``u4`` shards, 3 rounds, text
+   equal to the resident run's. (e) ``LGBM_TPU_CHAOS_FLIP_SHARD`` flips a
+   shard when the store is built: the first update must raise
+   ``ShardCorruptionError`` with no tree committed. Every leg's model text
+   in (a)-(c) must be phase 4's.
+
 ``--phases 3,11`` runs only the listed phases (and those they need: 5-7
-and 12-16 add phase 4); such a partial run prints no result lines and
+and 12-17 add phase 4); such a partial run prints no result lines and
 exits 4.
 
 The card's line comes before the last two lines; the line before the last
@@ -288,7 +316,8 @@ def card_line():
 
 
 CASES = ("full", "wrapper", "root", "compact", "uint16", "f27", "sampled",
-         "f137", "efb", "efb_compact")
+         "f137", "efb", "efb_compact", "stream")
+STREAM_SHARDS = 8                  # the stream case's shards of N / 8 rows
 F137 = 137                         # the MS-LTR width (phase 9)
 # the Bosch shape under EFB (phase 11): 1,184,000 rows, 968 sparse features
 # in 121 bundles of at most 57 codes (8 members x 7 values + code 0)
@@ -405,6 +434,9 @@ def kernel_phase(dev):
     ones = torch.ones(N, device=dev)
     results = {}
     for name in CASES:
+        if name == "stream":
+            results[name] = stream_case(dev, gen, X8, g, h)
+            continue
         if name.startswith("efb"):
             X, nb, leaf_id, slot_of_leaf, kw = efb_case_inputs(name, dev, gen)
         else:
@@ -486,7 +518,7 @@ def pass_costs(name, args, scales, kw, ms):
     # of every row of the pass, plus its position (perm) or, without a
     # partition, every row's leaf id; the output written once
     row_bytes = nf * X.element_size() + 3 * 4
-    where_bytes = nx * 4 + (255 + 1) * 4 if name == "wrapper" \
+    where_bytes = nx * 4 + (255 + 1) * 4 if name in ("wrapper", "stream") \
         else n_rows * 4 + 2 * S * 4
     nbytes = n_rows * row_bytes + where_bytes + S * nf * nb * 3 * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -501,6 +533,68 @@ def pass_costs(name, args, scales, kw, ms):
                 bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 rows=n_rows, num_features=nf, num_bins=nb)
+
+
+def stream_case(dev, gen, X8, g, h):
+    """Phase 3's ``stream`` case (B11, ``tpu_residency=stream``): the
+    ``wrapper`` case's pass (25 pending leaves holding every row, no
+    partition) folded over ``STREAM_SHARDS`` shards of N / 8 rows, each in a
+    code buffer of its own as the prefetcher's, into one accumulator: a
+    memset, eight ``hist_kernel`` launches with the shard's row offset into
+    g / h / counts and leaf ids, one ``finalize_kernel``. It must be
+    bit-equal to the plain version's one pass and count one pass. Its bound
+    is the resident pass's: the function reads the same inputs and writes
+    the same output, and the ``[S, F, B]`` integer accumulator (3.6 MB) is
+    scratch that stays in the card's 50 MB L2 between the folds."""
+    import torch
+    from lightgbm_tpu_torch.ops.cuda_histogram import (HistogramAccumulator,
+                                                       launch_count)
+    from lightgbm_tpu_torch.ops.histogram import (build_histograms,
+                                                  histogram_scales)
+    L = 255
+    R = N // STREAM_SHARDS
+    leaf_id = torch.randint(0, S, (N,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    sol = torch.full((L + 1,), -1, dtype=torch.int32, device=dev)
+    sol[:S] = torch.arange(S, dtype=torch.int32, device=dev)
+    inc = torch.ones(N, device=dev)
+    scales = histogram_scales(g, h)
+    shards = [X8[i * R:(i + 1) * R].clone() for i in range(STREAM_SHARDS)]
+    acc = HistogramAccumulator(S, F, B, dev)
+
+    def fold():
+        acc.zero_()
+        for i, Xs in enumerate(shards):
+            acc.add(Xs, g, h, inc, leaf_id, sol, i * R, R, scales)
+        return acc.finalize(scales)
+
+    args = (X8, g, h, inc, leaf_id, sol, S, B)
+    plain = build_histograms(*args, scales=scales)
+    before = launch_count()
+    out1 = fold()
+    out2 = fold()
+    torch.cuda.synchronize()
+    counted = launch_count() - before
+    identical = bool(torch.equal(out1, out2))
+    bit_equal = bool(torch.equal(out1, plain))
+    max_abs = float((out1 - plain).abs().max())
+    print(f"  stream: {STREAM_SHARDS} shard folds of {R} rows + one "
+          f"finalize, bit-equal to the plain one-pass histogram "
+          f"{bit_equal} (max abs err {max_abs:.3e}), two folds identical "
+          f"{identical}, passes counted on the card {counted} (2 folds)",
+          flush=True)
+    if not bit_equal:
+        fail("stream: the folded pass is not bit-equal to the plain version")
+    if not identical:
+        fail("stream: two folded passes differ (not deterministic)")
+    if counted != 2:
+        fail(f"stream: two folded passes counted {counted} passes")
+    del out1, out2, plain
+    ms = cuda_time_ms(fold, 10)
+    costs = pass_costs("stream", args, scales, {}, ms)
+    del shards, acc
+    torch.cuda.empty_cache()
+    return dict(costs, max_abs_err=max_abs, max_rel_err=0.0, bit_equal=True)
 
 
 def graph_case(dev, gen, X8, g, h):
@@ -3400,7 +3494,229 @@ def front_end_phase(mres):
     return dict(launches=launches)
 
 
-PHASES = tuple(range(1, 17))
+STREAM_ROUNDS = 10                 # phase 17: phase 4's rounds
+STREAM_U4_ROUNDS = 3               # ... and leg (d)'s
+# allocated before a leg: what earlier phases keep besides their released
+# tensors (library workspaces)
+STREAM_BASE_MAX = 64 << 20
+
+
+def _stream_leg(label, ds, params, rounds, expect):
+    """Train ``rounds`` rounds of ``params`` on ``ds``; print ms per
+    iteration (the first apart), flag reads per wave, the synchronizing
+    calls ``set_sync_debug_mode`` flags in the iterations after the first
+    (by source line), the prefetcher's stalls, hits and H2D MB, B1's
+    passes and the peak allocated device memory, absolute and above the
+    allocation before, beside the booster's estimate for its residency.
+    Fails unless the model text's sha256 is ``expect``, unless what was
+    allocated before is at most ``STREAM_BASE_MAX`` (earlier phases'
+    tensors released), and unless the peak above it lies within half and
+    twice the estimate."""
+    import gc
+    import warnings
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.cuda_histogram import launch_count
+    gc.collect()             # earlier legs' boosters hold reference cycles
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    if base > STREAM_BASE_MAX:
+        fail(f"{label}: {base / 2**20:.1f} MiB allocated before the leg")
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_count()
+    clock = IterClock()
+    state = {}
+
+    def debug_on(env):
+        # iterations 2..rounds: from the first iteration's end to the
+        # last's (the model's fetch after training is not an iteration's,
+        # and the clock's own synchronize is not the port's)
+        torch.cuda.set_sync_debug_mode(0)
+        clock(env)
+        if env.iteration == 0:
+            state["caught"] = warnings.catch_warnings(record=True)
+            state["list"] = state["caught"].__enter__()
+            warnings.simplefilter("always")
+        if env.iteration < rounds - 1:
+            torch.cuda.set_sync_debug_mode("warn")
+    try:
+        bst = lgt.train(params, ds, num_boost_round=rounds,
+                        keep_training_booster=True, callbacks=[debug_on])
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        if "caught" in state:
+            state["caught"].__exit__(None, None, None)
+    sites = {}
+    for w in state.get("list", []):
+        if "synchroniz" in str(w.message):
+            site = f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    flagged = sum(sites.values())
+    peak_abs = torch.cuda.max_memory_allocated()
+    peak = peak_abs - base
+    launches = launch_count() - before
+    g = bst._gbdt
+    text = bst.model_to_string()
+    digest = text_digest(text)
+    est = g.residency_estimates[g.residency]["total_bytes"]
+    first = clock.ms(0, 1)
+    ms = clock.ms(1) if rounds > 1 else first
+    line = (f"  {label}: residency {g.residency}; {ms:.1f} ms per "
+            f"iteration after the first ({first:.1f}); B1 passes {launches}"
+            f" ({launches / max(len(bst.trees), 1):.1f} per tree); peak "
+            f"allocated {peak_abs / 2**20:.1f} MiB, {peak / 2**20:.1f} "
+            f"above the {base / 2**20:.1f} before, estimate "
+            f"{est / 2**20:.1f} MiB")
+    out = dict(text=text, digest=digest, ms=ms, first_ms=first,
+               launches=launches, peak=peak, peak_abs=peak_abs, estimate=est,
+               residency=g.residency)
+    top = ", ".join(f"{k} {v}" for k, v in sorted(
+        sites.items(), key=lambda kv: -kv[1])[:4])
+    if g.residency == "stream":
+        rep = g._stream.report()
+        gr = g._grower
+        line += (f"; {rep['n_shards']} shards of "
+                 f"{g._stream_store.shard_rows} rows "
+                 f"({g._stream_store.code_mode}); host flag reads per wave "
+                 f"{gr.flag_reads / gr.waves_run:.2f} ({gr.flag_reads} over "
+                 f"{gr.waves_run} waves), {flagged} synchronizing calls "
+                 f"flagged in the iterations after the first "
+                 f"({flagged / max(rounds - 1, 1):.1f} per iteration: "
+                 f"{top}); "
+                 f"stalls {rep['stalls']} ({rep['stall_seconds']:.3f} s), "
+                 f"prefetch hits {rep['prefetch_hits']}; H2D "
+                 f"{rep['bytes_h2d'] / 1e6:.1f} MB "
+                 f"({rep['bytes_h2d'] / 1e6 / rounds:.1f} per iteration); "
+                 f"verify {rep['verify_enabled']}")
+        out.update(rep, flag_reads=gr.flag_reads, waves=gr.waves_run,
+                   flagged=flagged, code_mode=g._stream_store.code_mode)
+        if gr.flag_reads != gr.waves_run:
+            fail(f"{label}: {gr.flag_reads} flag reads over "
+                 f"{gr.waves_run} waves")
+    print(line + f"; model text sha256 {digest[:16]}..., as expected "
+          f"{digest == expect}", flush=True)
+    if digest != expect:
+        fail(f"{label}: the model text differs from the resident run's")
+    if launches <= 0:
+        fail(f"{label}: the histogram kernel never launched")
+    if not est / 2 <= peak <= 2 * est:
+        fail(f"{label}: the peak above the base, {peak / 2**20:.1f} MiB, "
+             f"is not within half and twice the estimate")
+    del bst, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def stream_phase(mres):
+    """Phase 17: out-of-core training (``tpu_residency=stream|auto``, A14
+    and B11) on phase 4's data and parameters."""
+    import tempfile
+    from unittest import mock
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.cuda_histogram import launch_count
+    from lightgbm_tpu_torch.ops.stream import ShardCorruptionError
+    ds, X, y = mres["data"]
+    start = launch_count()
+    t_phase = time.perf_counter()
+    # the two estimates of this run (the port's own model,
+    # observability/memory.py), from a streamed booster that trains nothing
+    t0 = time.perf_counter()
+    probe = lgt.Booster(params=dict(MAIN_PARAMS, tpu_residency="stream"),
+                        train_set=ds)
+    setup_s = time.perf_counter() - t0
+    ests = probe._gbdt.residency_estimates
+    desc = probe._gbdt._stream_store.describe()
+    del probe
+    dev_b, st_b = (ests[r]["total_bytes"] for r in ("device", "stream"))
+    budget = (dev_b + st_b) // 2
+    print(f"  estimates: device {dev_b / 2**20:.1f} MiB "
+          f"{ests['device']['components']}, stream {st_b / 2**20:.1f} MiB "
+          f"{ests['stream']['components']}; budget halfway "
+          f"{budget / 2**20:.1f} MiB; store {desc} (host binning of the "
+          f"deferred rows, packing and CRC: {setup_s:.2f} s)", flush=True)
+    if not st_b < budget < dev_b:
+        fail("the streamed estimate is not below the resident one")
+    expect = mres["digest"]
+    print("  (a) tpu_residency=auto under the budget", flush=True)
+    legs = {"auto": _stream_leg(
+        "auto", ds, dict(MAIN_PARAMS, tpu_residency="auto",
+                         tpu_hbm_budget_bytes=budget), STREAM_ROUNDS,
+        expect)}
+    if legs["auto"]["residency"] != "stream" or \
+            legs["auto"]["n_shards"] != 8:
+        fail("auto did not choose stream in 8 shards under the budget")
+    legs["device"] = _stream_leg("resident arm", ds, dict(MAIN_PARAMS),
+                                 STREAM_ROUNDS, expect)
+    print(f"  peak allocated: streamed "
+          f"{legs['auto']['peak'] / 2**20:.1f} MiB (estimate "
+          f"{st_b / 2**20:.1f}), resident {legs['device']['peak'] / 2**20:.1f}"
+          f" MiB (estimate {dev_b / 2**20:.1f}); streamed lower "
+          f"{legs['auto']['peak'] < legs['device']['peak']}", flush=True)
+    if not legs["auto"]["peak"] < legs["device"]["peak"]:
+        fail("the streamed run's peak is not below the resident run's")
+    stream = dict(MAIN_PARAMS, tpu_residency="stream")
+    print("  (b) prefetch off, CRC off", flush=True)
+    with mock.patch.dict(os.environ, {"LGBM_TPU_STREAM_NO_PREFETCH": "1"}):
+        legs["no_prefetch"] = _stream_leg("prefetch off", ds, stream,
+                                          STREAM_ROUNDS, expect)
+    if legs["no_prefetch"]["prefetch_hits"] != 0:
+        fail("prefetch off still hit prefetched shards")
+    legs["no_verify"] = _stream_leg(
+        "tpu_stream_verify=false", ds, dict(stream, tpu_stream_verify=False),
+        STREAM_ROUNDS, expect)
+    print("  (c) two shard sizes", flush=True)
+    legs["shards7"] = _stream_leg(
+        "tpu_stream_shard_rows 300000 (a tail of padding)", ds,
+        dict(stream, tpu_stream_shard_rows=300_000), STREAM_ROUNDS, expect)
+    legs["shards4"] = _stream_leg(
+        "tpu_stream_shard_rows 500000", ds,
+        dict(stream, tpu_stream_shard_rows=500_000), STREAM_ROUNDS, expect)
+    print(f"  (d) max_bin 15 (u4 shards), {STREAM_U4_ROUNDS} rounds",
+          flush=True)
+    p15 = dict(MAIN_PARAMS, max_bin=15)
+    t0 = time.perf_counter()
+    ds15 = lgt.Dataset(X, label=y)
+    ds15.construct(lgt.Config.from_params(p15))
+    print(f"  construct at max_bin 15: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    # the resident run's text; its booster is released before the leg
+    ref = text_digest(lgt.train(p15, ds15, num_boost_round=STREAM_U4_ROUNDS)
+                      .model_to_string())
+    legs["u4"] = _stream_leg("max_bin 15, stream", ds15,
+                             dict(p15, tpu_residency="stream"),
+                             STREAM_U4_ROUNDS, ref)
+    if legs["u4"]["code_mode"] != "u4":
+        fail(f"max_bin 15 streamed {legs['u4']['code_mode']} shards, not u4")
+    del ds15
+    print("  (e) a flipped shard", flush=True)
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.dict(
+            os.environ,
+            {"LGBM_TPU_CHAOS_FLIP_SHARD": os.path.join(tmp, "marker")}):
+        bst = lgt.Booster(params=stream, train_set=ds)
+        try:
+            bst.update()
+            raised = None
+        except ShardCorruptionError as e:
+            raised = e
+        committed = len(bst._gbdt.models)
+        del bst
+    print(f"  flipped shard: ShardCorruptionError raised "
+          f"{raised is not None} ({str(raised)[:60]}...), trees committed "
+          f"{committed}", flush=True)
+    if raised is None or committed:
+        fail("a flipped shard was not caught before a tree was committed")
+    launches = launch_count() - start
+    print(f"  histogram kernel launches in phase 17: {launches}; phase 17 "
+          f"took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return dict(launches=launches, legs=legs, budget=budget,
+                estimates={k: v["total_bytes"] for k, v in ests.items()})
+
+
+PHASES = tuple(range(1, 18))
 
 
 def main():
@@ -3427,8 +3743,8 @@ def main():
     dev = torch.device("cuda", 0)
     want = set(PHASES) if not args.phases else \
         {int(p) for p in args.phases.split(",")}
-    # phases 5-7 and 12-16 run on phase 4's data and booster
-    if want & {5, 6, 7, 12, 13, 14, 15, 16}:
+    # phases 5-7 and 12-17 run on phase 4's data and booster
+    if want & {5, 6, 7, 12, 13, 14, 15, 16, 17}:
         want.add(4)
 
     print("phase 1: card", flush=True)
@@ -3542,6 +3858,14 @@ def main():
               flush=True)
         fres = front_end_phase(mres)
 
+    tres = none
+    if 17 in want:
+        print(f"phase 17: out-of-core training at the main path's width (2M "
+              f"x 28, 255 leaves, {STREAM_ROUNDS} rounds from host shards: "
+              f"auto under a budget, prefetch and CRC off, two shard sizes, "
+              f"u4 shards, a flipped shard)", flush=True)
+        tres = stream_phase(mres)
+
     if want != set(PHASES):
         print(f"partial run of phases {sorted(want)}: no result lines",
               flush=True)
@@ -3553,7 +3877,8 @@ def main():
           f"{rres['launches']}, phase 10 {xres['launches']}, phase 11 "
           f"{eres['launches']}, phase 12 {lres['launches']}, phase 13 "
           f"{bres['launches']}, phase 14 {vres['launches']}, phase 15 "
-          f"{nres['launches']}, phase 16 {fres['launches']}", flush=True)
+          f"{nres['launches']}, phase 16 {fres['launches']}, phase 17 "
+          f"{tres['launches']}", flush=True)
 
     full = kres["full"]
     kernels = {"kernels": [{
@@ -3564,7 +3889,7 @@ def main():
         + sres["goss_launches"] + cres["launches"] + gres["launches"]
         + rres["launches"] + xres["launches"] + eres["launches"]
         + lres["launches"] + bres["launches"] + vres["launches"]
-        + nres["launches"] + fres["launches"],
+        + nres["launches"] + fres["launches"] + tres["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kres.values()),
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
@@ -3581,7 +3906,8 @@ def main():
             "9": rres["launches"], "10": xres["launches"],
             "11": eres["launches"], "12": lres["launches"],
             "13": bres["launches"], "14": vres["launches"],
-            "15": nres["launches"], "16": fres["launches"]},
+            "15": nres["launches"], "16": fres["launches"],
+            "17": tres["launches"]},
     }]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -430,6 +430,11 @@ class Booster:
         train_set.construct(self.config)
         cd = train_set.constructed
         self._gbdt = create_boosting(self.config, cd)
+        # the booster may normalize fields to their effective values
+        # (tpu_residency=stream forces tpu_row_compact=false): adopt them,
+        # so that the checkpoint fingerprint covers what trains and a
+        # streamed run resumes into a resident one (basic.py:415-420 there)
+        self.config = self._gbdt.config
         self.train_dataset = train_set
         self.feature_names = cd.feature_names
         self.num_total_features = cd.num_total_features

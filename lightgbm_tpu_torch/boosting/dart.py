@@ -25,6 +25,9 @@ from .gbdt import GBDT
 class DART(GBDT):
     # the drop set is chosen on the host every iteration (dart.py:30 there)
     supports_tree_batch = False
+    # the dropped trees are replayed by a walk of the resident code matrix
+    # (dart.py:33 there)
+    supports_stream = False
 
     def __init__(self, config: Config, train_set):
         super().__init__(config, train_set)

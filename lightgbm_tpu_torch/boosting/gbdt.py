@@ -47,6 +47,16 @@ binning is deferred, the code matrix is binned on the device
 (``ops/ingest.py``) and EFB plans from host-binned sample rows; the data
 fingerprint hashes host-oracle codes either way.
 
+Out-of-core streaming (``tpu_residency=stream|auto``, gbdt.py:358-556
+and :916-1021 there): resolved before the code matrix is placed; ``auto``
+streams when the port's estimate of a resident run
+(``observability/memory.py``) exceeds the budget. A streamed booster keeps
+the (possibly bundled) host codes in packed pinned shards
+(``ops/stream.HostShardStore``; deferred binning falls back to the host)
+and grows through ``grower.StreamedGrower`` eagerly, one flag read per
+wave; the trees are a resident run's. ``tree_batch`` falls back to 1,
+``rollback_one_iter`` refuses, DART and linear leaves refuse stream.
+
 ``nan_policy`` (gbdt.py:1194-1215, :1335-1410, :1514-1562 and :1804-1875
 there): the iteration's gradient, hessian and leaf-output flags go into
 ``_nf``; under raise/skip_iter the last model's epilogue gates the scores,
@@ -69,7 +79,8 @@ import torch
 
 from ..config import Config, check_port_supported, resolve_device
 from ..dataset import ConstructedDataset, Metadata, MetadataDuckTyping
-from ..grower import BundleDecode, GrowerSpec, TreeArrays, TreeGrower
+from ..grower import (BundleDecode, GrowerSpec, StreamedGrower, TreeArrays,
+                      TreeGrower)
 from ..metrics import Metric, _PointwiseRegressionMetric, create_metrics
 from ..objectives import create_objective
 from ..ops.cuda_histogram import feature_groups
@@ -201,10 +212,30 @@ class GBDT:
             except ValueError as e:
                 Log.fatal("max_bin=%d: %s; not ported to lightgbm_tpu_torch "
                           "yet (ROADMAP B1)", config.max_bin, e)
+        # ---- residency (gbdt.py:358-382 there), before any placement ----
+        self.residency = self._resolve_residency(config, train_set, codes)
+        if self.residency == "stream" and config.tpu_row_compact:
+            # the effective semantics (full streaming passes, no
+            # compaction), so that the checkpoint fingerprint covers what
+            # trains: a streamed run resumes into tpu_residency=device with
+            # tpu_row_compact=false (and, the sums being order-free here,
+            # into compaction too)
+            config = config.replace(tpu_row_compact=False)
+            self.config = config
+            self.spec = dataclasses.replace(self.spec, row_compact=False)
+        if self.residency == "stream" and codes is None:
+            Log.info("deferred ingest falls back to host binning (stream "
+                     "residency)")
+            codes = train_set.X_binned
         self._data_fingerprint = _data_fingerprint(codes, train_set, md.label)
         self._ingest_report = None
-        self.Xb = self._ingest_device(train_set) if codes is None \
-            else _codes_tensor(codes, dev)
+        self._stream_store = self._stream = None
+        if self.residency == "stream":
+            self._setup_stream(config, codes)
+            self.Xb = None
+        else:
+            self.Xb = self._ingest_device(train_set) if codes is None \
+                else _codes_tensor(codes, dev)
         del codes
         self._setup_linear(config, train_set)
         self.label = torch.as_tensor(md.label, dtype=torch.float32,
@@ -268,6 +299,14 @@ class GBDT:
                 "falling back to tree_batch=1", tb,
                 config.boosting_normalized)
             tb = 1
+        if tb > 1 and self.residency == "stream":
+            # the shard loop is driven by the host wave by wave
+            # (gbdt.py:841-850 there)
+            Log.warning(
+                "tree_batch=%d is not supported with tpu_residency=stream "
+                "(the shard prefetch loop is host-driven); falling back "
+                "to tree_batch=1", tb)
+            tb = 1
         if (tb > 1 and self.average_output
                 and config.nan_policy in ("raise", "skip_iter")):
             # RF's running average weighs by the iteration number, which
@@ -294,6 +333,15 @@ class GBDT:
         self.nan_policy = config.nan_policy
         self._consecutive_skips = 0
         self.best_iteration = 0
+
+        from .. import observability as obs
+        reg = obs.get_registry()
+        reg.counter(f"booster.residency.{self.residency}").inc()
+        if self._stream_store is not None:
+            reg.gauge("stream.n_shards").set(self._stream_store.n_shards)
+            reg.gauge("stream.shard_bytes").set(
+                self._stream_store.shard_bytes)
+            obs.event("stream_init", **self._stream_store.describe())
 
     @staticmethod
     def _make_spec(config: Config, F: int, max_num_bin: int,
@@ -322,6 +370,117 @@ class GBDT:
             max_cat_to_onehot=config.max_cat_to_onehot,
             min_data_per_group=float(config.min_data_per_group),
         )
+
+    # out-of-core streaming (tpu_residency=stream): every per-iteration
+    # step must run through the host's shard loop; DART opts out (its drop
+    # set is replayed over the resident code matrix)
+    supports_stream = True
+
+    def _stream_support(self, config: Config) -> Tuple[bool, str]:
+        """(supported, why not) for ``tpu_residency=stream`` (gbdt.py:922-945
+        there): a forced stream refuses, ``auto`` never picks it."""
+        if not self.supports_stream:
+            return False, (f"boosting={config.boosting_normalized} keeps "
+                           f"host-side per-tree state that reads the "
+                           f"resident code matrix")
+        if config.linear_tree:
+            return False, ("linear_tree=true keeps the raw feature slice "
+                           "device-resident (the per-leaf fits read raw "
+                           "values every tree)")
+        # tree_learner=feature is refused with its own reason before this
+        # (config.check_port_supported)
+        if config.is_pre_partition:
+            return False, "is_pre_partition holds per-process row blocks"
+        return True, ""
+
+    def _shard_geometry(self, config: Config, train_set: ConstructedDataset,
+                        cols: int, code_itemsize: int) -> Dict:
+        """The store a streamed run of this booster would build: padded
+        rows, shard rows and code mode (ops/stream.py)."""
+        from ..ops.histogram import code_mode_for
+        from ..ops.stream import shard_geometry
+        padded, rows = shard_geometry(train_set.num_data,
+                                      config.tpu_stream_shard_rows)
+        max_code = self.efb_plan.max_bundle_bins if self.bundle is not None \
+            else train_set.max_num_bin
+        return dict(n_rows_padded=padded, shard_rows=rows,
+                    code_mode=code_mode_for(int(max_code), code_itemsize))
+
+    def _resolve_residency(self, config: Config,
+                           train_set: ConstructedDataset,
+                           codes: Optional[np.ndarray]) -> str:
+        """``tpu_residency`` resolved before the code matrix is placed
+        (gbdt.py:947-1021 there). ``auto`` streams when the estimate of the
+        resident run (``observability/memory.py``) exceeds the budget
+        (``LGBM_TPU_HBM_BUDGET``, ``tpu_hbm_budget_bytes`` or the card's
+        memory) and streaming is supported. Both estimates are kept in
+        ``residency_estimates``."""
+        from ..observability.memory import (estimate_residency,
+                                            hbm_budget_bytes)
+        from ..ops.histogram import code_bytes_total
+        cols = train_set.num_features if codes is None else codes.shape[1]
+        itemsize = np.dtype(train_set.code_dtype if codes is None
+                            else codes.dtype).itemsize
+        geo = self._stream_geo = self._shard_geometry(config, train_set,
+                                                      cols, itemsize)
+        spec = self.spec
+        dims = dict(rows=train_set.num_data, cols=cols, code_itemsize=itemsize,
+                    num_models=self.num_models, num_leaves=spec.num_leaves,
+                    hist_bins=spec.hist_bins or spec.num_bins_padded,
+                    slots=spec.hist_slots,
+                    has_weight=train_set.metadata.weight is not None)
+        self.residency_estimates = {
+            "device": estimate_residency(**dims),
+            "stream": estimate_residency(
+                **dims, shard_rows=geo["shard_rows"],
+                shard_bytes=geo["shard_rows"] * code_bytes_total(
+                    cols, geo["code_mode"]),
+                unpack=geo["code_mode"] in ("u4", "u6"))}
+        requested = config.tpu_residency
+        if requested == "device":
+            return "device"
+        supported, why = self._stream_support(config)
+        if requested == "stream":
+            if not supported:
+                Log.fatal("tpu_residency=stream is not supported here: %s",
+                          why)
+            return "stream"
+        budget = hbm_budget_bytes(config, self.device)
+        need = self.residency_estimates["device"]["total_bytes"]
+        if budget is None or need <= budget:
+            return "device"
+        gb = float(1 << 30)
+        if not supported:
+            Log.warning(
+                "HBM pre-flight: estimated device residency %.3g GB "
+                "exceeds the %.3g GB budget but tpu_residency=stream is "
+                "unavailable (%s) — staying device-resident; expect an "
+                "OOM at first dispatch", need / gb, budget / gb, why)
+            return "device"
+        Log.warning(
+            "HBM pre-flight: estimated device residency %.3g GB exceeds "
+            "the %.3g GB budget — auto-selecting tpu_residency=stream: the "
+            "binned codes stay in host-resident packed shards and are "
+            "copied to the card double-buffered through the wave loop",
+            need / gb, budget / gb)
+        return "stream"
+
+    def _setup_stream(self, config: Config, codes: np.ndarray) -> None:
+        """The host shard store of the (possibly bundled) codes, in the
+        geometry ``_resolve_residency`` chose, pinned on the card, and its
+        prefetcher (gbdt.py:511-556 there)."""
+        from ..ops.stream import HostShardStore, ShardPrefetcher, log_store
+        from ..robustness.chaos import maybe_corrupt_shard_from_env
+        store = HostShardStore(codes, num_cols=codes.shape[1],
+                               pin=self.device.type == "cuda",
+                               **self._stream_geo)
+        # a one-shot bit flip for the chaos harness; a no-op without its
+        # environment variable
+        maybe_corrupt_shard_from_env(store)
+        self._stream_store = store
+        self._stream = ShardPrefetcher(store, self.device,
+                                       verify=config.tpu_stream_verify)
+        log_store(store)
 
     def _plan_bundles(self, config: Config, train_set: ConstructedDataset,
                       meta) -> np.ndarray:
@@ -579,10 +738,17 @@ class GBDT:
         if self._grower is not None:
             return
         dev, K, N = self.device, self.num_models, self.num_data
-        self._grower = TreeGrower(
-            self.Xb, self.is_cat, self.num_bins, self.missing_code,
-            self.default_bin, self.spec, self.comm, self.bundle,
-            route=[vs.Xb for vs in self.valid_sets])
+        route = [vs.Xb for vs in self.valid_sets]
+        if self.residency == "stream":
+            self._grower = StreamedGrower(
+                self._stream, self.is_cat, self.num_bins, self.missing_code,
+                self.default_bin, self.spec, self.comm, self.bundle,
+                route=route)
+        else:
+            self._grower = TreeGrower(
+                self.Xb, self.is_cat, self.num_bins, self.missing_code,
+                self.default_bin, self.spec, self.comm, self.bundle,
+                route=route)
         self._g = torch.zeros((K, N), dtype=torch.float32, device=dev)
         self._h = torch.zeros((K, N), dtype=torch.float32, device=dev)
         # iteration, batch slot, bagging key (2 words), per-model feature
@@ -742,6 +908,9 @@ class GBDT:
         they are captured). The CPU always runs eagerly."""
         if not self._capture:
             return "the eager arm was asked for"
+        if self.residency == "stream":
+            return "tpu_residency=stream: the shard copies are driven from " \
+                   "the host"
         if self._custom_gh is not None:
             return ("custom fobj: the gradients come from the host every "
                     "iteration")
@@ -876,6 +1045,12 @@ class GBDT:
         if self.average_output:
             Log.fatal("rollback_one_iter is not supported for rf boosting "
                       "(scores are running averages, not additive)")
+        if self.residency == "stream":
+            # gbdt.py:1927-1935 there: an earlier iteration's walk needs the
+            # resident code matrix; the nan_policy path needs no rollback
+            Log.fatal("rollback_one_iter is not supported with "
+                      "tpu_residency=stream (no resident code matrix to "
+                      "replay leaf assignments from)")
         if not self.models:
             return
         trees = self.models.pop()

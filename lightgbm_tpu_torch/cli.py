@@ -26,6 +26,7 @@ from .basic import Booster, Dataset
 from .config import Config
 from .engine import train as train_fn
 from .io.file_io import load_data_file
+from .ops.stream import EXIT_SHARD_CORRUPT, ShardCorruptionError
 from .utils.log import Log
 
 
@@ -158,15 +159,24 @@ def run_train(params: Dict) -> None:
         _snapshot.order = 30
         callbacks.append(_snapshot)
     try:
-        # the JAX package maps stream-shard corruption and comm loss to
-        # typed exits here; the port has neither (ROADMAP A14, A16)
-        booster = train_fn(params, train_set,
-                           num_boost_round=config.num_iterations,
-                           valid_sets=valid_sets, valid_names=valid_names,
-                           init_model=config.input_model or None,
-                           early_stopping_rounds=(
-                               config.early_stopping_round or None),
-                           callbacks=callbacks)
+        try:
+            booster = train_fn(params, train_set,
+                               num_boost_round=config.num_iterations,
+                               valid_sets=valid_sets,
+                               valid_names=valid_names,
+                               init_model=config.input_model or None,
+                               early_stopping_rounds=(
+                                   config.early_stopping_round or None),
+                               callbacks=callbacks)
+        except ShardCorruptionError as e:
+            # a restartable fault (lightgbm_tpu/cli.py:177-188): the shard
+            # store is rebuilt from the dataset when training starts again,
+            # so exit with the status a supervisor recognizes (comm loss,
+            # the other typed exit there, is ROADMAP A16)
+            Log.warning("stream-shard corruption detected: %s — exiting %d "
+                        "(a supervisor relaunch with resume_from=auto "
+                        "self-heals)", e, EXIT_SHARD_CORRUPT)
+            raise SystemExit(EXIT_SHARD_CORRUPT) from e
     finally:
         if saved_handlers:
             # past the training loop nothing checks stop_signals — restore

@@ -373,10 +373,9 @@ class Config:
     #            the per-device budget (tpu_hbm_budget_bytes or the
     #            reported device capacity), else device.
     tpu_residency: str = "auto"
-    # rows per host shard PER DEVICE (rounded to a divisor of the padded
-    # per-device row count that is a multiple of tpu_hist_chunk — shard
-    # size never changes the math, so any value resumes any checkpoint);
-    # 0 = auto (~8 shards)
+    # rows per host shard (capped at the data's rows; the last shard holds
+    # the rest, ops/stream.shard_geometry) — shard size never changes the
+    # math, so any value resumes any checkpoint; 0 = auto (8 shards)
     tpu_stream_shard_rows: int = 0
     # --- device-side ingest (ops/ingest.py, docs/TPU-Performance.md) -------
     # where raw float rows are BINNED into the packed code matrix:
@@ -857,16 +856,18 @@ def resolve_device(config: "Config"):
 # tpu_* tuning keys whose meaning is a TPU layout or dispatch choice: the
 # port accepts them and logs that they do nothing. The tpu_* keys the port
 # does honour are tpu_wave_size, tpu_hist_slots and tpu_row_compact (grower
-# wave shape), tpu_residency (stream raises) and tpu_ingest,
-# tpu_ingest_chunk_rows and tpu_ingest_prefetch (device ingest); every
-# pass is compacted, so tpu_compact_frac has no meaning here, and there is
-# one card, so neither has tpu_reshard_on_resume.
+# wave shape), tpu_residency, tpu_hbm_budget_bytes, tpu_stream_shard_rows
+# and tpu_stream_verify (out-of-core streaming: the budget of the auto
+# decision, the shard rows and the CRC check, ops/stream.py) and
+# tpu_ingest, tpu_ingest_chunk_rows and tpu_ingest_prefetch (device
+# ingest); a resident pass is compacted, so tpu_compact_frac has no meaning
+# here, and there is one card, so neither has tpu_reshard_on_resume.
 TPU_ONLY_KEYS = (
     "tpu_compact_frac",
     "tpu_hist_chunk", "tpu_hist_hilo", "tpu_hist_f64", "tpu_hist_kernel",
-    "tpu_incremental_partition", "tpu_efb_unpack", "tpu_hbm_budget_bytes",
+    "tpu_incremental_partition", "tpu_efb_unpack",
     "tpu_time_tag", "tpu_profile_dir", "tpu_profile_iters",
-    "tpu_cost_analysis", "tpu_stream_shard_rows", "tpu_stream_verify",
+    "tpu_cost_analysis",
     "tpu_mesh_axis", "tpu_reshard_on_resume", "tpu_linear_warn_fallback",
 )
 
@@ -884,11 +885,12 @@ def check_port_supported(config: "Config") -> None:
     bagging and feature_fraction, EFB (``enable_bundle``), linear leaves,
     ``tree_learner=serial``, dense or sparse numerical and categorical
     features, resident data binned on the host or the device
-    (``tpu_ingest``), batches of iterations (``tree_batch``), single-device
-    checkpoint/resume (``checkpoint_dir``, ``resume_from``) and
-    ``nan_policy``.
-    Each refusal names the ROADMAP queue item
-    that will port it; none of these settings is ever silently ignored."""
+    (``tpu_ingest``) or data streamed from host shards
+    (``tpu_residency=stream|auto``), batches of iterations
+    (``tree_batch``), single-device checkpoint/resume (``checkpoint_dir``,
+    ``resume_from``) and ``nan_policy``. Each refusal names the ROADMAP
+    queue item that will port it; none of these settings is ever silently
+    ignored."""
     if config.linear_tree and config.tree_learner != "serial":
         # the JAX package's own refusal (boosting/gbdt.py:712-732): the
         # moments are not reduced across devices
@@ -896,10 +898,13 @@ def check_port_supported(config: "Config") -> None:
                   "(tree_learner=%s): the per-leaf moment accumulation is "
                   "not wired through the mesh collectives yet",
                   config.tree_learner)
+    if config.tpu_residency == "stream" and config.tree_learner == "feature":
+        # the JAX package's reason (boosting/gbdt.py:936-938 there)
+        Log.fatal("tpu_residency=stream is not supported here: "
+                  "tree_learner=feature replicates rows and slices columns "
+                  "at trace time; stream shards rows (use data/voting)")
     if config.tree_learner != "serial":
         _unported(f"tree_learner={config.tree_learner}", "A16")
-    if config.tpu_residency == "stream":
-        _unported("tpu_residency=stream", "A14")
     defaults = Config.__dataclass_fields__
     for key in TPU_ONLY_KEYS:
         if getattr(config, key) != defaults[key].default:

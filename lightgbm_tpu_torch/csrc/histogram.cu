@@ -70,7 +70,16 @@
 //      accumulates in int32).
 //   6. A pass is three operations on the stream: a memset of the
 //      accumulators, hist_kernel and finalize_kernel (integer sums to the
-//      [S, F, B, 3] f32 output).
+//      [S, F, B, 3] f32 output), each behind a C entry of its own. A
+//      streamed pass (tpu_residency=stream, kernel B11) runs hist_kernel
+//      once per host shard into the same accumulator, each launch reading
+//      that shard's code buffer and its rows' g / h / inc at the shard's
+//      row offset, and finalize_kernel once per wave; the fold replaces
+//      the TPU's f32 accumulator carried across shard legs with its Kahan
+//      compensation (lightgbm_tpu/ops/histogram.py:build_histograms
+//      acc_init / comp_init). The integer sums make the streamed pass
+//      bit-equal to one resident pass; what it adds is the accumulator's
+//      traffic, one flush of each block's sub-histogram per shard.
 //   7. Sizes on the card: n_active (the sum of slot_counts, or a device
 //      int64 the caller writes) and the two fixed-point scales are read
 //      from device memory, never from the host, so a pass needs no host
@@ -372,23 +381,108 @@ int gbdt_hist_max_slots() { return kMaxSlots; }
 
 int gbdt_hist_threads() { return kThreads; }
 
-// Builds hist[S, F, B, 3] (f32) on `stream` from the slot-grouped positions
-// [0, n_active) of `perm`: zeroes `scratch` (gbdt_hist_scratch_bytes), then
-// launches hist_kernel on a (blocks_x, ceil(F / group_features)) grid and
-// finalize_kernel. Every size that changes from pass to pass is read on
-// the card: n_active from `n_active` (a device int64; nullptr: the sum of
-// slot_counts) and the g and h scales from `scales` (two device doubles).
-// blocks_x is min(the blocks the SMs hold at once, ceil(num_rows /
-// min_rows)) (ops/cuda_histogram.py:grid_blocks), the most blocks any pass
-// of the shape uses; hist_kernel spreads the pass's own n_active over
-// min(blocks_x, ceil(n_active / min_rows)) blocks of equal runs, and the
-// rest exit. `launches` (a device
-// uint64, or nullptr) gains one per pass, added by finalize_kernel on the
-// card, so a pass replayed from a CUDA graph is counted where it runs.
-// code_bytes is 1 (uint8 codes) or 2 (uint16 codes, which may be stored as
-// int16: every code the kernel accepts is below 2^15).
-// Returns cudaGetLastError() after the launches (0 = cudaSuccess), or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// The three steps of a pass, each an entry of its own so that a streamed
+// pass (tpu_residency=stream, B11) can fold several shards' rows into one
+// caller-owned accumulator: gbdt_hist_acc_zero once per wave,
+// gbdt_hist_acc_add once per shard, gbdt_hist_acc_finalize once per wave.
+// The accumulator is the [S, F, B] integer sums of g (u64), h (u64) and
+// counts (u32), in that order (gbdt_hist_scratch_bytes); the sums are
+// integers, so any split of the rows gives the same bits as one pass.
+
+// Zeroes the accumulator on `stream`.
+int gbdt_hist_acc_zero(void* scratch, int num_slots, int num_features,
+                       int num_bins, void* stream_ptr) {
+  if (num_slots < 1 || num_features < 1 || num_bins < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaMemsetAsync(
+      scratch, 0, gbdt_hist_scratch_bytes(num_slots, num_features, num_bins),
+      static_cast<cudaStream_t>(stream_ptr)));
+}
+
+// Adds the slot-grouped positions [0, n_active) of `perm` into the
+// accumulator: launches hist_kernel on a (blocks_x, ceil(F /
+// group_features)) grid. Position p reads row perm[p] of `codes`
+// ([num_rows, F]) and of grad / hess / inc, so a streamed shard passes its
+// code buffer, num_rows = its real rows (the padded tail rows of the last
+// shard are never read), positions within the shard, and grad / hess /
+// inc already offset to the shard's first row. Every size that changes
+// from pass to pass is read on the card: n_active from `n_active` (a
+// device int64; nullptr: the sum of slot_counts) and the g and h scales
+// from `scales` (two device doubles). blocks_x is min(the blocks the SMs
+// hold at once, ceil(num_rows / min_rows)) (ops/cuda_histogram.py:
+// grid_blocks), the most blocks any pass of the shape uses; hist_kernel
+// spreads the pass's own n_active over min(blocks_x, ceil(n_active /
+// min_rows)) blocks of equal runs, and the rest exit. code_bytes is 1
+// (uint8 codes) or 2 (uint16 codes, which may be stored as int16: every
+// code the kernel accepts is below 2^15).
+int gbdt_hist_acc_add(const void* codes, int code_bytes, long long num_rows,
+                      int num_features, const float* grad, const float* hess,
+                      const float* inc, const int32_t* perm,
+                      const int32_t* slot_counts, const int32_t* slot_starts,
+                      const long long* n_active, int num_slots, int num_bins,
+                      int group_features, int blocks_x, long long min_rows,
+                      const double* scales, void* scratch, void* stream_ptr) {
+  if ((code_bytes != 1 && code_bytes != 2) || num_slots < 1 ||
+      num_slots > kMaxSlots || group_features < 1 ||
+      group_features > num_features || num_bins < 1 || blocks_x < 0 ||
+      min_rows < 1 || scales == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks_x == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const long long n =
+      static_cast<long long>(num_slots) * num_features * num_bins;
+  unsigned long long* acc_g = static_cast<unsigned long long*>(scratch);
+  unsigned long long* acc_h = acc_g + n;
+  unsigned int* acc_c = reinterpret_cast<unsigned int*>(acc_h + n);
+  const int groups = (num_features + group_features - 1) / group_features;
+  const dim3 grid(static_cast<unsigned int>(blocks_x),
+                  static_cast<unsigned int>(groups));
+  const long long smem = gbdt_hist_smem_bytes(group_features, num_bins);
+  // whole 32-bit words per row and per group start
+  const bool aligned =
+      reinterpret_cast<uintptr_t>(codes) % 4 == 0 &&
+      (static_cast<long long>(num_features) * code_bytes) % 4 == 0 &&
+      (static_cast<long long>(group_features) * code_bytes) % 4 == 0;
+  auto* fn = code_bytes == 1
+                 ? (aligned ? launch<uint8_t, true> : launch<uint8_t, false>)
+                 : (aligned ? launch<uint16_t, true>
+                            : launch<uint16_t, false>);
+  return static_cast<int>(fn(codes, num_rows, num_features, group_features,
+                             grad, hess, inc, perm, slot_counts, slot_starts,
+                             n_active, min_rows, num_slots, num_bins, scales,
+                             acc_g, acc_h, acc_c, grid, smem, stream));
+}
+
+// Converts the accumulator to hist[S, F, B, 3] (f32): launches
+// finalize_kernel. `launches` (a device uint64, or nullptr) gains one per
+// call, added on the card, so a pass replayed from a CUDA graph is counted
+// where it runs: one pass per wave, resident or streamed.
+int gbdt_hist_acc_finalize(const void* scratch, int num_slots,
+                           int num_features, int num_bins,
+                           const double* scales, float* out,
+                           unsigned long long* launches, void* stream_ptr) {
+  if (num_slots < 1 || num_features < 1 || num_bins < 1 || scales == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n =
+      static_cast<long long>(num_slots) * num_features * num_bins;
+  const unsigned long long* acc_g =
+      static_cast<const unsigned long long*>(scratch);
+  const unsigned long long* acc_h = acc_g + n;
+  const unsigned int* acc_c = reinterpret_cast<const unsigned int*>(acc_h + n);
+  const int threads = 256;
+  const long long blocks = (n + threads - 1) / threads;
+  finalize_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
+                    static_cast<cudaStream_t>(stream_ptr)>>>(
+      acc_g, acc_h, acc_c, n, scales, out, launches);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One resident pass: hist[S, F, B, 3] (f32) on `stream` from the
+// slot-grouped positions [0, n_active) of `perm` — gbdt_hist_acc_zero on
+// `scratch` (gbdt_hist_scratch_bytes), gbdt_hist_acc_add and
+// gbdt_hist_acc_finalize (see each). Returns cudaGetLastError() after the
+// launches (0 = cudaSuccess), or cudaErrorInvalidValue for arguments the
+// kernel does not take.
 int gbdt_hist_build(const void* codes, int code_bytes, long long num_rows,
                     int num_features, const float* grad, const float* hess,
                     const float* inc, const int32_t* perm,
@@ -397,46 +491,16 @@ int gbdt_hist_build(const void* codes, int code_bytes, long long num_rows,
                     int group_features, int blocks_x, long long min_rows,
                     const double* scales, void* scratch, float* out,
                     unsigned long long* launches, void* stream_ptr) {
-  if ((code_bytes != 1 && code_bytes != 2) || num_slots < 1 ||
-      num_slots > kMaxSlots || group_features < 1 ||
-      group_features > num_features || num_bins < 1 || blocks_x < 0 ||
-      min_rows < 1 || scales == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const long long n =
-      static_cast<long long>(num_slots) * num_features * num_bins;
-  unsigned long long* acc_g = static_cast<unsigned long long*>(scratch);
-  unsigned long long* acc_h = acc_g + n;
-  unsigned int* acc_c = reinterpret_cast<unsigned int*>(acc_h + n);
-  cudaError_t err = cudaMemsetAsync(
-      scratch, 0, gbdt_hist_scratch_bytes(num_slots, num_features, num_bins),
-      stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  if (blocks_x > 0) {
-    const int groups = (num_features + group_features - 1) / group_features;
-    const dim3 grid(static_cast<unsigned int>(blocks_x),
-                    static_cast<unsigned int>(groups));
-    const long long smem = gbdt_hist_smem_bytes(group_features, num_bins);
-    // whole 32-bit words per row and per group start
-    const bool aligned =
-        reinterpret_cast<uintptr_t>(codes) % 4 == 0 &&
-        (static_cast<long long>(num_features) * code_bytes) % 4 == 0 &&
-        (static_cast<long long>(group_features) * code_bytes) % 4 == 0;
-    auto* fn = code_bytes == 1
-                   ? (aligned ? launch<uint8_t, true> : launch<uint8_t, false>)
-                   : (aligned ? launch<uint16_t, true>
-                              : launch<uint16_t, false>);
-    err = fn(codes, num_rows, num_features, group_features, grad, hess, inc,
-             perm, slot_counts, slot_starts, n_active, min_rows, num_slots,
-             num_bins, scales, acc_g, acc_h, acc_c, grid, smem, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  finalize_kernel<<<static_cast<unsigned int>(blocks), threads, 0, stream>>>(
-      acc_g, acc_h, acc_c, n, scales, out, launches);
-  return static_cast<int>(cudaGetLastError());
+  int err = gbdt_hist_acc_zero(scratch, num_slots, num_features, num_bins,
+                               stream_ptr);
+  if (err != 0) return err;
+  err = gbdt_hist_acc_add(codes, code_bytes, num_rows, num_features, grad,
+                          hess, inc, perm, slot_counts, slot_starts,
+                          n_active, num_slots, num_bins, group_features,
+                          blocks_x, min_rows, scales, scratch, stream_ptr);
+  if (err != 0) return err;
+  return gbdt_hist_acc_finalize(scratch, num_slots, num_features, num_bins,
+                                scales, out, launches, stream_ptr);
 }
 
 }  // extern "C"

@@ -38,6 +38,10 @@ each wave. Each wave:
    data_partition.hpp:94), as one scatter in which a position outside the
    split leaves maps to itself.
 
+:class:`StreamedGrower` runs the same waves with the code matrix in host
+shards (``tpu_residency=stream``): each wave routes and histograms shard by
+shard into a carried accumulator, with no partition.
+
 Under EFB (``bundle`` given) ``X`` holds the bundled columns: histograms
 are built, cached and subtracted in bundle space ``[.., G, Bb, ..]``, the
 split scan runs there (``ops/split_finder.per_feature_best_bundled``), and
@@ -69,7 +73,8 @@ import torch
 from torch.profiler import record_function
 
 from .ops.cuda_histogram import build_histograms_cuda
-from .ops.histogram import histogram_scales, root_sums, table_lookup
+from .ops.histogram import (histogram_scales, root_sums, table_lookup,
+                            unpack_codes)
 from .ops.split_finder import SplitCandidates, leaf_output
 
 NEG_INF = float("-inf")
@@ -492,18 +497,30 @@ class TreeGrower:
         if comm is None:
             from .parallel.comm import SerialComm
             comm = SerialComm(spec.num_features)
-        self.X, self.spec, self.comm, self.bundle = X, spec, comm, bundle
+        self.X = X
+        self.X_hist = comm.hist_X(X)
+        self._setup(X.shape[0], self.X_hist.shape[1], X.device, is_cat,
+                    num_bins, missing_code, default_bin, spec, comm, bundle,
+                    route, partition=True)
+
+    def _setup(self, N: int, F_hist: int, dev: torch.device,
+               is_cat: torch.Tensor, num_bins: torch.Tensor,
+               missing_code: torch.Tensor, default_bin: torch.Tensor,
+               spec: GrowerSpec, comm, bundle: Optional[BundleDecode],
+               route: Sequence[torch.Tensor], partition: bool) -> None:
+        """The buffers of ``N`` rows histogrammed over ``F_hist`` code
+        columns; ``partition`` False leaves the partition ``perm`` empty
+        (passes over every row)."""
+        self.num_rows = N
+        self.spec, self.comm, self.bundle = spec, comm, bundle
         self.num_bins, self.missing_code = num_bins, missing_code
         self.default_bin = default_bin
         self.route = list(route)
         L, S = spec.num_leaves, spec.hist_slots
         B = spec.num_bins_padded
         self.B_hist = spec.hist_bins or B          # Bb_pad under EFB
-        N = X.shape[0]
-        dev = X.device
         i32, f32 = torch.int32, torch.float32
-        self.X_hist = comm.hist_X(X)
-        F_cache = comm.reduced_hist_features(self.X_hist.shape[1])
+        F_cache = comm.reduced_hist_features(F_hist)
         # the tree being grown: its rows' g/h, count mask and features
         self.grad = torch.zeros(N, dtype=f32, device=dev)
         self.hess = torch.zeros(N, dtype=f32, device=dev)
@@ -520,7 +537,8 @@ class TreeGrower:
         self.table0 = torch.zeros((L + 1, ncols), dtype=i32, device=dev)
         self.table0[:, 0] = -1
         self.table0[:, 2] = -1
-        self.row_iota = torch.arange(N, dtype=i32, device=dev)
+        self.row_iota = torch.arange(N if partition else 0, dtype=i32,
+                                     device=dev)
         self.flags0 = torch.tensor([1, 0, 0], dtype=torch.int64, device=dev)
         self.state = GrowState(
             tree=_empty_tree(L, B, dev),
@@ -574,7 +592,7 @@ class TreeGrower:
         st.parent_cache.fill_(L)
         st.sum_g[0], st.sum_h[0], st.cnt[0] = rg, rh, rc
         st.needs_hist[0].fill_(True)
-        st.seg_rows[0].fill_(self.X.shape[0])
+        st.seg_rows[0].fill_(self.num_rows)
         st.flags.copy_(self.flags0)
         st.perm.copy_(self.row_iota)
 
@@ -584,18 +602,9 @@ class TreeGrower:
         row of the state bit-identical."""
         spec, st, comm = self.spec, self.state, self.comm
         L, S = spec.num_leaves, spec.hist_slots
-        dev = self.X.device
         nl = st.flags[0].clone()                   # leaves before the wave
         live = st.flags[1] == 0
-
-        # ---- 1. slots for the leaves needing histograms, ascending ------
-        pending = st.needs_hist & live
-        slot_rank = torch.cumsum(pending.long(), 0) - 1
-        slot_of_leaf = torch.where(pending, slot_rank, -1).to(torch.int32)
-        leaf_of_slot = torch.full((S + 1,), L, dtype=torch.int64, device=dev)
-        leaf_of_slot[torch.where(pending & (slot_rank < S), slot_rank,
-                                 S)] = torch.arange(L + 1, device=dev)
-        leaf_of_slot = leaf_of_slot[:S]
+        slot_of_leaf, leaf_of_slot = self._slots(live)
 
         # ---- 2. one pass builds the S histograms ------------------------
         with record_function("wave.histogram"):
@@ -636,6 +645,21 @@ class TreeGrower:
         st.flags.copy_(torch.stack([nl + n_apply, done.long(),
                                     st.flags[2] + live.long()]))
 
+    def _slots(self, live: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Step 1: a slot for every leaf needing a histogram, ascending:
+        ``(slot_of_leaf [L+1] i32, -1 = none; leaf_of_slot [S] i64, L =
+        none)``."""
+        L, S = self.spec.num_leaves, self.spec.hist_slots
+        dev = self.state.flags.device
+        pending = self.state.needs_hist & live
+        slot_rank = torch.cumsum(pending.long(), 0) - 1
+        slot_of_leaf = torch.where(pending, slot_rank, -1).to(torch.int32)
+        leaf_of_slot = torch.full((S + 1,), L, dtype=torch.int64, device=dev)
+        leaf_of_slot[torch.where(pending & (slot_rank < S), slot_rank,
+                                 S)] = torch.arange(L + 1, device=dev)
+        return slot_of_leaf, leaf_of_slot[:S]
+
     def finish(self) -> Tuple[TreeArrays, torch.Tensor]:
         """The epilogue: returns the state's own tree arrays and leaf ids
         (the next ``begin`` overwrites them). Scratch rows hold masked-split
@@ -669,6 +693,130 @@ class TreeGrower:
         self.begin(grad, hess, included, feature_ok)
         self.run_waves()
         return self.finish()
+
+
+class StreamedGrower(TreeGrower):
+    """:class:`TreeGrower` over host-resident code shards
+    (``tpu_residency=stream``; port of ``lightgbm_tpu/grower.py:894-1240``).
+
+    The same ``begin`` / ``wave`` / ``finish`` parts on the same state, so
+    the booster's tree prologue and epilogue, the ``nan_policy`` guard and
+    valid scoring run unchanged; only the code matrix is not on the card.
+    Each wave makes one pass over the shards of ``stream``
+    (``ops/stream.ShardPrefetcher``): per shard, the rows are first routed
+    by the previous wave's table (one copy of a shard serves both legs),
+    then their pending rows are added into the wave's carried histogram
+    (``ops/cuda_histogram.HistogramAccumulator``, kernel B11); the
+    accumulator is converted once, and ``_apply_wave_splits`` runs as in
+    the resident wave. The valid sets stay resident and are routed in the
+    wave that splits. Passes are full: there is no partition, and the
+    integer sums make the histograms, hence the trees, bit-equal to a
+    resident run. ``finish`` runs a trailing route pass when the last wave
+    applied splits.
+
+    The host drives the shard loop, so the loop is eager: :meth:`run_waves`
+    reads the grower's flags once per wave (``flag_reads``), the JAX
+    package's ``_fetch_wave_flags``. A tail shard's padding rows are never
+    routed or counted (``HostShardStore.real_rows``)."""
+
+    def __init__(self, stream, is_cat: torch.Tensor, num_bins: torch.Tensor,
+                 missing_code: torch.Tensor, default_bin: torch.Tensor,
+                 spec: GrowerSpec, comm=None,
+                 bundle: Optional[BundleDecode] = None,
+                 route: Sequence[torch.Tensor] = ()):
+        from .ops.cuda_histogram import HistogramAccumulator
+        if comm is None:
+            from .parallel.comm import SerialComm
+            comm = SerialComm(spec.num_features)
+        store = stream.store
+        self.stream, self.store = stream, store
+        dev = stream.device
+        self._setup(store.n_rows, store.num_cols, dev, is_cat, num_bins,
+                    missing_code, default_bin, spec, comm, bundle, route,
+                    partition=False)
+        self.acc = HistogramAccumulator(spec.hist_slots, store.num_cols,
+                                        self.B_hist, dev)
+        self.unpack_buf = torch.empty(
+            (store.shard_rows, store.num_cols), dtype=torch.uint8,
+            device=dev) if store.code_mode in ("u4", "u6") else None
+        self._table = self.table0
+        self._map_mask = None
+        self._route_next = False       # the next pass routes by _table
+        self._route_pending = False    # finish routes (the last wave split)
+        self.flag_reads = 0            # host reads of the flags
+        self.waves_run = 0
+
+    def begin(self, grad, hess, included, feature_ok) -> None:
+        super().begin(grad, hess, included, feature_ok)
+        self._route_next = self._route_pending = False
+
+    def _shard_pass(self, slot_of_leaf: Optional[torch.Tensor]) -> None:
+        """One pass over the shards: route each shard's rows by the
+        pending table, then (with ``slot_of_leaf``) add its pending rows
+        into the accumulator."""
+        st, store, stream = self.state, self.store, self.stream
+        R = store.shard_rows
+        for i in range(store.n_shards):
+            codes = unpack_codes(stream.get(i), store.num_cols,
+                                 store.code_mode, out=self.unpack_buf)
+            r0, n = i * R, store.real_rows(i)
+            if self._route_next and n:
+                lid = st.leaf_id[r0:r0 + n]
+                lid.copy_(_route_rows(codes[:n], lid, self._table,
+                                      self._map_mask)[0])
+            if slot_of_leaf is not None:
+                self.acc.add(codes, self.grad, self.hess, self.included,
+                             st.leaf_id, slot_of_leaf, r0, n, self.scales)
+            stream.release(i)
+            stream.prefetch(i + 1)
+
+    def wave(self) -> None:
+        """One wave over the shards (class docstring). Reads nothing on the
+        host but the shards' copies."""
+        spec, st, comm = self.spec, self.state, self.comm
+        nl = st.flags[0].clone()
+        live = st.flags[1] == 0
+        slot_of_leaf, leaf_of_slot = self._slots(live)
+        with record_function("wave.stream"):
+            self.acc.zero_()
+            self._shard_pass(slot_of_leaf)
+            new_hist = comm.reduce_hist(self.acc.finalize(self.scales))
+        with record_function("wave.split"):
+            table, map_mask, p, q, n_apply = _apply_wave_splits(
+                st, new_hist, leaf_of_slot, live, nl, self.bm, spec, comm,
+                self.num_bins, self.missing_code, self.default_bin,
+                self.table0, self.bundle)
+        with record_function("wave.route"):
+            for Xv, lid in zip(self.route, st.valid_leaf):
+                lid.copy_(_route_rows(Xv, lid, table[:, :6], map_mask)[0])
+        self._table, self._map_mask = table, map_mask
+        self._route_next = True
+        done = ~live | (n_apply == 0) | (nl + n_apply >= spec.num_leaves)
+        st.flags.copy_(torch.stack([nl + n_apply, done.long(),
+                                    st.flags[2] + live.long()]))
+
+    def run_waves(self) -> int:
+        """Waves until ``done``, one host read of the flags per wave;
+        notes whether the last wave split, for ``finish``."""
+        leaves = 1
+        while True:
+            self.wave()
+            self.waves_run += 1
+            grown, done, waves = self.state.flags.tolist()
+            self.flag_reads += 1
+            split, leaves = grown > leaves, grown
+            if done:
+                self._route_pending = split
+                return waves
+
+    def finish(self) -> Tuple[TreeArrays, torch.Tensor]:
+        """The trailing route pass (the last wave's splits reach the
+        training rows), then :meth:`TreeGrower.finish`."""
+        if self._route_pending:
+            with record_function("wave.stream"):
+                self._shard_pass(None)
+            self._route_pending = self._route_next = False
+        return super().finish()
 
 
 def grow_tree(

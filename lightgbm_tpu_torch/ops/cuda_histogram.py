@@ -31,6 +31,13 @@ from a CUDA graph counts where it runs and a capture counts nothing.
 :func:`launch_count` reads the counters (a host sync) and
 :func:`reset_launch_count` zeroes them; plain calls are not counted.
 
+Streamed passes (``tpu_residency=stream``, kernel B11):
+:class:`HistogramAccumulator` holds one wave's integer sums on the card and
+drives the source's three entries apart — ``zero_`` once per wave, ``add``
+once per host shard (``hist_kernel`` over the shard's code buffer, its rows'
+g / h / counts read at the shard's row offset, positions derived from its
+leaf ids on the card), ``finalize`` once per wave (counted as one pass).
+
 Codes: ``uint8``, or ``int16`` holding ``uint16`` codes (``max_bin`` above
 255; the dataset stores ``uint16`` on the host as the JAX package does, and
 the booster views it as ``int16`` on the card, where PyTorch indexes
@@ -55,7 +62,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .histogram import build_histograms, histogram_scales, pass_positions
+from .histogram import (build_histograms, finalize_histograms,
+                        histogram_scales, pass_positions)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "histogram.cu")
@@ -140,6 +148,13 @@ def _library():
         lib.gbdt_hist_build.argtypes = [
             p, i, ll, i, p, p, p, p, p, p, p, i, i, i, i, ll, p, p, p, p, p]
         lib.gbdt_hist_build.restype = i
+        lib.gbdt_hist_acc_zero.argtypes = [p, i, i, i, p]
+        lib.gbdt_hist_acc_zero.restype = i
+        lib.gbdt_hist_acc_add.argtypes = [
+            p, i, ll, i, p, p, p, p, p, p, p, i, i, i, i, ll, p, p, p]
+        lib.gbdt_hist_acc_add.restype = i
+        lib.gbdt_hist_acc_finalize.argtypes = [p, i, i, i, p, p, p, p]
+        lib.gbdt_hist_acc_finalize.restype = i
         lib.gbdt_hist_scratch_bytes.argtypes = [i, i, i]
         lib.gbdt_hist_scratch_bytes.restype = ll
         lib.gbdt_hist_max_slots.argtypes = []
@@ -318,3 +333,112 @@ def build_histograms_cuda(
     if err != 0:
         raise RuntimeError(f"histogram kernel launch failed: CUDA error {err}")
     return out
+
+
+class HistogramAccumulator:
+    """One wave's histogram folded over host shards (kernel B11): the
+    ``[S, F, B]`` integer sums of g, h and counts in a buffer allocated
+    once, added to shard by shard and converted to ``[S, F, B, 3]`` f32
+    once. On the card the buffer is the kernel's accumulator layout and
+    every step launches the kernel's entry (``zero_``: a memset; ``add``:
+    ``hist_kernel``; ``finalize``: ``finalize_kernel``, counted as one
+    pass) or raises; on the CPU it is the plain version's ``[S, F, B, 3]``
+    int64 tensor (``build_histograms(acc=...)``). No step reads a device
+    value on the host."""
+
+    def __init__(self, num_slots: int, num_features: int, num_bins: int,
+                 device: torch.device):
+        self.S, self.F, self.B = int(num_slots), int(num_features), \
+            int(num_bins)
+        self.device = device
+        if device.type == "cpu":
+            self.buf = torch.zeros((self.S, self.F, self.B, 3),
+                                   dtype=torch.int64)
+            return
+        lib = _library()
+        if self.S > lib.gbdt_hist_max_slots():
+            raise ValueError(f"num_slots={self.S} exceeds the kernel's "
+                             f"{lib.gbdt_hist_max_slots()}")
+        self.buf = torch.empty(
+            lib.gbdt_hist_scratch_bytes(self.S, self.F, self.B),
+            dtype=torch.uint8, device=device)
+
+    def _stream(self) -> int:
+        return torch.cuda.current_stream(self.device).cuda_stream
+
+    def zero_(self) -> None:
+        """Start a wave: every sum 0."""
+        if self.device.type == "cpu":
+            self.buf.zero_()
+            return
+        with torch.cuda.device(self.device):
+            err = _library().gbdt_hist_acc_zero(
+                self.buf.data_ptr(), self.S, self.F, self.B, self._stream())
+        if err != 0:
+            raise RuntimeError(f"histogram accumulator memset failed: CUDA "
+                               f"error {err}")
+
+    def add(self, X: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+            included: torch.Tensor, leaf_id: torch.Tensor,
+            slot_of_leaf: torch.Tensor, row0: int, num_rows: int,
+            scales: torch.Tensor) -> None:
+        """Add the rows ``[row0, row0 + num_rows)`` whose leaf is pending:
+        ``X`` is their shard's ``[R, F]`` codes (``R >= num_rows``; rows
+        past ``num_rows``, a tail shard's padding, are never read), the
+        per-row tensors hold every row of the dataset."""
+        n, r1 = int(num_rows), int(row0) + int(num_rows)
+        if X.shape[0] < n or r1 > grad.shape[0] or X.shape[1] != self.F:
+            raise ValueError(f"shard of shape {tuple(X.shape)} cannot hold "
+                             f"rows [{row0}, {r1}) of {grad.shape[0]} with "
+                             f"F={self.F}")
+        sl = slice(int(row0), r1)
+        if X.device.type == "cpu":
+            build_histograms(X[:n], grad[sl], hess[sl], included[sl],
+                             leaf_id[sl], slot_of_leaf, self.S, self.B,
+                             scales=scales, acc=self.buf, raw_output=True)
+            return
+        N = grad.shape[0]
+        _check("X", X, (torch.uint8, torch.int16))
+        for name, t in (("grad", grad), ("hess", hess),
+                        ("included", included)):
+            _check(name, t, (torch.float32,), (N,))
+        _check("leaf_id", leaf_id, (torch.int32,), (N,))
+        _check("slot_of_leaf", slot_of_leaf, (torch.int32,))
+        _check("scales", scales, (torch.float64,), (2,))
+        if n == 0:
+            return
+        # the shard's pending rows, slot-grouped, as positions in the shard
+        perm, counts, n_active = pass_positions(leaf_id[sl], slot_of_leaf,
+                                                self.S)
+        cb = X.element_size()
+        fg, _ = feature_groups(self.F, self.B, cb)
+        blocks = grid_blocks(n, self.F, self.B, cb, _sm_count(X.device))
+        off = int(row0) * 4                      # f32 rows before the shard
+        with torch.cuda.device(self.device):
+            err = _library().gbdt_hist_acc_add(
+                X.data_ptr(), cb, n, self.F, grad.data_ptr() + off,
+                hess.data_ptr() + off, included.data_ptr() + off,
+                perm.data_ptr(), counts.data_ptr(), None,
+                n_active.data_ptr(), self.S, self.B, fg, blocks,
+                MIN_ROWS_PER_BLOCK, scales.data_ptr(), self.buf.data_ptr(),
+                self._stream())
+        if err != 0:
+            raise RuntimeError(f"histogram kernel launch failed: CUDA error "
+                               f"{err}")
+
+    def finalize(self, scales: torch.Tensor) -> torch.Tensor:
+        """The wave's ``[S, F, B, 3]`` f32 histogram."""
+        if self.device.type == "cpu":
+            return finalize_histograms(self.buf, scales)
+        _check("scales", scales, (torch.float64,), (2,))
+        out = torch.empty((self.S, self.F, self.B, 3), dtype=torch.float32,
+                          device=self.device)
+        with torch.cuda.device(self.device):
+            err = _library().gbdt_hist_acc_finalize(
+                self.buf.data_ptr(), self.S, self.F, self.B,
+                scales.data_ptr(), out.data_ptr(),
+                _launch_counter(self.device).data_ptr(), self._stream())
+        if err != 0:
+            raise RuntimeError(f"histogram finalize launch failed: CUDA "
+                               f"error {err}")
+        return out

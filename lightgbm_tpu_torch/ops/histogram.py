@@ -20,6 +20,18 @@ training is bit-identical run to run. A bin's result is ``float32(sum(q) /
 scale)``; its error against the exact sum is at most half an f32 ulp of the
 result plus ``rows_in_bin / (2 * scale)`` (the quantisation). Counts are
 exact integers.
+
+Out-of-core passes (``tpu_residency=stream``, kernel B11): a wave's
+histogram is folded shard by shard into a carried ``[S, F, B, 3]`` int64
+accumulator (``build_histograms(acc=..., raw_output=True)``) and converted
+to f32 once per wave (:func:`finalize_histograms`). The fixed-point sums
+are integers, so any split of the rows into shards gives the same bits as
+one resident pass; this int64 fold replaces the JAX package's f32 carry
+with its Kahan compensation (``acc_init`` / ``comp_init`` /
+``raw_output`` of ``lightgbm_tpu/ops/histogram.py:293-460``). Shards
+travel packed (:func:`code_mode_for`, :func:`code_bytes_total`, the byte
+layouts of ``lightgbm_tpu/ops/histogram.py:112-175``) and are unpacked on
+the device by :func:`unpack_codes`.
 """
 from __future__ import annotations
 
@@ -34,6 +46,59 @@ _FIXED_POINT_BITS = 62
 # cap on the scale exponent, so that a tiny max|x| never drives the scale
 # past the f64 range
 _MAX_SCALE_EXP = 200
+
+
+# ---------------------------------------------------------------------------
+# packed code layouts of the streamed shards (lightgbm_tpu/ops/histogram.py
+# :100-183): "u8" one byte a code (codes < 256), "u16" two bytes, little
+# endian (max_bin above 255), "u4" two codes a byte, low nibble first
+# (codes < 16), "u6" four six-bit codes in three bytes (codes < 64)
+# ---------------------------------------------------------------------------
+
+def code_mode_for(max_code: int, code_itemsize: int) -> str:
+    """The tightest layout for codes below ``max_code`` stored with
+    ``code_itemsize`` bytes (2: ``uint16``)."""
+    if code_itemsize == 2 or max_code > 256:
+        return "u16"
+    if max_code <= 16:
+        return "u4"
+    if max_code <= 64:
+        return "u6"
+    return "u8"
+
+
+def code_bytes_total(F: int, code_mode: str) -> int:
+    """Bytes of one packed row of ``F`` codes."""
+    return {"u8": F, "u16": 2 * F, "u4": (F + 1) // 2,
+            "u6": ((F + 3) // 4) * 3}[code_mode]
+
+
+def unpack_codes(xb: torch.Tensor, F: int, code_mode: str,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[R, code_bytes_total(F)]`` uint8 packed rows -> ``[R, F]`` codes
+    in the dtype the grower reads: ``uint8``, or ``int16`` holding
+    ``uint16`` codes. ``u8`` and ``u16`` are views of ``xb`` (no copy);
+    ``u4`` and ``u6`` are written into ``out`` (``[R, F]`` uint8, e.g. a
+    buffer allocated once) when given."""
+    R = xb.shape[0]
+    if code_mode == "u8":
+        return xb
+    if code_mode == "u16":
+        return xb.view(torch.int16)
+    if code_mode == "u4":
+        codes = torch.stack([xb & 15, xb >> 4], dim=-1).reshape(R, -1)
+    elif code_mode == "u6":
+        t = xb.reshape(R, -1, 3)
+        b0, b1, b2 = t[..., 0], t[..., 1], t[..., 2]
+        codes = torch.stack([b0 & 63, (b0 >> 6) | ((b1 & 15) << 2),
+                             (b1 >> 4) | ((b2 & 3) << 4), b2 >> 2],
+                            dim=-1).reshape(R, -1)
+    else:
+        raise ValueError(f"unknown code mode {code_mode!r}")
+    codes = codes[:, :F]
+    if out is None:
+        return codes.contiguous()
+    return out.copy_(codes)
 
 
 def fixed_point_scale(max_abs: float, n_rows: int) -> float:
@@ -174,19 +239,29 @@ def build_histograms(
     slot_counts: Optional[torch.Tensor] = None,  # [S] i32 slot-grouped rows
     slot_starts: Optional[torch.Tensor] = None,  # [S] i32 segment starts
     scales: Optional[torch.Tensor] = None,   # [2] f64 per-tree (g, h)
+    acc: Optional[torch.Tensor] = None,      # [S, F, B, 3] i64 carried sums
+    raw_output: bool = False,
 ) -> torch.Tensor:
     """Plain version of the histogram kernel: ``[S, F, B, 3]`` f32.
 
     A scatter-add of the fixed-point g/h and the 0/1 counts into
-    ``[S, F, B]`` int64 bins, then one conversion to f32 — the kernel's
-    arithmetic exactly (module docstring), so the kernel must agree with it
-    bit for bit. It reads ``n_active`` and the scales on the host: it runs
-    for CPU tensors only."""
+    ``[S, F, B, 3]`` int64 bins, then one conversion to f32
+    (:func:`finalize_histograms`) — the kernel's arithmetic exactly (module
+    docstring), so the kernel must agree with it bit for bit. With ``acc``
+    the pass adds into that carried accumulator, in place (one shard's leg
+    of a streamed pass); ``raw_output`` returns the accumulator instead of
+    the f32 histogram. It reads ``n_active`` on the host: it runs for CPU
+    tensors only."""
     N, F = X.shape
     S, B = num_slots, num_bins_padded
     if scales is None:
         scales = histogram_scales(grad, hess)
-    scales = float(scales[0]), float(scales[1])
+    if acc is None:
+        acc = torch.zeros((S, F, B, 3), dtype=torch.int64, device=X.device)
+    elif acc.dtype != torch.int64 or tuple(acc.shape) != (S, F, B, 3):
+        raise ValueError(f"acc must be int64 of shape {(S, F, B, 3)}, got "
+                         f"{acc.dtype} {tuple(acc.shape)}")
+    sg, sh = float(scales[0]), float(scales[1])
     rows, slot = pass_rows(leaf_id, slot_of_leaf, row_idx, n_active,
                            slot_counts, slot_starts)
     codes = X[rows].long()                                          # [n, F]
@@ -200,14 +275,23 @@ def build_histograms(
                          f"num_bins_padded={B} (or a uint16 code >= 2**15)")
     feat = torch.arange(F, device=X.device)
     flat = ((slot[:, None] * F + feat[None, :]) * B + codes).reshape(-1)
-    qg = torch.round(grad[rows].double() * scales[0]).long()
-    qh = torch.round(hess[rows].double() * scales[1]).long()
+    qg = torch.round(grad[rows].double() * sg).long()
+    qh = torch.round(hess[rows].double() * sh).long()
     qc = (included[rows] != 0).long()
-    out = []
-    for q in (qg, qh, qc):
-        acc = torch.zeros(S * F * B, dtype=torch.int64, device=X.device)
-        acc.index_add_(0, flat, q.repeat_interleave(F))
-        out.append(acc)
-    g = (out[0].double() * (1.0 / scales[0])).float()
-    h = (out[1].double() * (1.0 / scales[1])).float()
-    return torch.stack([g, h, out[2].float()], dim=-1).reshape(S, F, B, 3)
+    flat_acc = acc.view(-1)
+    for c, q in enumerate((qg, qh, qc)):
+        flat_acc.index_add_(0, flat * 3 + c, q.repeat_interleave(F))
+    if raw_output:
+        return acc
+    return finalize_histograms(acc, scales)
+
+
+def finalize_histograms(acc: torch.Tensor, scales: torch.Tensor
+                        ) -> torch.Tensor:
+    """``[S, F, B, 3]`` int64 sums -> f32 (sum_g, sum_h, count): the
+    fixed-point sums times ``1 / scale`` in f64, rounded once to f32, as
+    the kernel's ``finalize_kernel`` does (the JAX package's
+    ``finalize_histograms``, ops/histogram.py:461 there)."""
+    g = (acc[..., 0].double() * (1.0 / scales[0])).float()
+    h = (acc[..., 1].double() * (1.0 / scales[1])).float()
+    return torch.stack([g, h, acc[..., 2].float()], dim=-1)

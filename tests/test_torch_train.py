@@ -230,23 +230,15 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"objective": "poisson", "tpu_residency": "stream"}, "A14"),
     ({"tree_learner": "voting"}, "A16"),
     ({"categorical_feature": "0", "tree_learner": "voting"}, "A16"),
-    ({"enable_bundle": True, "tpu_residency": "stream"}, "A14"),
-    ({"tpu_residency": "stream", "nan_policy": "skip_iter"}, "A14"),
     ({"tree_learner": "data", "checkpoint_dir": "checkpoints"}, "A16"),
-    ({"objective": "lambdarank", "tree_batch": 3,
-      "tpu_residency": "stream"}, "A14"),
     ({"objective": "huber", "tree_learner": "feature"}, "A16"),
     ({"tree_batch": 4, "boosting": "dart", "tree_learner": "voting"},
      "A16"),
     ({"tree_learner": "data"}, "A16"),
-    ({"tpu_residency": "stream"}, "A14"),
-    ({"tree_batch": 2, "tpu_residency": "stream",
-      "checkpoint_dir": "checkpoints"}, "A14"),
+    ({"tpu_residency": "stream", "tree_learner": "data"}, "A16"),
     ({"tree_learner": "feature", "nan_policy": "raise"}, "A16"),
-    ({"tpu_residency": "stream", "tpu_ingest": "device"}, "A14"),
     ({"tree_learner": "voting", "resume_from": "auto"}, "A16"),
 ])
 def test_unported_configs_raise_with_roadmap_item(params, item):
