@@ -160,12 +160,13 @@ Phases (any failure exits non-zero and prints no result line):
    accumulation ms per dispatch and the replayed leaves against the eager
    walk (bit-equal required); holds ``predict`` of 4,096 rows with NaN
    and zero cells bit-equal to ``Booster.predict(force_host_predict=
-   True)``; drives ``MicroBatcher`` with 32 closed-loop clients (20,000
+   True)``; drives ``MicroBatcher`` with 32 closed-loop clients (10,000
    requests of 1-64 rows) and a Poisson open loop at half their rate,
    every response held to the host prediction of its rows (requests/s,
    rows/s, p50/p99, dispatches, batch fill); hot-reloads the same file at
-   ``num_iteration=250`` under the open loop (every response one of the
-   two versions, both seen, version gauge 2, the live model's captures
+   ``num_iteration=250`` under the open loop, whose arrivals go on for a
+   second after the reload returns (every response one of the two
+   versions, both seen, version gauge 2, the live model's captures
    unchanged, the candidate's own 13; device memory before, with both
    models and after); fails on any ``serve.host_fallback``,
    ``serve.breaker_trips`` or a health other than ``ready``; and splits
@@ -239,8 +240,27 @@ Phases (any failure exits non-zero and prints no result line):
    ``ShardCorruptionError`` with no tree committed. Every leg's model text
    in (a)-(c) must be phase 4's.
 
+18. multi-GPU training's comm layer (A16, B13) on the one card. (a) An
+   NCCL process group of one on ``cuda:0``: B1's integer sums of phase 3's
+   ``full`` case, and every comm class (data, feature, voting, and the
+   bundled data and feature ones on single-feature bundles) over it: the
+   reduced histogram, the split candidates, the root sums and the scales
+   must equal ``SerialComm``'s; each collective's device ms at the main
+   path's shapes is printed as "NCCL, world of one: a local copy, not a
+   multi-GPU number", and no collective may stage through the host. Then
+   two NCCL ranks on ``cuda:0`` are probed and NCCL's answer printed. (b)
+   Two ranks on ``cuda:0`` over a group the ranks make themselves (gloo,
+   or NCCL where the probe passed) — on a machine with several cards, a
+   rank on each card over NCCL, no collective staged — phase 4's data and
+   parameters, 10 rounds of ``tree_learner=data``, ``feature`` and
+   ``voting``: each rank prints its B1 launches, setup s, ms per iteration
+   and host-staged collective ms ("gloo over one card": no multi-GPU
+   number); the data and feature texts must be phase 4's on every rank,
+   voting's the same on every rank with the train AUC within 0.01 of
+   phase 4's.
+
 ``--phases 3,11`` runs only the listed phases (and those they need: 5-7
-and 12-17 add phase 4); such a partial run prints no result lines and
+and 12-18 add phase 4); such a partial run prints no result lines and
 exits 4.
 
 The card's line comes before the last two lines; the line before the last
@@ -295,6 +315,12 @@ def cuda_time_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def elapsed(t_start):
+    """The script's host seconds so far, printed between phases (a phase's
+    cost is the difference of the lines around it)."""
+    print(f"  elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
 
 
 def kernel_name(mangled):
@@ -2422,8 +2448,10 @@ def tree_batch_phase(mres):
 SERVE_ROUNDS = 500                 # the reference GPU benchmark's HIGGS run
 SERVE_POOL = 8192                  # request rows, predicted once on the host
 SERVE_CLIENTS = 32
-SERVE_REQUESTS = 20_000
+SERVE_REQUESTS = 10_000            # closed-loop requests, all clients
 SERVE_OPEN_S = 4.0                 # seconds of each open loop
+SERVE_OPEN_MAX = 4                 # the longest open loop across a reload,
+                                   # in multiples of SERVE_OPEN_S
 
 
 def _serve_rows(X, seed):
@@ -2480,12 +2508,16 @@ def _open_loop(mb, pool, expects, rate, seconds, seed, during=None):
     the scheduled arrival, so queueing counts), each request 1-64 rows;
     every response must equal one of ``expects`` on its rows (the model
     versions that may serve). ``during`` runs on this thread after a
-    quarter of the schedule. Returns latencies, rows, wall s, mismatches,
-    the versions seen and what ``during`` returned."""
+    quarter of the schedule, and arrivals then go on until a quarter of
+    ``seconds`` after it returns (at most ``SERVE_OPEN_MAX`` times
+    ``seconds`` in all), so traffic lies on both sides of it however long
+    it takes. Returns latencies, rows, wall s, mismatches, the versions
+    seen and what ``during`` returned."""
     import threading
     import numpy as np
     rng = np.random.default_rng(seed)
-    n_req = max(1, int(rate * seconds))
+    horizon = seconds * (1 if during is None else SERVE_OPEN_MAX)
+    n_req = max(1, int(rate * horizon))
     arrivals = np.cumsum(rng.exponential(1.0 / rate, n_req))
     sizes = rng.integers(1, 65, n_req)
     offs = rng.integers(0, len(pool) - 64, n_req)
@@ -2495,6 +2527,8 @@ def _open_loop(mb, pool, expects, rate, seconds, seed, during=None):
     nxt = [0]
     workers = max(8, min(64, int(rate * 0.02) + 8))
     start = [0.0]
+    # the last arrival's time from the start: open until ``during`` returns
+    end = [seconds if during is None else horizon]
     gate = threading.Barrier(workers + 1)
 
     def worker():
@@ -2502,7 +2536,7 @@ def _open_loop(mb, pool, expects, rate, seconds, seed, during=None):
         while True:
             with lock:
                 i = nxt[0]
-                if i >= n_req:
+                if i >= n_req or arrivals[i] > end[0]:
                     return
                 nxt[0] += 1
             lo, n = int(offs[i]), int(sizes[i])
@@ -2510,6 +2544,9 @@ def _open_loop(mb, pool, expects, rate, seconds, seed, during=None):
             delay = t_sched - time.perf_counter()
             if delay > 0:
                 time.sleep(delay)
+                with lock:
+                    if arrivals[i] > end[0]:   # the end was set meanwhile
+                        return
             out = mb.predict(pool[lo:lo + n])
             lat = (time.perf_counter() - t_sched) * 1e3
             match = [v for v, e in enumerate(expects)
@@ -2531,6 +2568,9 @@ def _open_loop(mb, pool, expects, rate, seconds, seed, during=None):
     if during is not None:
         time.sleep(seconds / 4)
         ret = during()
+        with lock:
+            end[0] = max(seconds, time.perf_counter() - start[0]
+                         + seconds / 4)
     for t in threads:
         t.join()
     return lats, rows[0], time.perf_counter() - start[0], bad, seen, ret
@@ -3716,7 +3756,352 @@ def stream_phase(mres):
                 estimates={k: v["total_bytes"] for k, v in ests.items()})
 
 
-PHASES = tuple(range(1, 18))
+# ---------------------------------------------------------------- phase 18
+
+PAR_ROUNDS = 10                    # phase 18 (b): phase 4's rounds
+PAR_DEADLINE_S = 600               # one world of ranks, then killed
+PAR_PROBE_S = 120                  # the two-rank NCCL probe
+PAR_AUC_TOL = 0.01                 # voting's train AUC beside phase 4's
+
+
+def _free_port():
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(script, world, deadline, extra=()):
+    """Run ``python -c script rank world port *extra`` as ``world`` processes
+    and return [(rc, stdout, stderr)]; past ``deadline`` seconds every rank
+    is killed (rc None)."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=HERE, PYTHONUNBUFFERED="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script, str(r), str(world), str(port),
+         *map(str, extra)], env=env, cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+        for r in range(world)]
+    out = []
+    t_end = time.monotonic() + deadline
+    for p in procs:
+        try:
+            so, se = p.communicate(timeout=max(1.0, t_end - time.monotonic()))
+            out.append((p.returncode, so, se))
+        except subprocess.TimeoutExpired:
+            out.append((None, "", "killed at the deadline"))
+    for p in procs:
+        if p.poll() is None:
+            os.killpg(p.pid, 9)
+            p.wait()
+    return out
+
+
+_NCCL_PROBE = r"""
+import datetime, json, os, sys
+import torch, torch.distributed as dist
+rank, world, port = map(int, sys.argv[1:4])
+torch.cuda.set_device(0)
+out = {"rank": rank}
+try:
+    store = dist.TCPStore("127.0.0.1", port, world, rank == 0,
+                          timeout=datetime.timedelta(seconds=60))
+    dist.init_process_group("nccl", store=store, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    x = torch.full((4,), float(rank + 1), device="cuda:0")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    out.update(ok=True, sum=x.tolist())
+except Exception as e:
+    out.update(ok=False, error=f"{type(e).__name__}: {e}"[:600])
+print(json.dumps(out), flush=True)
+os._exit(0)
+"""
+
+_PAR_RANK = r"""
+import datetime, hashlib, json, sys, time
+import torch, torch.distributed as dist
+rank, world, port = map(int, sys.argv[1:4])
+backend, rounds = sys.argv[4], int(sys.argv[5])
+import chip_smoke as cs
+# a rank per card where there are several, else every rank on cuda:0
+torch.cuda.set_device(rank % torch.cuda.device_count())
+# the ranks make the group themselves: the port uses it as it stands
+store = dist.TCPStore("127.0.0.1", port, world, rank == 0,
+                      timeout=datetime.timedelta(seconds=300))
+dist.init_process_group(backend, store=store, rank=rank, world_size=world)
+import lightgbm_tpu_torch as lgt
+from lightgbm_tpu_torch.ops.cuda_histogram import (launch_count,
+                                                   reset_launch_count)
+X, y = cs.higgs_like(cs.N, cs.SEED)
+ds = lgt.Dataset(X, label=y)
+ds.construct(lgt.Config.from_params(cs.MAIN_PARAMS))
+res = {"modules": sorted(m for m in sys.modules
+                         if m.split(".")[0] in ("jax", "lightgbm_tpu"))}
+for tl in ("data", "feature", "voting"):
+    reset_launch_count()                    # each learner's path starts
+    t0 = time.perf_counter()
+    bst = lgt.Booster(params=dict(cs.MAIN_PARAMS, tree_learner=tl),
+                      train_set=ds)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(rounds):
+        bst.update()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    text = bst.model_to_string()
+    launches = launch_count()               # ... and ends here
+    g = bst._gbdt
+    c = g.pctx.coll
+    res[tl] = dict(
+        digest=hashlib.sha256(text.encode()).hexdigest(),
+        launches=launches, setup_s=t1 - t0,
+        ms_per_iter=(t2 - t1) / rounds * 1e3, calls=c.calls,
+        mbytes=c.bytes / 2**20, staged_calls=c.staged_calls,
+        staged_ms=c.staged_s * 1e3, strategy=g.pctx.strategy,
+        world=g.pctx.num_devices, backend=c.backend, rows=g.num_rows,
+        device=str(g.device), trees=len(bst.trees),
+        auc=cs.auc_of(bst.predict(X), y),
+        eager=g._capture_blocker())
+    del bst, g, c
+    torch.cuda.empty_cache()
+print(json.dumps(res), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _identity_bundle(nb, dev):
+    """EFB tables in which every feature is a bundle of its own (codes are
+    bins, the default bin 0 rebuilt by subtraction): a bundled scan over
+    the unbundled histogram."""
+    import torch
+    from lightgbm_tpu_torch.grower import BundleDecode
+    Fn = nb.shape[0]
+    i32 = dict(dtype=torch.int32, device=dev)
+    code_feat = torch.arange(Fn, **i32)[:, None].expand(Fn, B).contiguous()
+    code_feat[:, 0] = -1
+    unpack = torch.arange(B, **i32)[None, :].expand(Fn, B).contiguous()
+    unpack[:, 0] = -1
+    return BundleDecode(col=torch.arange(Fn, **i32),
+                        lo=torch.zeros(Fn, **i32), hi=nb.clone(),
+                        off=torch.zeros(Fn, **i32), unpack_bin=unpack,
+                        code_feat=code_feat)
+
+
+def nccl_world_of_one(dev):
+    """Phase 18 (a): every comm class over an NCCL group of one on the
+    card, on B1's integer sums of phase 3's ``full`` case, against
+    ``SerialComm``. Returns B1's passes."""
+    import dataclasses
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from lightgbm_tpu_torch.grower import GrowerSpec
+    from lightgbm_tpu_torch.ops.cuda_histogram import (
+        HistogramAccumulator, build_histograms_cuda, launch_count,
+        reset_launch_count)
+    from lightgbm_tpu_torch.ops.histogram import histogram_scales
+    from lightgbm_tpu_torch.parallel import comm as pc
+
+    store = dist.TCPStore("127.0.0.1", _free_port(), 1, True,
+                          timeout=datetime.timedelta(seconds=120))
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    coll = pc.Collectives(dist.group.WORLD, 0, 1)
+    # phase 3's full case, bit for bit: the same generator, the same draws
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    X8 = torch.randint(0, B, (N, F), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.uint8)
+    g = torch.randn(N, generator=gen, device=dev)
+    h = torch.rand(N, generator=gen, device=dev) * 0.25
+    ones = torch.ones(N, device=dev)
+    X, nb_, leaf_id, slot_of_leaf, kw = case_inputs("full", dev, gen, X8)
+    scales = histogram_scales(g, h)
+    reset_launch_count()                  # phase 18 (a)'s passes start
+    acc = HistogramAccumulator(S, F, B, dev)
+    acc.zero_()
+    build_histograms_cuda(X, g, h, ones, leaf_id, slot_of_leaf, S, B,
+                          scales=scales, acc=acc, **kw)
+    serial_hist = acc.finalize(scales)
+    whole = build_histograms_cuda(X, g, h, ones, leaf_id, slot_of_leaf, S,
+                                  B, scales=scales, **kw)
+    if not torch.equal(whole, serial_hist):
+        fail("phase 18: B1's accumulate + finalize differs from one pass")
+    tot = serial_hist[:, 0].double().sum(dim=1).float()          # [S, 3]
+    pg, ph, pcnt = tot[:, 0], tot[:, 1], tot[:, 2]
+    spec = GrowerSpec(num_leaves=255, num_features=F, num_bins_padded=B,
+                      hist_slots=S, wave_size=S, max_depth=-1,
+                      lambda_l1=0.0, lambda_l2=0.0, min_data_in_leaf=20.0,
+                      min_sum_hessian_in_leaf=1e-3, min_gain_to_split=0.0)
+    spec_b = dataclasses.replace(spec, hist_bins=B)
+    i32 = dict(dtype=torch.int32, device=dev)
+    meta = (torch.ones(F, dtype=torch.bool, device=dev),
+            torch.full((F,), B, **i32), torch.zeros(F, **i32),
+            torch.zeros(F, **i32), torch.zeros(F, dtype=torch.bool,
+                                              device=dev))
+    bundle = _identity_bundle(meta[1], dev)
+    serial = pc.SerialComm(F)
+
+    def same(a, b):
+        return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+    for name, c in (
+            ("DataParallelComm", pc.DataParallelComm(coll, 1, F, N)),
+            ("FeatureParallelComm", pc.FeatureParallelComm(coll, 1, F)),
+            ("VotingParallelComm", pc.VotingParallelComm(coll, 1, F, 20, N)),
+            ("DataParallelBundledComm",
+             pc.DataParallelBundledComm(coll, 1, F, F, bundle.col, N)),
+            ("FeatureParallelBundledComm",
+             pc.FeatureParallelBundledComm(coll, 1, F, F, bundle.col))):
+        bundled = name.endswith("BundledComm")
+        if c.reduces_sums:
+            out = HistogramAccumulator(S, c.block, B, dev)
+            hist = c.reduce_sums(acc, out).finalize(scales)
+        else:
+            if not torch.equal(c.hist_X(X), X):
+                fail(f"phase 18: {name}.hist_X is not the whole block")
+            hist = c.reduce_hist(serial_hist)
+        spec_c = spec_b if bundled else spec
+        want = serial.find_splits(serial_hist, pg, ph, pcnt,
+                                  serial.block_meta(*meta), spec_c,
+                                  bundle if bundled else None)
+        got = c.find_splits(hist, pg, ph, pcnt, c.block_meta(*meta), spec_c,
+                            c.localize_bundle(bundle) if bundled else None)
+        scal = same(c.root_sums(g, h, ones), serial.root_sums(g, h, ones)) \
+            and same([c.histogram_scales(g, h)],
+                     [serial.histogram_scales(g, h)])
+        ok = bool(torch.equal(hist, serial_hist)) and same(got, want) \
+            and scal
+        print(f"  (a) {name} over NCCL (world of one): reduced histogram, "
+              f"split candidates, root sums and scales equal to "
+              f"SerialComm's {ok}", flush=True)
+        if not ok:
+            fail(f"phase 18: {name} over NCCL differs from SerialComm")
+
+    # each collective's device ms on the main path's shapes
+    dp = pc.DataParallelComm(coll, 1, F, N)
+    out = HistogramAccumulator(S, F, B, dev)
+    cand = serial.find_splits(serial_hist, pg, ph, pcnt,
+                              serial.block_meta(*meta), spec)
+    packed = pc._pack_candidates(cand, False)
+    roots = torch.zeros(3, dtype=torch.float64, device=dev)
+    votes = torch.zeros((2, 2 * S, F), dtype=torch.float64, device=dev)
+    sel = torch.zeros((2 * S, F, B, 3), dtype=torch.float64, device=dev)
+    calls0 = coll.calls
+    for label, fn, nbytes in (
+            ("reduce-scatter of B1's sums (u64 g, u64 h, u32 count)",
+             lambda: dp.reduce_sums(acc, out), S * F * B * 20),
+            ("all-gather of the split candidates (int32)",
+             lambda: coll.all_gather(packed),
+             packed.numel() * 4),
+            ("all-reduce of the root sums (f64)",
+             lambda: coll.all_reduce(roots), 24),
+            ("all-reduce MAX of the scales (f64)",
+             lambda: coll.all_reduce(roots[:2], "max"), 16),
+            ("all-reduce of voting's votes and gains (f64)",
+             lambda: coll.all_reduce(votes), votes.numel() * 8),
+            ("all-reduce of voting's selected columns (f64, k2 = F)",
+             lambda: coll.all_reduce(sel), sel.numel() * 8)):
+        ms = cuda_time_ms(fn, 20)
+        print(f"  (a) NCCL, world of one: a local copy, not a multi-GPU "
+              f"number: {label}, {nbytes / 2**20:.3f} MiB: {ms:.4f} ms",
+              flush=True)
+    if coll.staged_calls:
+        fail("phase 18: an NCCL group staged a collective through the host")
+    print(f"  (a) collectives {coll.calls - calls0} timed, staged through "
+          f"the host {coll.staged_calls}", flush=True)
+    torch.cuda.synchronize()
+    launches = launch_count()             # ... and end here
+    dist.destroy_process_group()
+    del acc, out, serial_hist, whole, X8, X, g, h, ones, leaf_id, kw, sel
+    torch.cuda.empty_cache()
+    return launches
+
+
+def parallel_phase(mres, dev):
+    """Phase 18: multi-GPU training's comm layer: on one card, or across
+    the cards of a machine with several."""
+    t0 = time.perf_counter()
+    launches = nccl_world_of_one(dev)
+    print(f"  (a) histogram kernel passes: {launches}", flush=True)
+    probe = _run_ranks(_NCCL_PROBE, 2, PAR_PROBE_S)
+    accepted = True
+    for r, (rc, so, se) in enumerate(probe):
+        line = so.strip().splitlines()[-1] if so.strip() else ""
+        said = json.loads(line) if line.startswith("{") else \
+            {"ok": False, "error": f"rc {rc}: {se.strip()[-400:]}"}
+        accepted &= bool(said.get("ok"))
+        print(f"  two NCCL ranks on cuda:0, rank {r}: "
+              f"{'accepted, sum ' + str(said['sum']) if said.get('ok') else 'NCCL says: ' + said.get('error', '?')}",
+              flush=True)
+    import torch
+    cards = torch.cuda.device_count()
+    # several cards: a rank on each, over NCCL; one card: two ranks on it,
+    # over NCCL only where the probe passed
+    world = cards if cards > 1 else 2
+    backend = "nccl" if cards > 1 or accepted else "gloo"
+    label = "gloo over one card" if backend == "gloo" else (
+        f"NCCL across {world} cards" if cards > 1
+        else "NCCL, two ranks on one card")
+    print(f"  (b) {world} ranks on {min(cards, world)} card(s) over "
+          f"{backend} (the ranks' own group), phase 4's data and "
+          f"parameters, {PAR_ROUNDS} rounds per learner", flush=True)
+    ranks = _run_ranks(_PAR_RANK, world, PAR_DEADLINE_S,
+                       extra=(backend, PAR_ROUNDS))
+    res = []
+    for r, (rc, so, se) in enumerate(ranks):
+        lines = so.strip().splitlines()
+        if rc != 0 or not lines:
+            fail(f"phase 18 (b): rank {r} exited {rc}: {se.strip()[-3000:]}")
+        res.append(json.loads(lines[-1]))
+    for tl in ("data", "feature", "voting"):
+        for r, out in enumerate(res):
+            o = out[tl]
+            launches += o["launches"]
+            print(f"  (b) {tl}, rank {r} ({label}): {o['world']} ranks, "
+                  f"{o['backend']}, {o['rows']} rows held, {o['device']}; "
+                  f"setup {o['setup_s']:.2f} s, {o['ms_per_iter']:.1f} ms "
+                  f"per iteration, B1 launches {o['launches']}, collectives "
+                  f"{o['calls']} ({o['mbytes']:.1f} MiB), host-staged "
+                  f"{o['staged_calls']} in {o['staged_ms']:.1f} ms; train "
+                  f"AUC {o['auc']:.5f}; model text sha256 "
+                  f"{o['digest'][:16]}; ran eagerly: {o['eager']}",
+                  flush=True)
+            if o["strategy"] != tl or o["world"] != world or o["trees"] != \
+                    PAR_ROUNDS or o["launches"] <= 0:
+                fail(f"phase 18 (b): {tl} rank {r} did not train a world "
+                     f"of {world} through B1")
+            if o["staged_calls"] != (o["calls"] if backend == "gloo" else 0):
+                fail(f"phase 18 (b): {tl} rank {r}: {o['staged_calls']} of "
+                     f"{o['calls']} collectives staged through the host "
+                     f"under {backend}")
+        digests = {o[tl]["digest"] for o in res}
+        if len(digests) != 1:
+            fail(f"phase 18 (b): {tl}: the ranks' model texts differ")
+        digest = digests.pop()
+        if tl in ("data", "feature"):
+            same = digest == mres["digest"]
+            print(f"  (b) {tl}: every rank's text is phase 4's "
+                  f"({mres['digest'][:8]}…{mres['digest'][-5:]}) {same}",
+                  flush=True)
+            if not same:
+                fail(f"phase 18 (b): {tl}'s text is not phase 4's")
+        else:
+            gap = abs(res[0][tl]["auc"] - mres["auc"])
+            print(f"  (b) voting: every rank's text the same True; train "
+                  f"AUC {res[0][tl]['auc']:.5f} against phase 4's "
+                  f"{mres['auc']:.5f} (|diff| {gap:.5f}, tol {PAR_AUC_TOL})",
+                  flush=True)
+            if not gap <= PAR_AUC_TOL:
+                fail("phase 18 (b): voting's AUC is off phase 4's")
+    if any(o["modules"] for o in res):
+        fail("phase 18 (b): a rank imported JAX or lightgbm_tpu")
+    print(f"  histogram kernel launches in phase 18: {launches}; phase 18 "
+          f"took {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(launches=launches)
+
+
+PHASES = tuple(range(1, 19))
 
 
 def main():
@@ -3744,9 +4129,10 @@ def main():
     want = set(PHASES) if not args.phases else \
         {int(p) for p in args.phases.split(",")}
     # phases 5-7 and 12-17 run on phase 4's data and booster
-    if want & {5, 6, 7, 12, 13, 14, 15, 16, 17}:
+    if want & {5, 6, 7, 12, 13, 14, 15, 16, 17, 18}:
         want.add(4)
 
+    t_start = time.perf_counter()
     print("phase 1: card", flush=True)
     card = card_line()
     print(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
@@ -3766,17 +4152,20 @@ def main():
     none = dict(launches=0)
     kres, mres, sres, cres, gres, rres = {}, None, None, none, None, None
     if 3 in want:
+        elapsed(t_start)
         print(f"phase 3: histogram kernel vs plain version (N={N}, F={F}, "
               f"B={B} (uint16: {B16}), S={S}; efb: {BOSCH_ROWS} x "
               f"{BOSCH_G} bundled codes, B={BOSCH_BB})", flush=True)
         kres = kernel_phase(dev)
 
     if 4 in want:
+        elapsed(t_start)
         print("phase 4: main path (Higgs-shaped 2M x 28 binary, 255 leaves, "
               "10 rounds)", flush=True)
         mres = main_path_phase()
 
     if 5 in want:
+        elapsed(t_start)
         print("phase 5: profile of a steady-state eager iteration (the wave "
               "steps' host time)", flush=True)
         profile_phase(mres.pop("booster"), args.trace)
@@ -3784,29 +4173,34 @@ def main():
         mres.pop("booster")
 
     if 6 in want:
+        elapsed(t_start)
         print(f"phase 6: sampled and validated path (bagging 0.8 every 5, "
               f"feature_fraction 0.8, {NV} valid rows, early stopping; GOSS; "
               f"card vs CPU)", flush=True)
         sres = sampled_phase(*mres["data"], dev)
     if 7 in want:
+        elapsed(t_start)
         print(f"phase 7: multiclass at full width (2M x 28, {NUM_CLASS} "
               f"classes, 255 leaves, {MULTI_ROUNDS} rounds; multiclassova 2 "
               f"rounds)", flush=True)
         cres = multiclass_phase()
 
     if 8 in want:
+        elapsed(t_start)
         print(f"phase 8: categorical at full width (Expo-shaped 2M x 8, six "
               f"categorical columns, {CAT_ROUNDS} rounds, {NV} valid rows)",
               flush=True)
         gres = categorical_phase(dev)
 
     if 9 in want:
+        elapsed(t_start)
         print(f"phase 9: lambdarank at the MS-LTR shape ({RANK_ROWS} rows x "
               f"{F137}, {RANK_ROUNDS} rounds)", flush=True)
         rres = ranking_phase()
 
     xres = dict(launches=0)
     if 10 in want:
+        elapsed(t_start)
         print(f"phase 10: card vs CPU, {SMALL} rows, the new objectives, "
               f"categorical features, EFB and linear leaves", flush=True)
         if mres is not None and gres is not None and rres is not None:
@@ -3817,11 +4211,13 @@ def main():
 
     eres = lres = none
     if 11 in want:
+        elapsed(t_start)
         print(f"phase 11: EFB at the Bosch shape ({BOSCH_ROWS} x {BOSCH_F} "
               f"CSR, binary, 255 leaves, enable_bundle=auto, {EFB_ROUNDS} "
               f"rounds, {BOSCH_VALID} valid rows)", flush=True)
         eres = efb_phase(dev)
     if 12 in want:
+        elapsed(t_start)
         print(f"phase 12: linear leaves at the main path's width (2M x 28, "
               f"linear_lambda 0.01, 255 leaves, {LINEAR_ROUNDS} rounds, {NV} "
               f"valid rows)", flush=True)
@@ -3829,6 +4225,7 @@ def main():
 
     bres = none
     if 13 in want:
+        elapsed(t_start)
         print(f"phase 13: one dispatch per iteration (2M x 28 binary, 255 "
               f"leaves, {BATCH_ROUNDS} rounds, {NV} valid rows): eager, "
               f"captured K=1, captured K=8; sampled and multiclass captured "
@@ -3837,6 +4234,7 @@ def main():
 
     vres = none
     if 14 in want:
+        elapsed(t_start)
         print(f"phase 14: serving at full width (2M x 28 binary, 255 "
               f"leaves, {SERVE_ROUNDS} rounds from a text model file; "
               f"ServingEngine on the default ladder, MicroBatcher traffic, "
@@ -3845,6 +4243,7 @@ def main():
 
     nres = none
     if 15 in want:
+        elapsed(t_start)
         print("phase 15: device ingest, checkpoint/resume and nan_policy at "
               "the main path's width (2M x 28, 255 leaves)", flush=True)
         nres = ingest_checkpoint_phase(mres, bres if 13 in want else None,
@@ -3852,6 +4251,7 @@ def main():
 
     fres = none
     if 16 in want:
+        elapsed(t_start)
         print(f"phase 16: the host front ends at the main path's width "
               f"(2M x 28, 255 leaves): binary dataset and the CLI, a "
               f"{FRONT_ROWS}-row TSV, JSON and proto models, the C API",
@@ -3860,12 +4260,23 @@ def main():
 
     tres = none
     if 17 in want:
+        elapsed(t_start)
         print(f"phase 17: out-of-core training at the main path's width (2M "
               f"x 28, 255 leaves, {STREAM_ROUNDS} rounds from host shards: "
               f"auto under a budget, prefetch and CRC off, two shard sizes, "
               f"u4 shards, a flipped shard)", flush=True)
         tres = stream_phase(mres)
 
+    pres = none
+    if 18 in want:
+        elapsed(t_start)
+        print(f"phase 18: multi-GPU training's comm layer: (a) every comm "
+              f"class over an NCCL group of one; (b) data / feature / "
+              f"voting, {PAR_ROUNDS} rounds, from two ranks on one card (a "
+              f"rank per card where there are several)", flush=True)
+        pres = parallel_phase(mres, dev)
+
+    elapsed(t_start)
     if want != set(PHASES):
         print(f"partial run of phases {sorted(want)}: no result lines",
               flush=True)
@@ -3878,7 +4289,7 @@ def main():
           f"{eres['launches']}, phase 12 {lres['launches']}, phase 13 "
           f"{bres['launches']}, phase 14 {vres['launches']}, phase 15 "
           f"{nres['launches']}, phase 16 {fres['launches']}, phase 17 "
-          f"{tres['launches']}", flush=True)
+          f"{tres['launches']}, phase 18 {pres['launches']}", flush=True)
 
     full = kres["full"]
     kernels = {"kernels": [{
@@ -3889,7 +4300,8 @@ def main():
         + sres["goss_launches"] + cres["launches"] + gres["launches"]
         + rres["launches"] + xres["launches"] + eres["launches"]
         + lres["launches"] + bres["launches"] + vres["launches"]
-        + nres["launches"] + fres["launches"] + tres["launches"],
+        + nres["launches"] + fres["launches"] + tres["launches"]
+        + pres["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kres.values()),
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
@@ -3907,7 +4319,7 @@ def main():
             "11": eres["launches"], "12": lres["launches"],
             "13": bres["launches"], "14": vres["launches"],
             "15": nres["launches"], "16": fres["launches"],
-            "17": tres["launches"]},
+            "17": tres["launches"], "18": pres["launches"]},
     }]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -426,6 +426,10 @@ class Booster:
 
     def _setup_train(self, train_set: Dataset) -> None:
         from .boosting.gbdt import create_boosting
+        from .parallel.comm import init_distributed
+        # the reference's order: Network::Init before LoadData
+        # (application.cpp:167-178), so that bin finding sees the world
+        init_distributed(self.config)
         train_set.params.update(self.params)
         train_set.construct(self.config)
         cd = train_set.constructed
@@ -884,13 +888,10 @@ class Booster:
     def set_network(self, machines, local_listen_port: int = 12400,
                     listen_time_out: int = 120,
                     num_machines: int = 1) -> "Booster":
-        """Record the distributed wiring params (reference SetNetwork), as
-        the JAX package does with one machine. More than one machine is
-        multi-GPU training, which is not ported yet (ROADMAP A16)."""
-        if int(num_machines) > 1:
-            Log.fatal("set_network with num_machines=%d: multi-GPU training "
-                      "is not ported to lightgbm_tpu_torch yet (ROADMAP "
-                      "A16)", int(num_machines))
+        """Record the distributed wiring params (reference SetNetwork,
+        ``basic.py:883-899`` there): the next training joins the world they
+        describe (``parallel.comm.init_distributed``), one process per
+        rank, each finding its rank by ``local_listen_port``."""
         if not isinstance(machines, str):
             machines = ",".join(machines)
         self.params.update(machines=machines,

@@ -57,6 +57,18 @@ and grows through ``grower.StreamedGrower`` eagerly, one flag read per
 wave; the trees are a resident run's. ``tree_batch`` falls back to 1,
 ``rollback_one_iter`` refuses, DART and linear leaves refuse stream.
 
+Distributed learners (``tree_learner=data|feature|voting`` in a world of
+more than one process, ``parallel/comm.py``; gbdt.py:103-180, :395-433 and
+:1023-1053 there): under data and voting, rank ``r`` holds the JAX
+package's row block ``r`` of the padded rows (``_setup_rows``; under
+``is_pre_partition`` its own rows at the head of its block, with the
+world's metadata gathered host-side, ``_world_metadata``); under feature
+every rank holds every row. Per-row state (codes, labels, scores, masks)
+is the rank's block; bagging, GOSS and the feature mask draw over the
+world's rows, a structured objective (lambdarank) and ``fobj`` see the
+world's scores, and the training metrics run on the world's scores on the
+host. The iteration runs eagerly (collectives between the parts).
+
 ``nan_policy`` (gbdt.py:1194-1215, :1335-1410, :1514-1562 and :1804-1875
 there): the iteration's gradient, hessian and leaf-output flags go into
 ``_nf``; under raise/skip_iter the last model's epilogue gates the scores,
@@ -77,7 +89,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import Config, check_port_supported, resolve_device
+from ..config import Config, check_port_supported
 from ..dataset import ConstructedDataset, Metadata, MetadataDuckTyping
 from ..grower import (BundleDecode, GrowerSpec, StreamedGrower, TreeArrays,
                       TreeGrower)
@@ -88,7 +100,7 @@ from ..ops.linear import fit_linear_leaves, linear_leaf_scores
 from ..ops.predict import leaves_from_binned
 from ..robustness.numeric import (FLAG_NAMES, NonFiniteError, clip_nonfinite,
                                   nonfinite_flag)
-from ..parallel.comm import SerialComm
+from ..parallel.comm import make_parallel_context
 from ..tree import Tree, tree_from_device_arrays
 from ..utils import prng
 from ..utils.log import Log
@@ -184,26 +196,46 @@ class GBDT:
         check_port_supported(config)
         self.config = config
         self.train_set = train_set
-        self.device = resolve_device(config)
+        # the world and this process's place in it (parallel/comm.py); a
+        # world of one is serial on one device
+        self.pctx = make_parallel_context(
+            config, shape=(train_set.num_data, train_set.num_features))
+        self.device = self.pctx.device
         self.objective = create_objective(config)   # None: objective=none
         self.num_models = self.objective.num_models if self.objective \
             else max(config.num_class, 1)
         K = self.num_models
-        N = train_set.num_data
         F = train_set.num_features
-        self.num_data = N
-        md = train_set.metadata
+        md = self._meta_global = self._world_metadata(config, train_set)
+        N = self.num_data
+        self._setup_rows(config)
+        if self.pctx.multi_process:
+            self._refuse_in_world(config)
         if self.objective is not None:
             self.objective.init(md, N)
+            if self._block_counts is not None and \
+                    hasattr(self.objective, "set_row_layout"):
+                self.objective.set_row_layout(self._real_rows(),
+                                              self.num_data_padded)
 
         meta = train_set.feature_meta_arrays()
-        self.spec = self._make_spec(config, F, train_set.max_num_bin,
+        F_pad = self.pctx.pad_features_to(max(F, 1))
+        self.spec = self._make_spec(config, F_pad, train_set.max_num_bin,
                                     meta["is_categorical"])
-        self.comm = SerialComm(F)
         dev = self.device
+        self._num_bundles_padded = 0
         # None: the codes are binned on the device from the deferred raw
         # rows (device ingest, gbdt.py:455-470 there)
         codes = self._plan_bundles(config, train_set, meta)
+        if codes is None and self.pctx.multi_process:
+            Log.info("deferred ingest falls back to host binning (%d-process "
+                     "layout)", self.pctx.num_devices)
+            codes = train_set.X_binned
+        if codes is not None and self.pctx.num_devices > 1:
+            codes = self._world_codes(codes)
+        self.comm = self.pctx.make_comm(
+            F_pad, N, num_bundles=self._num_bundles_padded,
+            bundle_col=None if self.bundle is None else self.bundle.col)
         if dev.type == "cuda":
             try:            # the histogram kernel's shared-memory limit
                 feature_groups(F if codes is None else codes.shape[1],
@@ -238,16 +270,23 @@ class GBDT:
                 else _codes_tensor(codes, dev)
         del codes
         self._setup_linear(config, train_set)
-        self.label = torch.as_tensor(md.label, dtype=torch.float32,
-                                     device=dev)
-        self.weight = None if md.weight is None else torch.as_tensor(
-            md.weight, dtype=torch.float32, device=dev)
-        self.pad_mask = torch.ones(N, dtype=torch.float32, device=dev)
-        self.num_bins = torch.as_tensor(meta["num_bins"], device=dev)
-        self.missing_code = torch.as_tensor(meta["missing_code"], device=dev)
-        self.default_bin = torch.as_tensor(meta["default_bin"], device=dev)
-        self.is_cat = torch.as_tensor(meta["is_categorical"], device=dev)
-        self.feature_ok = torch.ones(F, dtype=torch.bool, device=dev)
+        self.label = self._rows_tensor(md.label)
+        self.weight = None if md.weight is None else self._rows_tensor(
+            md.weight)
+        self.pad_mask = self._rows_tensor(np.ones(N, np.float32))
+        # padding features (the block strategies' F % D) never split
+        fpad = F_pad - F
+        self.num_bins = torch.as_tensor(
+            np.pad(meta["num_bins"], (0, fpad), constant_values=1),
+            device=dev)
+        self.missing_code = torch.as_tensor(
+            np.pad(meta["missing_code"], (0, fpad)), device=dev)
+        self.default_bin = torch.as_tensor(
+            np.pad(meta["default_bin"], (0, fpad)), device=dev)
+        self.is_cat = torch.as_tensor(
+            np.pad(meta["is_categorical"], (0, fpad)), device=dev)
+        self.feature_ok = torch.as_tensor(np.arange(F_pad) < F, device=dev)
+        self.num_features_real = F
 
         # feature_fraction: number of features used per tree (gbdt.py:756)
         self.n_feature_sample = max(1, int(round(config.feature_fraction * F)))
@@ -258,6 +297,7 @@ class GBDT:
         for m in self.train_metrics:
             m.init(md, N)
         self.valid_sets: List[ValidSet] = []
+        self._world_label = self._world_weight = None
 
         # ---- initial scores (boost_from_average, gbdt.cpp:357-377) ------
         self.init_score_value = 0.0
@@ -270,7 +310,7 @@ class GBDT:
         base = np.full((K, N), self.init_score_value, dtype=np.float32)
         if has_init:
             base += _class_major(md.init_score, K, N)
-        self.score = torch.as_tensor(base, device=dev)
+        self.score = self._rows_tensor(base)
 
         self.models: List[List[TreeArrays]] = []
         # per iteration, the K trees' leaf counts: an i32 [K] device tensor
@@ -298,6 +338,14 @@ class GBDT:
                 "per-iteration pipeline is not fully device-resident); "
                 "falling back to tree_batch=1", tb,
                 config.boosting_normalized)
+            tb = 1
+        if tb > 1 and self.pctx.multi_process:
+            # the collectives run between the graphs' parts: an iteration is
+            # eager, one at a time, as a streamed one is
+            Log.info("tree_batch=%d falls back to 1 under tree_learner=%s "
+                     "across %d ranks (collectives outside the graphs, "
+                     "ROADMAP A16b)", tb, self.pctx.strategy,
+                     self.pctx.num_devices)
             tb = 1
         if tb > 1 and self.residency == "stream":
             # the shard loop is driven by the host wave by wave
@@ -337,6 +385,15 @@ class GBDT:
         from .. import observability as obs
         reg = obs.get_registry()
         reg.counter(f"booster.residency.{self.residency}").inc()
+        reg.counter(f"booster.tree_learner.{self.pctx.strategy}").inc()
+        reg.gauge("comm.world_size").set(self.pctx.num_devices)
+        for cname, nbytes in self.comm.collective_bytes(
+                self.spec.hist_slots, self.spec.num_bins_padded,
+                use_categorical=self.spec.use_categorical,
+                hist_bins=self.spec.hist_bins or None).items():
+            reg.gauge(f"comm.bytes_per_wave.{cname}").set(nbytes)
+        if self.pctx.multi_process:
+            obs.event("world", **self.pctx.describe())
         if self._stream_store is not None:
             reg.gauge("stream.n_shards").set(self._stream_store.n_shards)
             reg.gauge("stream.shard_bytes").set(
@@ -389,6 +446,11 @@ class GBDT:
                            "values every tree)")
         # tree_learner=feature is refused with its own reason before this
         # (config.check_port_supported)
+        if self.pctx.multi_process:
+            return False, (f"tree_learner={self.pctx.strategy} across "
+                           f"{self.pctx.num_devices} processes streams no "
+                           f"shards yet: each rank's row block would be a "
+                           f"store of its own (ROADMAP A16b)")
         if config.is_pre_partition:
             return False, "is_pre_partition holds per-process row blocks"
         return True, ""
@@ -499,9 +561,27 @@ class GBDT:
         unbundled = None if deferred else train_set.X_binned
         if config.enable_bundle == "false" or F < 2:
             return unbundled
+        if self.pctx.strategy == "voting" and meta["is_categorical"].any():
+            # the JAX package keeps its unpack arm here (gbdt.py:209-220
+            # there), which this port does not have; unbundled voting gives
+            # that arm's trees on exact-arithmetic gradients (ROADMAP C14)
+            Log.warning("tree_learner=voting with categorical features "
+                        "trains unbundled (enable_bundle ignored)")
+            return unbundled
         nb = meta["num_bins"].astype(np.int64)
         db = meta["default_bin"].astype(np.int64)
-        if deferred:
+        if self._block_counts is not None:
+            # pre-partitioned: every rank plans from the same gathered
+            # sample of every rank's rows (gbdt.py:227-233 there)
+            from ..efb import _SAMPLE_ROWS, sample_rows
+            from ..parallel.comm import host_allgather
+            per_rank = max(1, _SAMPLE_ROWS // len(self._block_counts))
+            parts = host_allgather(sample_rows(train_set.X_binned, per_rank),
+                                   "efb_sample")
+            plan = plan_bundles(train_set.X_binned, nb, db, config,
+                                sample=np.concatenate(parts, axis=0),
+                                num_data=self.num_data)
+        elif deferred:
             # plan from a host-binned row sample (the plan is a function of
             # the sample, and bin_rows bins the rows sample_rows would take)
             plan = plan_bundles(None, nb, db, config,
@@ -537,22 +617,193 @@ class GBDT:
         plan.X_bundled = None
         self.efb_plan = plan
         dev = self.device
+        # the block strategies partition bundled columns: G % D == 0, and
+        # the tables are padded to the padded feature count
+        G_pad = self.pctx.pad_features_to(G)
+        if self.pctx.strategy in ("data", "feature"):
+            self._num_bundles_padded = G_pad
+        fpad = self.spec.num_features - F
         ub = np.pad(plan.unpack_bin,
-                    ((0, 0), (0, Bpad - plan.unpack_bin.shape[1])),
+                    ((0, fpad), (0, Bpad - plan.unpack_bin.shape[1])),
                     constant_values=-1)
 
         def put(a):
             return torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                    device=dev)
+
+        def padf(a):
+            return put(np.pad(a, (0, fpad)))
         self.bundle = BundleDecode(
-            col=put(plan.col), lo=put(plan.lo), hi=put(plan.hi),
-            off=put(plan.off), unpack_bin=put(ub),
-            code_feat=put(build_code_feat(plan, G, Bb_pad, db)))
+            col=padf(plan.col), lo=padf(plan.lo), hi=padf(plan.hi),
+            off=padf(plan.off), unpack_bin=put(ub),
+            code_feat=put(build_code_feat(plan, G_pad, Bb_pad, db)))
         self.spec = dataclasses.replace(self.spec, hist_bins=Bb_pad)
         Log.info("EFB: %d features bundled into %d columns (%d max bundle "
                  "bins, %s codes), scan=bundle-space", F, G,
                  plan.max_bundle_bins, codes.dtype)
         return codes
+
+    # ------------------------------------------------- the world's rows
+
+    def _world_metadata(self, config: Config,
+                        train_set: ConstructedDataset) -> Metadata:
+        """The metadata of the world's rows (gbdt.py:103-165 there): the
+        dataset's own, or under ``is_pre_partition`` across processes, the
+        concatenation of every rank's labels, weights, query sizes and
+        init scores, gathered host-side (each rank loaded only its rows).
+        Sets ``num_data`` (the world's rows) and ``_block_counts``."""
+        md = train_set.metadata
+        self.num_data = train_set.num_data
+        self._block_counts: Optional[List[int]] = None
+        if not (config.is_pre_partition and self.pctx.multi_process
+                and self.pctx.strategy in ("data", "voting")):
+            return md
+        from ..parallel.comm import host_allgather
+        n = int(train_set.num_data)
+        blocks = host_allgather(
+            dict(n=n, label=np.asarray(md.label, np.float32),
+                 weight=None if md.weight is None
+                 else np.asarray(md.weight, np.float32),
+                 qsizes=None if md.query_boundaries is None
+                 else np.diff(md.query_boundaries).astype(np.int64),
+                 init_score=None if md.init_score is None
+                 else np.asarray(md.init_score, np.float32)),
+            "pre_partition_meta")
+        self._block_counts = [int(b["n"]) for b in blocks]
+        N = self.num_data = int(sum(self._block_counts))
+        out = Metadata(N)
+        out.set_label(np.concatenate([b["label"] for b in blocks]))
+
+        def _all_or_none(key, what):
+            have = sum(b[key] is not None for b in blocks)
+            if have not in (0, len(blocks)):
+                Log.fatal("is_pre_partition: %d of %d shards have %s — "
+                          "every shard must provide them or none",
+                          have, len(blocks), what)
+            return bool(have)
+
+        if _all_or_none("weight", "weights"):
+            out.set_weight(np.concatenate([b["weight"] for b in blocks]))
+        if _all_or_none("qsizes", "query/group data"):
+            # each shard holds whole queries, in rank order
+            out.set_group(np.concatenate([b["qsizes"] for b in blocks]))
+        if _all_or_none("init_score", "init_score"):
+            k = max(len(blocks[0]["init_score"]) // max(blocks[0]["n"], 1),
+                    1)
+            if any(len(b["init_score"]) != k * b["n"] for b in blocks):
+                Log.fatal("is_pre_partition: init_score length must be the "
+                          "same per-row multiple on every shard")
+            out.set_init_score(np.concatenate(
+                [b["init_score"].reshape(k, b["n"]) for b in blocks],
+                axis=1).reshape(-1))
+        Log.info("pre-partitioned data: %d rows across %d processes %s", N,
+                 len(blocks), self._block_counts)
+        return out
+
+    def _setup_rows(self, config: Config) -> None:
+        """The padded row layout of the world and this rank's block of it
+        (gbdt.py:171-180 and :395-424 there): under data/voting across D
+        ranks the rows are padded to ``Npad = round_up(per_target, 256) *
+        D`` and rank ``r`` holds row block ``r`` (tail padding included;
+        under ``is_pre_partition`` every block starts with its rank's
+        rows). Up to 32768 rows a rank (the JAX package's default
+        ``tpu_hist_chunk``) these are the JAX package's row blocks; above
+        it the JAX package pads each block to its chunk, which B1 does not
+        need. Otherwise every rank holds the N rows."""
+        N = self.num_data
+        D = self.pctx.pad_rows_multiple()
+        self._row_sharded = D > 1
+        if not self._row_sharded:
+            self.num_data_padded = self.num_rows = N
+            self._row0 = 0
+            return
+        n_for_pad = N if self._block_counts is None else \
+            max(self._block_counts) * len(self._block_counts)
+        per_target = max((n_for_pad + D - 1) // D, 1)
+        self.num_rows = _round_up(per_target, 256)
+        self.num_data_padded = self.num_rows * D
+        self._row0 = self.pctx.rank * self.num_rows
+
+    def _real_rows(self) -> np.ndarray:
+        """Positions of the world's real rows in the padded layout, in
+        global row order (gbdt.py:1023-1032 there)."""
+        if self._block_counts is None:
+            return np.arange(self.num_data)
+        bp = self.num_data_padded // len(self._block_counts)
+        return np.concatenate([np.arange(c) + p * bp
+                               for p, c in enumerate(self._block_counts)])
+
+    def _row_layout(self, arr) -> np.ndarray:
+        """Host array of the world's rows on its last axis -> the padded
+        layout (gbdt.py:1034-1053 there)."""
+        arr = np.asarray(arr)
+        if not self._row_sharded:
+            return arr
+        out = np.zeros(arr.shape[:-1] + (self.num_data_padded,), arr.dtype)
+        out[..., self._real_rows()] = arr
+        return out
+
+    def _rows_tensor(self, arr) -> torch.Tensor:
+        """This rank's block of a host array of the world's rows (last
+        axis), on the device; f32."""
+        lay = self._row_layout(np.asarray(arr, np.float32))
+        r0 = self._row0
+        return torch.as_tensor(np.ascontiguousarray(
+            lay[..., r0:r0 + self.num_rows]), device=self.device)
+
+    def _world_codes(self, codes: np.ndarray) -> np.ndarray:
+        """This rank's code rows, columns padded to the strategy's width:
+        its block of the padded rows under data/voting (its own rows under
+        ``is_pre_partition``), every row otherwise."""
+        if self.bundle is not None:
+            cols = self._num_bundles_padded or codes.shape[1]
+        else:
+            cols = self.spec.num_features
+        if self._row_sharded:
+            if self._block_counts is not None:
+                rows = codes
+            else:
+                rows = codes[self._row0:self._row0 + self.num_rows]
+            out = np.zeros((self.num_rows, cols), codes.dtype)
+            out[:rows.shape[0], :codes.shape[1]] = rows
+            return out
+        if cols == codes.shape[1]:
+            return codes
+        return np.pad(codes, ((0, 0), (0, cols - codes.shape[1])))
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's block of a ``[..., num_rows]`` tensor, as the
+        world's padded layout ``[..., num_data_padded]`` (an all-gather)."""
+        g = self.pctx.coll.all_gather(t)                # [D, ..., rows]
+        return g.movedim(0, -2).reshape(*t.shape[:-1], -1)
+
+    def _local_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a tensor in the world's padded layout."""
+        return t[..., self._row0:self._row0 + self.num_rows]
+
+    def _world_scores(self) -> torch.Tensor:
+        """The training scores ``[K, N]`` of the world's real rows, in
+        global row order, on every rank."""
+        if not self._row_sharded:
+            return self.score
+        real = torch.as_tensor(self._real_rows(), device=self.device)
+        return self._gather_rows(self.score)[:, real]
+
+    def _refuse_in_world(self, config: Config) -> None:
+        """What a world of more than one process does not run yet."""
+        if config.linear_tree:
+            # the JAX package's own reason (gbdt.py:717-721 there)
+            Log.fatal("linear_tree=true is single-device for now (%d "
+                      "devices requested): the per-leaf moment accumulation "
+                      "is not wired through the mesh collectives yet",
+                      self.pctx.num_devices)
+        if config.checkpoint_dir or config.resume_from:
+            self._unported_in_world("checkpoint/resume")
+
+    def _unported_in_world(self, what: str) -> None:
+        Log.fatal("%s across %d processes (tree_learner=%s) is not ported "
+                  "to lightgbm_tpu_torch yet (ROADMAP A16b)", what,
+                  self.pctx.num_devices, self.pctx.strategy)
 
     def _ingest_device(self, train_set: ConstructedDataset) -> torch.Tensor:
         """The deferred raw rows binned on the device (``ops/ingest.py``,
@@ -633,6 +884,22 @@ class GBDT:
         if self.objective is None:
             Log.fatal("objective=none needs custom gradients: pass fobj to "
                       "train() or Booster.update()")
+        if self._row_sharded and not self.objective.pointwise:
+            # a query's rows may lie in several ranks' blocks: the
+            # gradients of the world's rows, then this rank's block
+            if self._world_label is None:
+                md = self._meta_global
+                self._world_label = torch.as_tensor(
+                    self._row_layout(np.asarray(md.label, np.float32)),
+                    device=self.device)
+                self._world_weight = None if md.weight is None else \
+                    torch.as_tensor(self._row_layout(
+                        np.asarray(md.weight, np.float32)),
+                        device=self.device)
+            g, h = self.objective.gradients(self._gather_rows(score),
+                                            self._world_label,
+                                            self._world_weight)
+            return self._local_rows(g), self._local_rows(h)
         return self.objective.gradients(score, self.label, self.weight)
 
     def _bag_mask_for_iter(self, key, it: int, prev_mask):
@@ -640,7 +907,8 @@ class GBDT:
         (gbdt.cpp:225-270; mask-based Bernoulli, as the JAX package)."""
         if not self._draws_bag(it):
             return prev_mask if self.bagging_on else self.pad_mask
-        u = prng.uniform(key, self.num_data, self.device)
+        # this rank's block of the draw over the world's padded rows
+        u = prng.uniform(key, self.num_rows, self.device, offset=self._row0)
         frac = torch.full((), self.config.bagging_fraction,
                           dtype=torch.float32, device=self.device)
         return (u < frac).to(torch.float32) * self.pad_mask
@@ -664,7 +932,9 @@ class GBDT:
         ``fold_in(fkey, k)``."""
         if not self.use_feature_fraction:
             return self.feature_ok
-        noise = prng.uniform(key, self.spec.num_features, self.device)
+        # drawn over the real features (a draw is prefix-stable; the JAX
+        # package draws padding features below every real one)
+        noise = prng.uniform(key, self.num_features_real, self.device)
         top = prng.top_k_indices(noise, self.n_feature_sample)
         fmask = torch.zeros(self.spec.num_features, dtype=torch.bool,
                             device=self.device)
@@ -737,7 +1007,7 @@ class GBDT:
         (and again after ``add_valid`` or ``reset_config``)."""
         if self._grower is not None:
             return
-        dev, K, N = self.device, self.num_models, self.num_data
+        dev, K, N = self.device, self.num_models, self.num_rows
         route = [vs.Xb for vs in self.valid_sets]
         if self.residency == "stream":
             self._grower = StreamedGrower(
@@ -908,6 +1178,10 @@ class GBDT:
         they are captured). The CPU always runs eagerly."""
         if not self._capture:
             return "the eager arm was asked for"
+        if self.pctx.multi_process:
+            return (f"tree_learner={self.pctx.strategy} across "
+                    f"{self.pctx.num_devices} ranks: collectives outside "
+                    f"the graphs (ROADMAP A16b)")
         if self.residency == "stream":
             return "tpu_residency=stream: the shard copies are driven from " \
                    "the host"
@@ -1011,11 +1285,16 @@ class GBDT:
         LGBM_BoosterUpdateOneIterCustom, c_api.cpp:892): fobj(preds, dataset)
         -> (grad, hess) as numpy [K*N] in class-major order."""
         K, N = self.num_models, self.num_data
-        preds = self.score.cpu().numpy().reshape(-1)
+        if self._block_counts is not None:
+            # gbdt.py:1883-1886 there
+            Log.fatal("custom objectives are not supported with "
+                      "is_pre_partition (host gradients need the full score "
+                      "vector on every process)")
+        preds = self._world_scores().cpu().numpy().reshape(-1)
         grad, hess = fobj(preds, self.train_set)
         self._custom_gh = tuple(
-            torch.as_tensor(np.asarray(a, np.float32).reshape(K, N),
-                            device=self.device) for a in (grad, hess))
+            self._rows_tensor(np.asarray(a, np.float32).reshape(K, N))
+            for a in (grad, hess))
         try:
             self._run_batch(1, shrinkage=self.config.learning_rate)
         finally:
@@ -1026,9 +1305,16 @@ class GBDT:
         """Seed scores with a loaded model's predictions — continued training
         (reference application.cpp:90-93 / boosting.h:281-284)."""
         K, N = self.num_models, self.num_data
-        self.score = self.score + torch.as_tensor(
-            np.asarray(raw_scores, np.float32).reshape(K, N),
-            device=self.device)
+        raw = np.asarray(raw_scores, np.float32)
+        if self._block_counts is not None:
+            # this rank's rows only: the head of its block
+            raw = raw.reshape(K, -1)
+            add = np.zeros((K, self.num_rows), np.float32)
+            add[:, :raw.shape[1]] = raw
+            add = torch.as_tensor(add, device=self.device)
+        else:
+            add = self._rows_tensor(raw.reshape(K, N))
+        self.score = self.score + add
         for vi, vs in enumerate(self.valid_sets):
             if valid_raw is not None and vi < len(valid_raw):
                 vs.score = vs.score + torch.as_tensor(
@@ -1228,6 +1514,8 @@ class GBDT:
         bagging mask, the raw threefry key, the forest as one dict of
         arrays per tree, the leaf counts, the counters and the valid
         scores. One device: ``n_devices`` 1, ``tree_learner`` serial."""
+        if self.pctx.multi_process:
+            self._unported_in_world("checkpoint/resume")
         def tree_dict(t: TreeArrays) -> Dict:
             return {f: None if a is None else a.cpu().numpy()
                     for f, a in zip(t._fields, t)}
@@ -1260,6 +1548,8 @@ class GBDT:
         Scores, valid scores and the bagging mask are copied into the
         booster's buffers (captured graphs replay fixed addresses), and the
         next iteration runs as a booster's first: eagerly, then captured."""
+        if self.pctx.multi_process:
+            self._unported_in_world("checkpoint/resume")
         saved_d = state.get("n_devices")
         if saved_d is not None and int(saved_d) != 1:
             Log.fatal(
@@ -1370,8 +1660,16 @@ class GBDT:
                     for name, value, hib in m.eval(conv_host):
                         out.append([dname, name, value, hib, None])
 
-        if (self.config.is_training_metric or force_training) \
-                and self.train_metrics and only in (None, "training"):
+        train_eval = (self.config.is_training_metric or force_training) \
+            and self.train_metrics and only in (None, "training")
+        if train_eval and self._row_sharded:
+            # the world's scores on every rank, every metric on the host in
+            # f64, so that every rank takes the same decisions
+            conv = self._convert(self._world_scores()).cpu().numpy()
+            for m in self.train_metrics:
+                for name, value, hib in m.eval(conv):
+                    out.append(["training", name, value, hib, None])
+        elif train_eval:
             # the JAX package weighs the training rows by its padding mask
             w = self.pad_mask if self.weight is None \
                 else self.weight * self.pad_mask

@@ -39,13 +39,21 @@ class GOSS(GBDT):
         top_k = max(1, int(N * cfg.top_rate))
         other_k = max(1, int(N * cfg.other_rate))
         f32 = dict(dtype=torch.float32, device=self.device)
-        weights = torch.sum(torch.abs(g * h), dim=0) * self.pad_mask   # [N]
-        is_top = torch.zeros(N, dtype=torch.bool, device=self.device)
+        weights = torch.sum(torch.abs(g * h), dim=0) * self.pad_mask
+        if self._row_sharded:
+            # the top-k is over the world's rows: gather every block's
+            # weights, choose, keep this rank's block
+            weights = self._gather_rows(weights)
+        is_top = torch.zeros(weights.shape[0], dtype=torch.bool,
+                             device=self.device)
         is_top[prng.top_k_indices(weights, top_k)] = True
+        if self._row_sharded:
+            is_top = self._local_rows(is_top)
         is_top &= self.pad_mask > 0
         rest = ~is_top & (self.pad_mask > 0)
         prob = torch.tensor(other_k / max(N - top_k, 1), **f32)
-        sel_other = rest & (prng.uniform(key, N, self.device) < prob)
+        sel_other = rest & (prng.uniform(key, self.num_rows, self.device,
+                                         offset=self._row0) < prob)
         mask = (is_top | sel_other).to(torch.float32)
         scale = torch.where(sel_other, torch.tensor((N - top_k) / other_k,
                                                     **f32),

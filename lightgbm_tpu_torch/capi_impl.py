@@ -15,7 +15,8 @@ C_API_PREDICT_* (c_api.h:27-30), 0/-1 return codes with
 LGBM_GetLastError() carrying the message. ``LGBM_BoosterCreate`` reads
 ``device`` from its parameter string like every other entry point: the
 card unless ``device=cpu``. ``LGBM_NetworkInit`` with more than one machine
-raises (multi-GPU training, ROADMAP A16). The R bridge (``R-package/``)
+joins that world (``parallel.comm.init_distributed``) before any dataset
+is made, so that bin finding is distributed. The R bridge (``R-package/``)
 is not ported: it drives the JAX package through reticulate, and its
 smoke test needs ``Rscript``.
 """
@@ -756,14 +757,27 @@ def booster_feature_importance(handle: int, num_iteration: int,
 
 def network_init(machines: str, local_listen_port: int, listen_time_out: int,
                  num_machines: int) -> None:
-    """One machine needs no network; more is multi-GPU training, not
-    ported yet."""
-    if int(num_machines) > 1:
-        from .utils.log import Log
-        Log.fatal("LGBM_NetworkInit with num_machines=%d: multi-GPU training "
-                  "is not ported to lightgbm_tpu_torch yet (ROADMAP A16)",
-                  int(num_machines))
+    """Join the world the machine list describes (reference
+    LGBM_NetworkInit; ``capi_impl.py:753-760`` there); one machine needs
+    no network. The call names no device, so the world is NCCL where CUDA
+    is available and gloo where it is not: a booster then trains on the
+    device its own parameters name, and a collective its group's backend
+    cannot run raises (``parallel/comm.py``)."""
+    if int(num_machines) <= 1:
+        return
+    import torch
+    from .config import Config
+    from .parallel.comm import init_distributed
+    cfg = Config.from_params({
+        "machines": machines, "local_listen_port": int(local_listen_port),
+        "time_out": max(int(listen_time_out), 1),
+        "num_machines": int(num_machines),
+        "device": "cuda" if torch.cuda.is_available() else "cpu"})
+    init_distributed(cfg)
 
 
 def network_free() -> None:
-    pass        # one machine: nothing was wired
+    """Leave the world ``network_init`` joined (a no-op without one)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()

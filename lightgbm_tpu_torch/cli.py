@@ -27,7 +27,12 @@ from .config import Config
 from .engine import train as train_fn
 from .io.file_io import load_data_file
 from .ops.stream import EXIT_SHARD_CORRUPT, ShardCorruptionError
+from .robustness.retry import CommTimeoutError, PeerLostError
 from .utils.log import Log
+
+# a peer rank died or stopped answering (lightgbm_tpu/robustness/
+# watchdog.py:53 there): the typed exit a supervisor attributes to a peer
+EXIT_COMM_LOST = 145
 
 
 # every task value main() dispatches on (bare-subcommand whitelist derives
@@ -171,12 +176,27 @@ def run_train(params: Dict) -> None:
         except ShardCorruptionError as e:
             # a restartable fault (lightgbm_tpu/cli.py:177-188): the shard
             # store is rebuilt from the dataset when training starts again,
-            # so exit with the status a supervisor recognizes (comm loss,
-            # the other typed exit there, is ROADMAP A16)
+            # so exit with the status a supervisor recognizes
             Log.warning("stream-shard corruption detected: %s — exiting %d "
                         "(a supervisor relaunch with resume_from=auto "
                         "self-heals)", e, EXIT_SHARD_CORRUPT)
             raise SystemExit(EXIT_SHARD_CORRUPT) from e
+        except CommTimeoutError as e:
+            # comm loss (lightgbm_tpu/cli.py:192-217): a peer rank died or
+            # stopped answering; PeerLostError names it
+            Log.warning("comm loss: %s — exiting %d (%s)", e,
+                        EXIT_COMM_LOST,
+                        f"lost peer rank {e.rank}"
+                        if isinstance(e, PeerLostError)
+                        else "collective deadline expired")
+            import torch.distributed as dist
+            if dist.is_available() and dist.is_initialized():
+                # the interpreter's shutdown would wait on the dead peer's
+                # group: leave at once with the typed status
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os._exit(EXIT_COMM_LOST)
+            raise SystemExit(EXIT_COMM_LOST) from e
     finally:
         if saved_handlers:
             # past the training loop nothing checks stop_signals — restore

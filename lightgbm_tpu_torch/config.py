@@ -834,12 +834,23 @@ def parse_conf_file(path: str) -> Dict[str, str]:
 _CUDA_DEVICE_NAMES = ("tpu", "gpu", "cuda")
 
 
+# logged once per process: one process trains on one card
+_ONE_CARD_LOGGED = [False]
+
+
 def resolve_device(config: "Config"):
     """``torch.device`` for a config's ``device`` key.
 
-    ``tpu`` (the default), ``gpu`` and ``cuda`` select CUDA device 0 and
+    ``tpu`` (the default), ``gpu`` and ``cuda`` select a CUDA device and
     raise when no card is present — nothing on the port's path carries on
-    on the CPU in their place. ``cpu`` selects the host (the CPU tests)."""
+    on the CPU in their place. ``cpu`` selects the host (the CPU tests).
+
+    One process trains on one card (ROADMAP C26; the JAX package meshes
+    every local chip in one process). In a world of more than one process
+    (``torch.distributed``) a rank takes ``cuda:<its index among the
+    machine list's entries on this host> % device_count``: two ranks of a
+    one-card host share ``cuda:0``, which gloo allows and NCCL refuses
+    with its own error. Without a world, ``cuda:0``."""
     import torch
     name = str(config.device).lower()
     if name == "cpu":
@@ -850,6 +861,18 @@ def resolve_device(config: "Config"):
     if not torch.cuda.is_available():
         Log.fatal("device=%s selects CUDA, but torch.cuda.is_available() is "
                   "false; pass device=cpu to run on the host", config.device)
+    import torch.distributed as dist
+    n = torch.cuda.device_count()
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        from .parallel.comm import local_device_index
+        return torch.device("cuda", local_device_index(
+            config, dist.get_rank()) % n)
+    if n > 1 and not _ONE_CARD_LOGGED[0]:
+        _ONE_CARD_LOGGED[0] = True
+        Log.info("%d CUDA devices, one process: training on cuda:0 only "
+                 "(one process per card: launch a world with a machine "
+                 "list, num_machines and local_listen_port)", n)
     return torch.device("cuda", 0)
 
 
@@ -860,21 +883,18 @@ def resolve_device(config: "Config"):
 # and tpu_stream_verify (out-of-core streaming: the budget of the auto
 # decision, the shard rows and the CRC check, ops/stream.py) and
 # tpu_ingest, tpu_ingest_chunk_rows and tpu_ingest_prefetch (device
-# ingest); a resident pass is compacted, so tpu_compact_frac has no meaning
-# here, and there is one card, so neither has tpu_reshard_on_resume.
+# ingest) and tpu_mesh_axis (the constraint of tree_learner=auto); a
+# resident pass is compacted and a row block is padded to 256 rows, so
+# neither tpu_compact_frac nor tpu_hist_chunk has a meaning here, and a
+# checkpoint resumes on one card, so neither has tpu_reshard_on_resume.
 TPU_ONLY_KEYS = (
     "tpu_compact_frac",
     "tpu_hist_chunk", "tpu_hist_hilo", "tpu_hist_f64", "tpu_hist_kernel",
     "tpu_incremental_partition", "tpu_efb_unpack",
     "tpu_time_tag", "tpu_profile_dir", "tpu_profile_iters",
     "tpu_cost_analysis",
-    "tpu_mesh_axis", "tpu_reshard_on_resume", "tpu_linear_warn_fallback",
+    "tpu_reshard_on_resume", "tpu_linear_warn_fallback",
 )
-
-
-def _unported(what: str, item: str) -> None:
-    Log.fatal("%s is not ported to lightgbm_tpu_torch yet (ROADMAP %s)",
-              what, item)
 
 
 def check_port_supported(config: "Config") -> None:
@@ -883,7 +903,9 @@ def check_port_supported(config: "Config") -> None:
     The port covers ``boosting=gbdt|goss|dart|rf`` with every objective of
     the JAX package (or custom gradients, ``objective=none``), query groups,
     bagging and feature_fraction, EFB (``enable_bundle``), linear leaves,
-    ``tree_learner=serial``, dense or sparse numerical and categorical
+    ``tree_learner=serial|data|feature|voting|auto`` (one process per rank
+    on ``torch.distributed``; a world of one is serial), dense or sparse
+    numerical and categorical
     features, resident data binned on the host or the device
     (``tpu_ingest``) or data streamed from host shards
     (``tpu_residency=stream|auto``), batches of iterations
@@ -903,8 +925,6 @@ def check_port_supported(config: "Config") -> None:
         Log.fatal("tpu_residency=stream is not supported here: "
                   "tree_learner=feature replicates rows and slices columns "
                   "at trace time; stream shards rows (use data/voting)")
-    if config.tree_learner != "serial":
-        _unported(f"tree_learner={config.tree_learner}", "A16")
     defaults = Config.__dataclass_fields__
     for key in TPU_ONLY_KEYS:
         if getattr(config, key) != defaults[key].default:

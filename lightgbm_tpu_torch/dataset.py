@@ -383,6 +383,32 @@ def _map_find_bin(active: List[int], find_one) -> Dict[int, BinMapper]:
         return dict(zip(active, pool.map(find_one, active)))
 
 
+def _find_bins(active: List[int], find_one,
+               config: Optional[Config] = None) -> Dict[int, BinMapper]:
+    """FindBin for every active feature, feature-sharded across the ranks
+    of a world (``lightgbm_tpu/dataset.py:384``; reference distributed bin
+    finding, dataset_loader.cpp:820-899): each rank finds the mappers of
+    the features it owns (round-robin by rank), and the pickled shards are
+    exchanged through ``parallel.comm.host_allgather``, so that every rank
+    ends with the same mappers. Gated on the network config
+    (``num_machines > 1``) and a live world, not on ambient state."""
+    if config is None or getattr(config, "num_machines", 1) <= 1:
+        return _map_find_bin(active, find_one)
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() <= 1:
+        return _map_find_bin(active, find_one)
+    from .parallel import comm
+    rank, world = dist.get_rank(), dist.get_world_size()
+    timeout_ms = int(getattr(config, "time_out", 120)) * 60 * 1000
+    mine = _map_find_bin([j for j in active if j % world == rank], find_one)
+    out: Dict[int, BinMapper] = {}
+    for shard in comm.host_allgather(mine, "binmappers",
+                                     timeout_ms=timeout_ms):
+        out.update(shard)
+    return {j: out[j] for j in active}
+
+
 def construct_dataset(
     data: np.ndarray,
     label: Optional[Sequence[float]],
@@ -435,7 +461,7 @@ def construct_dataset(
         return mapper
 
     active = [j for j in range(num_total_features) if j not in ignore_set]
-    mappers_by_idx = _map_find_bin(active, _find_one)
+    mappers_by_idx = _find_bins(active, _find_one, config)
     features = [FeatureInfo(j, mappers_by_idx[j]) for j in active
                 if not mappers_by_idx[j].is_trivial]
     if not features:

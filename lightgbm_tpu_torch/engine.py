@@ -117,6 +117,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
     # ---- checkpoint/resume (robustness/checkpoint.py) ----------------------
     resume_from = resume_from or config.resume_from or None
     start_iter = 0
+    if resume_from and gbdt.pctx.multi_process:
+        gbdt._unported_in_world("checkpoint/resume")
     if resume_from:
         if prev_booster is not None:
             Log.fatal("resume_from cannot be combined with init_model — a "

@@ -21,7 +21,9 @@ each wave. Each wave:
 2. builds the pending slots' histograms in one pass of the hand-written
    kernel (``ops/cuda_histogram.py``) over the pending leaves' segments of
    the carried partition ``perm`` (its plain version on the CPU), sized on
-   the device from the slots' row counts;
+   the device from the slots' row counts; under data-parallel the pass's
+   integer sums are reduce-scattered over the ranks before their one
+   conversion (``comm.reduce_sums``), at the world's scales;
 3. derives each sibling's histogram by parent-minus-smaller-child
    subtraction from the ``[L+1, F, B, 3]`` cache (serial_tree_learner.cpp
    :354-362);
@@ -72,9 +74,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch.profiler import record_function
 
-from .ops.cuda_histogram import build_histograms_cuda
-from .ops.histogram import (histogram_scales, root_sums, table_lookup,
-                            unpack_codes)
+from .ops.cuda_histogram import HistogramAccumulator, build_histograms_cuda
+from .ops.histogram import table_lookup, unpack_codes
 from .ops.split_finder import SplitCandidates, leaf_output
 
 NEG_INF = float("-inf")
@@ -248,7 +249,8 @@ def _apply_wave_splits(state: GrowState, new_hist: torch.Tensor,
                        nl: torch.Tensor, bm, spec: GrowerSpec, comm,
                        num_bins: torch.Tensor, missing_code: torch.Tensor,
                        default_bin: torch.Tensor, table0: torch.Tensor,
-                       bundle: Optional[BundleDecode] = None):
+                       bundle: Optional[BundleDecode] = None,
+                       scan_bundle: Optional[BundleDecode] = None):
     """Steps 3-6 of a wave plus the ``[L+1, 6]`` routing table (``[L+1,
     11]`` with ``bundle``), updating ``state`` in place except the per-row
     fields (leaf_id and the partition) and ``flags``, which the caller
@@ -259,7 +261,11 @@ def _apply_wave_splits(state: GrowState, new_hist: torch.Tensor,
     the ``[L+1, B]`` categorical left sets of the split leaves (None
     without categorical features), ``p``/``q`` the per-slot split / new
     right leaves (``L`` where no split was applied) and ``n_apply`` a 0-d
-    i64 tensor. Reads nothing on the host."""
+    i64 tensor. ``scan_bundle`` (default ``bundle``) is the decode table
+    the split scan reads: a rank's block view under the bundled
+    distributed strategies (``comm.localize_bundle``); the routing table
+    always reads the global ``bundle``. Reads nothing on the host (the
+    strategies' collectives aside)."""
     L = spec.num_leaves
     M = L - 1
     S = spec.hist_slots
@@ -280,7 +286,8 @@ def _apply_wave_splits(state: GrowState, new_hist: torch.Tensor,
     scan_hist = torch.cat([new_hist, sib_hist], dim=0)         # [2S, F, B, 3]
     cand_new = comm.find_splits(
         scan_hist, state.sum_g[scan_leaves], state.sum_h[scan_leaves],
-        state.cnt[scan_leaves], bm, spec, bundle)
+        state.cnt[scan_leaves], bm, spec,
+        bundle if scan_bundle is None else scan_bundle)
     for old, new in zip(state.cand, cand_new):
         old[scan_leaves] = new
     cand = state.cand
@@ -515,7 +522,12 @@ class TreeGrower:
         self.spec, self.comm, self.bundle = spec, comm, bundle
         self.num_bins, self.missing_code = num_bins, missing_code
         self.default_bin = default_bin
+        self.is_cat = is_cat
         self.route = list(route)
+        # the scan's decode table: a rank's block view under the bundled
+        # distributed strategies
+        self.scan_bundle = comm.localize_bundle(bundle) \
+            if bundle is not None and comm.bundled_blocks else bundle
         L, S = spec.num_leaves, spec.hist_slots
         B = spec.num_bins_padded
         self.B_hist = spec.hist_bins or B          # Bb_pad under EFB
@@ -529,10 +541,18 @@ class TreeGrower:
                                      device=dev)
         # one fixed-point scale per tree for g and one for h (ops/histogram)
         self.scales = torch.ones(2, dtype=torch.float64, device=dev)
-        cat_idx = torch.tensor(spec.cat_features, dtype=torch.long,
-                               device=dev) if spec.use_categorical else None
+        self.cat_idx = torch.tensor(spec.cat_features, dtype=torch.long,
+                                    device=dev) \
+            if spec.use_categorical else None
         self.bm = comm.block_meta(self.feature_ok, num_bins, missing_code,
-                                  default_bin, is_cat, cat_idx)
+                                  default_bin, is_cat, self.cat_idx)
+        # row-sharded data-parallel: the pass's integer sums, and this
+        # rank's block of the world's sums, reduced before one conversion
+        self.acc = self.acc_block = None
+        if comm.reduces_sums:
+            self.acc = HistogramAccumulator(S, F_hist, self.B_hist, dev)
+            self.acc_block = HistogramAccumulator(S, F_cache, self.B_hist,
+                                                  dev)
         ncols = 6 if bundle is None else 11
         self.table0 = torch.zeros((L + 1, ncols), dtype=i32, device=dev)
         self.table0[:, 0] = -1
@@ -572,9 +592,15 @@ class TreeGrower:
         self.hess.copy_(hess)
         self.included.copy_(included)
         self.feature_ok.copy_(feature_ok)
-        rg, rh, rc = self.comm.reduce_scalars(
-            *root_sums(self.grad, self.hess, self.included))
-        self.scales.copy_(histogram_scales(self.grad, self.hess))
+        if self.comm.bundled_blocks:
+            # the block mask is a new tensor: take this tree's features
+            self.bm = self.comm.block_meta(
+                self.feature_ok, self.num_bins, self.missing_code,
+                self.default_bin, self.is_cat, self.cat_idx)
+        # the world's root sums and fixed-point scales under the row-sharded
+        # strategies (parallel/comm.py), this device's otherwise
+        rg, rh, rc = self.comm.root_sums(self.grad, self.hess, self.included)
+        self.scales.copy_(self.comm.histogram_scales(self.grad, self.hess))
         t = st.tree
         for a in (t.split_feature, t.threshold_bin, t.default_left, t.is_cat,
                   t.cat_mask, t.split_gain, t.internal_value,
@@ -609,26 +635,28 @@ class TreeGrower:
         # ---- 2. one pass builds the S histograms ------------------------
         with record_function("wave.histogram"):
             slot_counts = st.seg_rows[leaf_of_slot]             # [S]
-            if spec.row_compact:
-                new_hist = build_histograms_cuda(
-                    self.X_hist, self.grad, self.hess, self.included,
-                    st.leaf_id, slot_of_leaf, S, self.B_hist,
-                    row_idx=st.perm, slot_counts=slot_counts,
-                    slot_starts=st.seg_start[leaf_of_slot],
-                    scales=self.scales)
+            if self.acc is not None:
+                self.acc.zero_()
+            compact = dict(row_idx=st.perm, slot_counts=slot_counts,
+                           slot_starts=st.seg_start[leaf_of_slot]) \
+                if spec.row_compact else {}
+            new_hist = build_histograms_cuda(
+                self.X_hist, self.grad, self.hess, self.included,
+                st.leaf_id, slot_of_leaf, S, self.B_hist,
+                scales=self.scales, acc=self.acc, **compact)
+            if self.acc is not None:
+                # the integer sums, reduced over the ranks, then converted
+                new_hist = comm.reduce_sums(self.acc, self.acc_block) \
+                    .finalize(self.scales)
             else:
-                new_hist = build_histograms_cuda(
-                    self.X_hist, self.grad, self.hess, self.included,
-                    st.leaf_id, slot_of_leaf, S, self.B_hist,
-                    scales=self.scales)
-            new_hist = comm.reduce_hist(new_hist)
+                new_hist = comm.reduce_hist(new_hist)
 
         # ---- 3-6 + routing table ------------------------------------------
         with record_function("wave.split"):
             table, map_mask, p, q, n_apply = _apply_wave_splits(
                 st, new_hist, leaf_of_slot, live, nl, self.bm, spec, comm,
                 self.num_bins, self.missing_code, self.default_bin,
-                self.table0, self.bundle)
+                self.table0, self.bundle, self.scan_bundle)
 
         # ---- 7. route the rows of split leaves ----------------------------
         with record_function("wave.route"):
@@ -785,7 +813,7 @@ class StreamedGrower(TreeGrower):
             table, map_mask, p, q, n_apply = _apply_wave_splits(
                 st, new_hist, leaf_of_slot, live, nl, self.bm, spec, comm,
                 self.num_bins, self.missing_code, self.default_bin,
-                self.table0, self.bundle)
+                self.table0, self.bundle, self.scan_bundle)
         with record_function("wave.route"):
             for Xv, lid in zip(self.route, st.valid_leaf):
                 lid.copy_(_route_rows(Xv, lid, table[:, :6], map_mask)[0])

@@ -42,6 +42,9 @@ class Objective:
     name = "custom"
     num_models = 1
     is_constant_hessian = False
+    # a row's gradients read its own score and label only; False: the
+    # distributed learners give ``gradients`` the world's rows
+    pointwise = True
 
     def __init__(self, config: Config):
         self.config = config
@@ -411,10 +414,12 @@ class LambdarankNDCG(Objective):
     bucket's queries go through the reference's per-query double loop
     (rank_objective.hpp:113-160) as batched ``[Q, M, M]`` pair matrices
     with the sigmoid computed directly; ``pos_of_row`` maps the bucket
-    layout back to row order with one gather. The pre-partitioned layout
-    hook of the JAX package (``set_row_layout``) belongs to the
-    multi-device learners (ROADMAP A16) and is not here."""
+    layout back to row order with one gather. Scores and labels may come
+    padded (the row-sharded learners' layout, ``boosting/gbdt.py``): the
+    query structure covers the first ``num_data`` rows, or under
+    ``is_pre_partition`` the positions :meth:`set_row_layout` gave."""
     name = "lambdarank"
+    pointwise = False
 
     # pair elements per chunk: 2^26 f32 is 256 MB per [Q, M, M] tensor,
     # about ten of which are alive at once; the JAX package's 2^22 is
@@ -537,12 +542,28 @@ class LambdarankNDCG(Objective):
         h = torch.empty_like(h_sorted).scatter_(1, order, h_sorted)
         return g, h
 
+    def set_row_layout(self, positions, npad: int) -> None:
+        """Pre-partitioned layout hook (``objectives.py:466`` there): the
+        world's row ``g`` lies at padded position ``positions[g]``, with
+        each rank's block padding in between; ``gradients`` reads scores
+        and labels from those positions and writes g/h back to them
+        (reference Metadata::CheckOrPartition, metadata.cpp:97-127)."""
+        self._row_positions = torch.as_tensor(np.asarray(positions,
+                                                         np.int64))
+        self._npad = int(npad)
+
     def gradients(self, score, label, weight):
         n = self.num_data
         buckets, pos_of_row, label_gain = self._device_arrays(score.device)
+        pos = getattr(self, "_row_positions", None)
+        if pos is not None:
+            pos = pos.to(score.device)
+            s_rows, l_rows = score[0, pos], label[pos]
+        else:
+            s_rows, l_rows = score[0, :n], label[:n]
         # one appended zero row: the padding documents read it
-        s_ext = torch.cat([score[0, :n], score.new_zeros(1)])
-        l_ext = torch.cat([label[:n], label.new_zeros(1)])
+        s_ext = torch.cat([s_rows, score.new_zeros(1)])
+        l_ext = torch.cat([l_rows, label.new_zeros(1)])
         g_parts, h_parts = [], []
         for m, doc_idx, mask, imd in buckets:
             chunk_q = max(1, self.QUERY_CHUNK_BUDGET // (m * m))
@@ -555,6 +576,14 @@ class LambdarankNDCG(Objective):
                 h_parts.append(h.reshape(-1))
         g = torch.cat(g_parts)[pos_of_row][None, :]
         h = torch.cat(h_parts)[pos_of_row][None, :]
+        if pos is not None or score.shape[1] != n:
+            # back to the padded layout; padding rows get 0
+            gp = score.new_zeros((1, score.shape[1]))
+            hp = score.new_zeros((1, score.shape[1]))
+            idx = pos if pos is not None else torch.arange(
+                n, device=score.device)
+            gp[0, idx], hp[0, idx] = g[0], h[0]
+            g, h = gp, hp
         return _apply_weight(g, h, weight)
 
 

@@ -271,13 +271,24 @@ def build_histograms_cuda(
     slot_counts: Optional[torch.Tensor] = None,   # [S] i32
     slot_starts: Optional[torch.Tensor] = None,   # [S] i32
     scales: Optional[torch.Tensor] = None,   # [2] f64 per-tree (g, h)
-) -> torch.Tensor:
+    acc: Optional["HistogramAccumulator"] = None,
+) -> Optional[torch.Tensor]:
     """``[S, F, B, 3]`` f32 (sum_g, sum_h, count) — same signature and
     result as ``ops.histogram.build_histograms``, which it runs for CPU
     tensors. Bin codes must be below ``num_bins_padded``. The call makes
     no host read and no host-to-device copy, and may be captured in a CUDA
-    graph once a pass has run on the device outside a capture."""
+    graph once a pass has run on the device outside a capture.
+
+    With ``acc`` (a :class:`HistogramAccumulator` of the same slots,
+    features and bins) the pass adds its integer sums into ``acc`` and
+    returns None: the distributed learners reduce those sums over the
+    ranks before one conversion (``acc.finalize``, which counts the
+    pass)."""
     if X.device.type == "cpu":
+        if acc is not None:
+            _add_cpu(acc, X, grad, hess, included, leaf_id, slot_of_leaf,
+                     row_idx, n_active, slot_counts, slot_starts, scales)
+            return None
         return build_histograms(X, grad, hess, included, leaf_id,
                                 slot_of_leaf, num_slots, num_bins_padded,
                                 row_idx=row_idx, n_active=n_active,
@@ -314,6 +325,25 @@ def build_histograms_cuda(
     cb = X.element_size()
     fg, _ = feature_groups(F, B, cb)
     blocks = grid_blocks(N, F, B, cb, _sm_count(dev))
+    if acc is not None:
+        if (acc.S, acc.F, acc.B) != (S, F, B) or acc.device != dev:
+            raise ValueError(f"accumulator of shape {(acc.S, acc.F, acc.B)} "
+                             f"on {acc.device} cannot take a pass of shape "
+                             f"{(S, F, B)} on {dev}")
+
+        def p(t):
+            return None if t is None else t.data_ptr()
+        with torch.cuda.device(dev):
+            err = lib.gbdt_hist_acc_add(
+                X.data_ptr(), cb, N, F, grad.data_ptr(), hess.data_ptr(),
+                included.data_ptr(), row_idx.data_ptr(),
+                slot_counts.data_ptr(), p(slot_starts), p(n_active), S, B,
+                fg, blocks, MIN_ROWS_PER_BLOCK, scales.data_ptr(),
+                acc.buf.data_ptr(), acc._stream())
+        if err != 0:
+            raise RuntimeError(f"histogram kernel launch failed: CUDA error "
+                               f"{err}")
+        return None
     # the kernel's integer accumulators; the C entry zeroes them on the stream
     scratch = torch.empty(lib.gbdt_hist_scratch_bytes(S, F, B),
                           dtype=torch.uint8, device=dev)
@@ -333,6 +363,16 @@ def build_histograms_cuda(
     if err != 0:
         raise RuntimeError(f"histogram kernel launch failed: CUDA error {err}")
     return out
+
+
+def _add_cpu(acc: "HistogramAccumulator", X, grad, hess, included, leaf_id,
+             slot_of_leaf, row_idx, n_active, slot_counts, slot_starts,
+             scales) -> None:
+    """The plain version's leg of ``build_histograms_cuda(acc=...)``."""
+    build_histograms(X, grad, hess, included, leaf_id, slot_of_leaf, acc.S,
+                     acc.B, row_idx=row_idx, n_active=n_active,
+                     slot_counts=slot_counts, slot_starts=slot_starts,
+                     scales=scales, acc=acc.buf, raw_output=True)
 
 
 class HistogramAccumulator:
@@ -365,6 +405,22 @@ class HistogramAccumulator:
 
     def _stream(self) -> int:
         return torch.cuda.current_stream(self.device).cuda_stream
+
+    def sums(self):
+        """The integer sums as ``[(tensor, feature axis)]`` views of the
+        buffer, contiguous, for a reduction over ranks: on the card the
+        kernel's layout, g and h as int64 ``[2, S, F, B]`` (axis 2) and the
+        counts as int32 ``[S, F, B]`` (axis 1); on the CPU the plain
+        version's int64 ``[S, F, B, 3]`` (axis 1). Adding two
+        accumulators' sums element by element adds their passes."""
+        if self.device.type == "cpu":
+            return [(self.buf, 1)]
+        n = self.S * self.F * self.B
+        gh = self.buf[:16 * n].view(torch.int64).view(2, self.S, self.F,
+                                                      self.B)
+        c = self.buf[16 * n:20 * n].view(torch.int32).view(self.S, self.F,
+                                                           self.B)
+        return [(gh, 2), (c, 1)]
 
     def zero_(self) -> None:
         """Start a wave: every sum 0."""

@@ -121,10 +121,17 @@ def histogram_scales(grad: torch.Tensor, hess: torch.Tensor
     f64, times ``n`` in f64, as on the host); the scale is built from its
     exponent bits, so it is exactly a power of two on every device."""
     n = grad.shape[0]
-    dev = grad.device
     if n == 0:
-        return torch.ones(2, dtype=torch.float64, device=dev)
+        return torch.ones(2, dtype=torch.float64, device=grad.device)
     max_abs = torch.stack([grad.abs().max(), hess.abs().max()]).double()
+    return scales_from_max(max_abs, n)
+
+
+def scales_from_max(max_abs: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`histogram_scales` from ``max_abs`` ``[2]`` f64 (the largest
+    ``|g|`` and ``|h|``) and the row count ``n``; the distributed learners
+    give the world's maximum and row count, so that every rank sums at the
+    serial learner's scale (``parallel/comm.py``)."""
     bound = max_abs * float(n)
     _, e = torch.frexp(bound)                       # bound < 2**e
     exp = torch.clamp(_FIXED_POINT_BITS - e.long(), max=_MAX_SCALE_EXP)
@@ -156,6 +163,15 @@ def table_lookup(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` — a plain index gather. (The JAX package's one-hot
     MXU matmul is a TPU workaround for slow gathers.)"""
     return table[idx]
+
+
+def root_sums_f64(grad: torch.Tensor, hess: torch.Tensor,
+                  included: torch.Tensor) -> torch.Tensor:
+    """``[3]`` f64 (sum_g, sum_h, count) over included rows, before the
+    rounding to f32 of :func:`root_sums`: the partials a distributed
+    learner reduces over its ranks before it rounds once."""
+    return torch.stack([grad.double().sum(), hess.double().sum(),
+                        included.double().sum()])
 
 
 def root_sums(grad: torch.Tensor, hess: torch.Tensor, included: torch.Tensor

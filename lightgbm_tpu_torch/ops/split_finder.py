@@ -86,9 +86,9 @@ def prefix_sums(x: torch.Tensor) -> torch.Tensor:
 
 def per_feature_best_numerical(
     hist: torch.Tensor,          # [S, F, B, 3] (sum_g, sum_h, count)
-    parent_g: torch.Tensor,      # [S]
-    parent_h: torch.Tensor,      # [S]
-    parent_c: torch.Tensor,      # [S]
+    parent_g: torch.Tensor,      # [S] (or [S, F])
+    parent_h: torch.Tensor,      # [S] (or [S, F])
+    parent_c: torch.Tensor,      # [S] (or [S, F])
     num_bins: torch.Tensor,      # [F] i32
     missing_code: torch.Tensor,  # [F] i32: 0=none, 1=zero, 2=nan
     default_bin: torch.Tensor,   # [F] i32
@@ -102,7 +102,9 @@ def per_feature_best_numerical(
 ) -> PerFeatureBest:
     """Best numerical threshold for every (slot, feature) pair; gains are
     already shifted by the parent gain + min_gain_to_split, so a finite
-    value means a valid improvement."""
+    value means a valid improvement. Parent sums ``[S, F]`` give every
+    column its own parent: the voting learner scans each slot's selected
+    columns as the columns of one slot (``parallel/comm.py``)."""
     S, F, B, _ = hist.shape
     dev = hist.device
     neg_inf = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
@@ -128,9 +130,9 @@ def per_feature_best_numerical(
     tot_g = cum_g[..., -1:]
     tot_h = cum_h[..., -1:]
     tot_c = cum_c[..., -1:]
-    pg = parent_g[:, None, None]
-    ph = parent_h[:, None, None]
-    pc = parent_c[:, None, None]
+    def per_slot(x):                 # [S] or [S, F] -> broadcast on bins
+        return x[..., None] if x.dim() == 2 else x[:, None, None]
+    pg, ph, pc = per_slot(parent_g), per_slot(parent_h), per_slot(parent_c)
 
     def child_gains(lg, lh, lc, rg, rh, rc):
         ok = ((lc >= min_data_in_leaf) & (rc >= min_data_in_leaf)
@@ -175,9 +177,9 @@ def per_feature_best_numerical(
 
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     feature_gate = torch.where(feature_ok[None, :, None], zero, neg_inf)
-    parent_gain_shift = (leaf_split_gain(parent_g, parent_h, lambda_l1,
-                                         lambda_l2)
-                         + min_gain_to_split)[:, None, None]
+    parent_gain_shift = per_slot(leaf_split_gain(parent_g, parent_h,
+                                                 lambda_l1, lambda_l2)
+                                 + min_gain_to_split)
     rev_gain = rev_gain + feature_gate
     fwd_gain = fwd_gain + feature_gate
     rev_gain = torch.where(rev_gain > parent_gain_shift,

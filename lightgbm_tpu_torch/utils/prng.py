@@ -81,21 +81,24 @@ def split(key: Key, num: int = 2) -> Tuple[Key, ...]:
 
 
 def random_bits(key: Key, shape: Union[int, Sequence[int]],
-                device="cpu") -> torch.Tensor:
-    """``jax.random.bits(key, shape)`` (uint32) as an ``int64`` tensor."""
+                device="cpu", offset: int = 0) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32) as an ``int64`` tensor;
+    with ``offset`` the elements ``[offset, offset + n)`` of a longer flat
+    draw (a rank's block of the world's rows)."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     n = 1
     for d in shape:
         n *= int(d)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     b1, b2 = threefry2x32(key, idx >> 32, idx & MASK32)
     return (b1 ^ b2).reshape(shape)
 
 
 def uniform(key: Key, shape: Union[int, Sequence[int]],
-            device="cpu") -> torch.Tensor:
-    """``jax.random.uniform(key, shape)``: f32 in [0, 1)."""
-    bits = random_bits(key, shape, device)
+            device="cpu", offset: int = 0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: f32 in [0, 1) (``offset`` as
+    :func:`random_bits`)."""
+    bits = random_bits(key, shape, device, offset)
     one_bits = (bits >> 9) | 0x3F800000          # below 2**31: fits int32
     return one_bits.to(torch.int32).view(torch.float32) - 1.0
 

@@ -24,7 +24,6 @@ Also:
 import ctypes
 import json
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -567,11 +566,43 @@ def test_shim_is_the_jax_package_shim_but_for_the_module():
                         "lightgbm_tpu.capi_impl") == theirs
 
 
+_NETWORK_RANK = r"""
+import ctypes, json, sys
+sys.path.insert(0, {root!r})
+import torch
+torch.set_num_threads(1)
+from lightgbm_tpu_torch import capi_shim
+lib = capi_shim.load_shim()
+ret = lib.LGBM_NetworkInit({machines!r}.encode(), {port}, 1, 2)
+import torch.distributed as dist
+out = [ret, dist.get_rank(), dist.get_world_size(), dist.get_backend()]
+out.append(lib.LGBM_NetworkFree())
+out.append(dist.is_initialized())
+print(json.dumps(out))
+"""
+
+
 def test_network_init_and_the_python_api_model(lib, tmp_path):
-    ret = lib.LGBM_NetworkInit(b"10.0.0.1:12400,10.0.0.2:12400", 12400,
-                               120, 2)
-    assert ret == -1
-    assert re.search(r"ROADMAP A16\b", lib.LGBM_GetLastError().decode())
+    """Two machines: ``LGBM_NetworkInit`` joins a gloo world of two
+    processes (each its rank by ``local_listen_port``) and
+    ``LGBM_NetworkFree`` leaves it; a world of two trains through the C API
+    in ``test_torch_multihost.py``. One machine needs no network."""
+    from _torch_world import free_ports, machines
+    ports = free_ports(2)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _NETWORK_RANK.format(
+            root=ROOT, machines=machines(ports), port=p)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for p in ports]
+    outs = []
+    for proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=180)
+        finally:
+            proc.kill()
+        assert proc.returncode == 0, stderr[-3000:]
+        outs.append(json.loads(stdout.strip().splitlines()[-1]))
+    assert outs == [[0, 0, 2, "gloo", 0, False], [0, 1, 2, "gloo", 0, False]]
     _check(lib, lib.LGBM_NetworkInit(b"", 12400, 120, 1))
     _check(lib, lib.LGBM_NetworkFree())
     rng = np.random.RandomState(17)

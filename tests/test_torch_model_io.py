@@ -222,22 +222,25 @@ def test_num_feature_and_leaf_output(api_booster):
 
 
 def test_set_free_network(api_booster):
+    """Two machines are recorded as the JAX package records them: the world
+    is joined when training starts (a world of two trains through
+    ``set_network`` in ``test_torch_multihost.py``); one machine too."""
     bst = api_booster[0]
-    with pytest.raises(LightGBMError, match=r"ROADMAP A16\b"):
-        bst.set_network(["10.0.0.1:12400", "10.0.0.2:12400"],
-                        local_listen_port=12400, num_machines=2)
-    assert "machines" not in bst.params
-    bst.set_network(["10.0.0.1:12400"], local_listen_port=12400)
-    assert bst.params["num_machines"] == 1
-    assert bst.params["machines"] == "10.0.0.1:12400"
-    # one machine: the parameters the JAX package's set_network records
     keys = ("machines", "local_listen_port", "time_out", "num_machines")
     theirs = lgb.Booster(model_str=bst.model_to_string())
-    theirs.set_network(["10.0.0.1:12400"], local_listen_port=12400)
-    assert {k: bst.params[k] for k in keys} == \
-        {k: theirs.params[k] for k in keys}
+    for machines, n in ((["10.0.0.1:12400", "10.0.0.2:12400"], 2),
+                        (["10.0.0.1:12400"], 1)):
+        bst.set_network(machines, local_listen_port=12400, num_machines=n)
+        theirs.set_network(machines, local_listen_port=12400,
+                           num_machines=n)
+        assert bst.params["num_machines"] == n
+        assert bst.params["machines"] == ",".join(machines)
+        assert bst.config.num_machines == n
+        assert {k: bst.params[k] for k in keys} == \
+            {k: theirs.params[k] for k in keys}
     bst.free_network()
     theirs.free_network()
+    assert not any(k in bst.params for k in keys)
     assert "machines" not in bst.params
     assert not set(keys) & (set(bst.params) | set(theirs.params))
 

@@ -3,8 +3,8 @@ auto``: ``ops/stream.py``, ``grower.StreamedGrower``, the histogram's
 carried accumulator, ``observability/memory.py``, ``robustness/chaos.py``
 and the command line's exit 144), on the CPU, against the JAX package.
 
-The cases of ``tests/test_stream.py`` but data-parallel (ROADMAP A16) and
-its recompile guard (the port compiles nothing), with their bars:
+The cases of ``tests/test_stream.py`` but data-parallel and its
+recompile guard (the port compiles nothing), with their bars:
 
 - a streamed run's model text, predictions, trees and eval curves are
   byte-equal to a resident run's, with compaction on and off (the sums are
