@@ -259,8 +259,32 @@ Phases (any failure exits non-zero and prints no result line):
    voting's the same on every rank with the train AUC within 0.01 of
    phase 4's.
 
+19. fault tolerance on the card (A16b, A17b): phase 4's dataset written
+   once as a binary file, every training process a child running the
+   command line (``cli.main``), this process only supervising. (a)
+   ``Supervisor`` over a 10-round training with ``checkpoint_interval=2``
+   whose first child SIGKILLs itself after its second checkpoint (gated by
+   a marker, so the relaunch trains through): the relaunch resumes from
+   iteration 4 and ends with phase 4's text; its MTTR and restarts. (b)
+   The same with ``hang_timeout_s=5 hang_action=abort`` and
+   ``LGBM_TPU_CHAOS_HANG`` parking the first child after iteration 4: it
+   exits 142 leaving a dump with every thread's stack, and the relaunch
+   ends with phase 4's text. (a) and (b) run at once. (c)
+   ``FleetSupervisor`` over a data-parallel world (two ranks on ``cuda:0``
+   over a gloo group the ranks make, or a rank per card over NCCL) with
+   gang checkpoints every 2 iterations, whose rank 1 SIGKILLs itself after
+   two manifests: rank 0 must exit 145 naming rank 1 within the lease
+   timeout plus one hang threshold, the relaunched gang resumes epoch 2 on
+   both ranks and both end with phase 4's text; each gang save's ms (shard
+   write, exchange and manifest, commit barrier). Then one process resumes
+   epoch 2 under ``elastic=true tpu_reshard_on_resume=true``: phase 4's
+   text. (d) In the same world, ``tpu_residency=stream`` under ``data``
+   (phase 4's text on every rank) and ``voting`` (phase 18 (b)'s voting
+   text), B1's 140 launches per rank and learner, ms per iteration per
+   rank.
+
 ``--phases 3,11`` runs only the listed phases (and those they need: 5-7
-and 12-18 add phase 4); such a partial run prints no result lines and
+and 12-19 add phase 4); such a partial run prints no result lines and
 exits 4.
 
 The card's line comes before the last two lines; the line before the last
@@ -275,6 +299,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1250,6 +1275,9 @@ CAT_ROUNDS = 10
 RANK_ROWS, RANK_HOLD = 2_270_296, 227_029    # phase 9: bench.py's MS-LTR cut
 RANK_ROUNDS = 5
 SMALL = 20_000                     # phase 10's rows
+# phase 10's rounds per case, card and CPU: 3 (not 5), so that the whole
+# run stays near 700 s beside phase 19
+CARD_CPU_ROUNDS = 3
 
 
 def multiclass_like(n, seed):
@@ -2037,7 +2065,7 @@ def card_vs_cpu_phase(X, cat, rank):
         def run(device_params, fobj=None):
             return lgt.train(dict(p, **device_params),
                              lgt.Dataset(Xc_, label=yc, **kw),
-                             num_boost_round=5, fobj=fobj)
+                             num_boost_round=CARD_CPU_ROUNDS, fobj=fobj)
         before = launch_count()
         on_card = run({})
         launched = launch_count() - before
@@ -2197,7 +2225,7 @@ def card_vs_cpu_new_cases(Xh, yh):
         def run(device_params, fobj=None):
             return lgt.train(dict(p, **device_params),
                              lgt.Dataset(Xc_, label=yc, **kw),
-                             num_boost_round=5, fobj=fobj,
+                             num_boost_round=CARD_CPU_ROUNDS, fobj=fobj,
                              keep_training_booster=True)
         before = launch_count()
         on_card = run({})
@@ -4094,14 +4122,543 @@ def parallel_phase(mres, dev):
                   flush=True)
             if not gap <= PAR_AUC_TOL:
                 fail("phase 18 (b): voting's AUC is off phase 4's")
+            voting_digest = digest
     if any(o["modules"] for o in res):
         fail("phase 18 (b): a rank imported JAX or lightgbm_tpu")
     print(f"  histogram kernel launches in phase 18: {launches}; phase 18 "
           f"took {time.perf_counter() - t0:.1f} s", flush=True)
-    return dict(launches=launches)
+    return dict(launches=launches, voting_digest=voting_digest)
 
 
-PHASES = tuple(range(1, 19))
+# ---------------------------------------------------------------- phase 19
+
+FT_ROUNDS = 10                     # phase 19: phase 4's rounds
+FT_DEADLINE_S = 300                # one supervised arm, then killed
+FT_HANG_S = 5.0                    # (b)'s hang_timeout_s
+FT_LEASE_S = 10.0                  # (c)'s gang_lease_timeout_s
+FT_HANG_GANG_S = 20.0              # (c)'s hang_timeout_s
+
+# a training child of phase 19: the command line (``cli.main``) on the
+# tokens it is given, with its own tokens taken out: ``smoke_rank``,
+# ``smoke_world``, ``smoke_port`` and ``smoke_backend`` (a world whose group
+# this script makes, as phase 18's ranks do: two ranks on one card need
+# gloo), ``smoke_kill_rank`` / ``smoke_kill_marker`` / ``smoke_kill_after``
+# (that rank SIGKILLs itself after its n-th checkpoint or gang manifest
+# unless the marker exists, and writes the marker with the time). It prints
+# one JSON line: B1's launches, each checkpoint save's ms (gang: shard
+# write, exchange and commit apart) and its wall seconds.
+_FT_CHILD = r"""
+import datetime, json, os, signal, sys, time
+t_start = time.perf_counter()
+own = {a.split("=", 1)[0][6:]: a.split("=", 1)[1] for a in sys.argv[1:]
+       if a.startswith("smoke_")}
+argv = [a for a in sys.argv[1:] if not a.startswith("smoke_")]
+import torch
+rank, world = int(own.get("rank", 0)), int(own.get("world", 1))
+if world > 1:
+    import torch.distributed as dist
+    if torch.cuda.is_available():
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    store = dist.TCPStore("127.0.0.1", int(own["port"]), world, rank == 0,
+                          timeout=datetime.timedelta(seconds=120),
+                          wait_for_workers=False)
+    dist.init_process_group(own["backend"], store=store, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+from lightgbm_tpu_torch import cli
+from lightgbm_tpu_torch.ops.cuda_histogram import launch_count
+from lightgbm_tpu_torch.robustness import checkpoint as ck
+from lightgbm_tpu_torch.robustness import distributed as gd
+saves = []
+for cls in (ck.CheckpointManager, gd.GangCheckpointCoordinator):
+    def timed(self, payload, _orig=cls.save):
+        t0 = time.perf_counter()
+        path = _orig(self, payload)
+        saves.append(dict({k: v * 1e3 for k, v in
+                           getattr(self, "timings", {}).items()},
+                          ms=(time.perf_counter() - t0) * 1e3,
+                          iteration=payload.get("iteration")))
+        return path
+    cls.save = timed
+ck_dir = [a.split("=", 1)[1] for a in argv if a.startswith("checkpoint_dir=")]
+marker = own.get("kill_marker", "")
+if rank == int(own.get("kill_rank", -1)) and marker \
+        and not os.path.exists(marker):
+    n_kill = int(own.get("kill_after", 2))
+    train_fn = cli.train_fn
+
+    def train(*a, callbacks=None, **kw):
+        def kill(env):
+            n = len(gd.list_manifests(ck_dir[0])) if world > 1 else \
+                len(ck.CheckpointManager(ck_dir[0]).list_checkpoints())
+            if n >= n_kill:
+                with open(marker, "w") as fh:
+                    fh.write(repr(time.time()))
+                os.kill(os.getpid(), signal.SIGKILL)
+        kill.order = 60                  # after the checkpoint callback
+        return train_fn(*a, callbacks=list(callbacks or []) + [kill], **kw)
+    cli.train_fn = train
+rc = cli.main(argv)
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+print(json.dumps({"rc": rc, "launches": launch_count(), "saves": saves,
+                  "wall_s": time.perf_counter() - t_start,
+                  "modules": sorted(m for m in sys.modules
+                                    if m.split(".")[0] in
+                                    ("jax", "lightgbm_tpu"))}), flush=True)
+sys.stdout.flush()
+os._exit(0)
+"""
+
+# phase 19 (d): a rank of a streamed world on phase 4's binary file
+_FT_STREAM_RANK = r"""
+import datetime, hashlib, json, sys, time
+import torch, torch.distributed as dist
+rank, world, port = map(int, sys.argv[1:4])
+backend, rounds, bin_path = sys.argv[4], int(sys.argv[5]), sys.argv[6]
+params = json.loads(sys.argv[7])
+sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: 0)
+if torch.cuda.is_available():
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+store = dist.TCPStore("127.0.0.1", port, world, rank == 0,
+                      timeout=datetime.timedelta(seconds=300))
+dist.init_process_group(backend, store=store, rank=rank, world_size=world)
+import lightgbm_tpu_torch as lgt
+from lightgbm_tpu_torch.ops.cuda_histogram import (launch_count,
+                                                   reset_launch_count)
+res = {}
+for tl in ("data", "voting"):
+    ds = lgt.Dataset(bin_path)
+    reset_launch_count()                    # each learner's path starts
+    t0 = time.perf_counter()
+    bst = lgt.Booster(params=dict(params, tree_learner=tl,
+                                  tpu_residency="stream"), train_set=ds)
+    sync()
+    t1 = time.perf_counter()
+    bst.update()
+    sync()
+    t2 = time.perf_counter()
+    for _ in range(rounds - 1):
+        bst.update()
+    sync()
+    t3 = time.perf_counter()
+    text = bst.model_to_string()
+    launches = launch_count()               # ... and ends here
+    g = bst._gbdt
+    st = g._stream_store
+    res[tl] = dict(
+        digest=hashlib.sha256(text.encode()).hexdigest(),
+        launches=launches, setup_s=t1 - t0, first_ms=(t2 - t1) * 1e3,
+        ms_per_iter=(t3 - t2) / (rounds - 1) * 1e3,
+        residency=g.residency, strategy=g.pctx.strategy,
+        world=g.pctx.num_devices, rows=g.num_rows, shards=st.n_shards,
+        shard_rows=st.shard_rows, trees=len(bst.trees),
+        flag_reads=g._grower.flag_reads, waves=g._grower.waves_run,
+        staged_calls=g.pctx.coll.staged_calls,
+        staged_ms=g.pctx.coll.staged_s * 1e3)
+    del bst, g, st, ds
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+res["modules"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "lightgbm_tpu"))
+print(json.dumps(res), flush=True)
+dist.destroy_process_group()
+"""
+
+
+class _TimedProc:
+    """A child whose exit the supervisors poll, with the wall time
+    (``time.time()``) at which a poll first saw it gone."""
+
+    def __init__(self, proc, out, err):
+        self.proc, self.out, self.err = proc, out, err
+        self.ended_at = None
+
+    def poll(self):
+        rc = self.proc.poll()
+        if rc is not None and self.ended_at is None:
+            self.ended_at = time.time()
+        return rc
+
+    def terminate(self):
+        self.proc.terminate()
+
+    def kill(self):
+        self.proc.kill()
+
+    def result(self):
+        """(rc, the JSON line the child printed or None, stderr tail)."""
+        self.proc.wait()
+        for fh in (self.out, self.err):
+            fh.flush()
+            fh.seek(0)
+        lines = [ln for ln in self.out.read().splitlines()
+                 if ln.startswith("{")]
+        return (self.proc.returncode,
+                json.loads(lines[-1]) if lines else None, self.err.read())
+
+
+def _ft_spawner(tmp, env_extra=None):
+    """A ``spawn_fn`` for the supervisors: each child is ``_FT_CHILD`` on
+    the given tokens, its output in files of ``tmp``."""
+    import tempfile
+    children = []
+    env = dict(os.environ, PYTHONPATH=HERE, PYTHONUNBUFFERED="1",
+               **(env_extra or {}))
+
+    def spawn(argv):
+        out = tempfile.TemporaryFile("w+", dir=tmp)
+        err = tempfile.TemporaryFile("w+", dir=tmp)
+        child = _TimedProc(subprocess.Popen(
+            [sys.executable, "-c", _FT_CHILD, *argv], env=env, cwd=HERE,
+            stdout=out, stderr=err, start_new_session=True), out, err)
+        child.argv = list(argv)
+        children.append(child)
+        return child
+    spawn.children = children
+    return spawn
+
+
+def _ft_train_args(bin_path, ck, out, extra=()):
+    return ["task=train", f"data={bin_path}", "verbose=0",
+            *(f"{k}={v}" for k, v in MAIN_PARAMS.items() if k != "verbose"),
+            f"num_iterations={FT_ROUNDS}", f"checkpoint_dir={ck}",
+            "checkpoint_interval=2", "checkpoint_keep_last_n=0",
+            f"output_model={out}", *extra]
+
+
+def _ft_reap(children):
+    """Kill what a supervised arm left running past its deadline."""
+    for c in children:
+        if c.proc.poll() is None:
+            try:
+                os.killpg(c.proc.pid, 9)
+            except ProcessLookupError:
+                pass
+            c.proc.wait()
+
+
+def _first_ckpt_iteration_after(ck, ckpt_id):
+    """The iteration of checkpoint ``ckpt_id + 1`` (the relaunch's first)."""
+    from lightgbm_tpu_torch.robustness.checkpoint import CheckpointManager
+    path = dict(CheckpointManager(ck).list_checkpoints()).get(ckpt_id + 1)
+    if path is None:
+        return None
+    return CheckpointManager.load(path)["iteration"]
+
+
+def _supervised_arm(label, tmp, bin_path, mres, extra, env_extra):
+    """(a) / (b): ``Supervisor`` over a training child that fails once
+    (``expect_first``), then trains through from its checkpoints."""
+    from lightgbm_tpu_torch.robustness.supervisor import (Supervisor,
+                                                           describe_exit)
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, label)
+    os.makedirs(d)
+    ck, out = os.path.join(d, "ck"), os.path.join(d, "model.txt")
+    spawn = _ft_spawner(d, env_extra)
+    sup = Supervisor(_ft_train_args(bin_path, ck, out, extra),
+                     spawn_fn=spawn, max_restarts=2, seed=SEED,
+                     backoff_base_s=0.1, jitter=0.0, poll_interval_s=0.02)
+    result = {}
+
+    def run():
+        result["rc"] = sup.run()
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    th.join(FT_DEADLINE_S)
+    _ft_reap(spawn.children)
+    th.join(10)
+    results = [c.result() for c in spawn.children]
+    digest = _file_digest(out) if os.path.exists(out) else None
+    resumed_at = _first_ckpt_iteration_after(ck, 2)
+    wall = time.perf_counter() - t0
+    rc = result.get("rc")
+    first_rc = results[0][0] if results else None
+    print(f"  ({label}) supervisor: exit {rc}, {sup.restarts} restart(s), "
+          f"first child {describe_exit(first_rc) if first_rc is not None else '?'}"
+          f", MTTR {[round(s, 3) for s in sup.recovery_seconds]} s; the "
+          f"relaunch's first checkpoint at iteration {resumed_at} (resumed "
+          f"from 4); model text sha256 {(digest or '?')[:16]}, phase 4's "
+          f"{digest == mres['digest']}; {wall:.1f} s", flush=True)
+    return dict(rc=rc, sup=sup, results=results, digest=digest, wall=wall,
+                resumed_at=resumed_at, ck=ck, first_rc=first_rc)
+
+
+def _check_supervised(label, arm, mres, expect_first):
+    if arm["rc"] != 0 or arm["digest"] != mres["digest"]:
+        fail(f"phase 19 ({label}): the supervised run did not end with "
+             f"phase 4's text (exit {arm['rc']}):\n"
+             f"{arm['results'][-1][2][-3000:] if arm['results'] else ''}")
+    if arm["first_rc"] != expect_first or arm["sup"].restarts != 1:
+        fail(f"phase 19 ({label}): the first child exited "
+             f"{arm['first_rc']}, not {expect_first}, or restarts "
+             f"{arm['sup'].restarts} != 1:\n{arm['results'][0][2][-3000:]}")
+    if arm["resumed_at"] != 6 or len(arm["sup"].recovery_seconds) != 1:
+        fail(f"phase 19 ({label}): the relaunch did not resume from "
+             f"iteration 4 (first checkpoint at {arm['resumed_at']})")
+    last = arm["results"][-1][1]
+    if not last or last["launches"] <= 0 or last["modules"]:
+        fail(f"phase 19 ({label}): the relaunch never launched B1, or "
+             f"imported JAX")
+    return last
+
+
+def _gang_arm(tmp, bin_path, mres, world, backend, label):
+    """(c): ``FleetSupervisor`` over a data-parallel world whose rank 1
+    kills itself after two manifests; then one process resumes epoch 2
+    under ``elastic=true tpu_reshard_on_resume=true``."""
+    import shutil
+    from lightgbm_tpu_torch.robustness import distributed as gd
+    from lightgbm_tpu_torch.robustness.supervisor import FleetSupervisor
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, "c")
+    os.makedirs(d)
+    ck = os.path.join(d, "ck")
+    marker = os.path.join(d, "kill.marker")
+    template = _ft_train_args(
+        bin_path, ck, os.path.join(d, "model_{rank}.txt"),
+        ["tree_learner=data", "gang_heartbeat_interval_s=0.5",
+         f"gang_lease_timeout_s={FT_LEASE_S}",
+         f"hang_timeout_s={FT_HANG_GANG_S}", "hang_action=abort",
+         "smoke_rank={rank}", "smoke_world={world}",
+         f"smoke_backend={backend}", "smoke_kill_rank=1",
+         f"smoke_kill_marker={marker}"])
+    spawn = _ft_spawner(d)
+    fleet = FleetSupervisor(
+        template, world, max_restarts=2, seed=SEED, backoff_base_s=0.1,
+        jitter=0.0, poll_interval_s=0.02, reap_grace_s=60.0,
+        pre_launch_fn=lambda w, g: [f"smoke_port={_free_port()}"],
+        spawn_fn=spawn)
+    result = {}
+
+    def run():
+        result["rc"] = fleet.run()
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    th.join(FT_DEADLINE_S)
+    _ft_reap(spawn.children)
+    th.join(10)
+    gang_s = time.perf_counter() - t0
+    ch = spawn.children
+    res = [c.result() for c in ch]
+    gen0 = res[:world]
+    killed_at = float(open(marker).read()) if os.path.exists(marker) \
+        else None
+    detect_s = (ch[0].ended_at - killed_at) if killed_at and \
+        ch[0].ended_at else None
+    named = bool(re.search(r"lost peer rank 1\b", gen0[0][2], re.I))
+    digests = [_file_digest(os.path.join(d, f"model_{r}.txt"))
+               if os.path.exists(os.path.join(d, f"model_{r}.txt")) else None
+               for r in range(world)]
+    manifests = gd.list_manifests(ck)
+    iters = [gd.load_manifest(p)["iteration"] for _, p in manifests]
+    saves = [dict(s, rank=r) for r, (_, out, _) in enumerate(res[world:])
+             if out for s in out["saves"]]
+    print(f"  (c) fleet of {world} ranks over {backend} ({label}): exit "
+          f"{result.get('rc')}, gang exit codes "
+          f"{fleet.gang_exit_codes}, rank 0 of generation 0 exited "
+          f"{gen0[0][0]} naming rank 1 {named}, "
+          f"{detect_s if detect_s is None else round(detect_s, 3)} s after "
+          f"rank 1's SIGKILL (lease {FT_LEASE_S:g} s, hang threshold "
+          f"{FT_HANG_GANG_S:g} s); fleet MTTR "
+          f"{[round(s, 3) for s in fleet.recovery_seconds]} s; manifests' "
+          f"iterations {iters}; {gang_s:.1f} s", flush=True)
+    for s in saves:
+        print(f"  (c) rank {s['rank']}, gang checkpoint at iteration "
+              f"{s['iteration']}: "
+              f"{s['ms']:.1f} ms (shard write {s.get('shard_write_s', 0):.1f}"
+              f", exchange + manifest {s.get('exchange_s', 0):.1f}, commit "
+              f"barrier {s.get('commit_s', 0):.1f} ms)", flush=True)
+    ok_text = all(dg == mres["digest"] for dg in digests)
+    print(f"  (c) the relaunched gang resumed the same epoch on every rank "
+          f"(manifests at iterations {iters}) and every rank's text is "
+          f"phase 4's {ok_text}", flush=True)
+    if result.get("rc") != 0 or not ok_text or fleet.restarts != 1:
+        fail(f"phase 19 (c): the gang did not end with phase 4's text "
+             f"after one relaunch (exit {result.get('rc')}, restarts "
+             f"{fleet.restarts}):\n{res[-1][2][-3000:]}")
+    want_rcs = [-9 if r == 1 else 145 for r in range(world)]
+    if [r[0] for r in gen0] != want_rcs or not named:
+        fail(f"phase 19 (c): generation 0 exited {[r[0] for r in gen0]}, "
+             f"not {want_rcs} (rank 0 must exit 145 naming rank 1):\n"
+             f"{gen0[0][2][-3000:]}")
+    if detect_s is None or detect_s > FT_LEASE_S + FT_HANG_GANG_S:
+        fail(f"phase 19 (c): rank 0 took {detect_s} s to leave")
+    if iters != [2, 4, 6, 8, 10]:
+        fail(f"phase 19 (c): the relaunch did not resume epoch 2 "
+             f"(manifests at {iters})")
+    if any(out is None or out["launches"] <= 0 or out["modules"]
+           for _, out, _ in res[world:]):
+        fail("phase 19 (c): a relaunched rank never launched B1, or "
+             "imported JAX")
+    # one process resumes epoch 2 of the gang (iteration 4)
+    e_dir = os.path.join(d, "elastic")
+    os.makedirs(e_dir)
+    for name in os.listdir(ck):
+        if name in ("manifest_0000000002.json",) or \
+                name.startswith("shard_0000000002_"):
+            shutil.copy(os.path.join(ck, name), e_dir)
+    return dict(d=d, e_dir=e_dir, res=res, fleet=fleet, saves=saves,
+                detect_s=detect_s, gang_s=gang_s, world=world)
+
+
+def _elastic_start(gang, bin_path):
+    """(c): the single-process elastic resume, started (it runs while (d)
+    does)."""
+    e_out = os.path.join(gang["d"], "model_elastic.txt")
+    args = _ft_train_args(bin_path, gang["e_dir"], e_out,
+                          ["tree_learner=data", "resume_from=auto",
+                           "elastic=true", "tpu_reshard_on_resume=true"])
+    spawn = _ft_spawner(gang["d"])
+    return spawn(args), e_out, time.perf_counter()
+
+
+def _elastic_finish(child, e_out, t0, mres):
+    rc, out, err = child.result()
+    digest = _file_digest(e_out) if os.path.exists(e_out) else None
+    print(f"  (c) one process resumed the gang's epoch 2 (world 2 -> 1, "
+          f"elastic=true tpu_reshard_on_resume=true): exit {rc}, B1 "
+          f"launches {out and out['launches']}, text phase 4's "
+          f"{digest == mres['digest']}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if rc != 0 or digest != mres["digest"] or not out or \
+            out["launches"] <= 0:
+        fail(f"phase 19 (c): the elastic resume did not give phase 4's "
+             f"text:\n{err[-3000:]}")
+    return out["launches"]
+
+
+def _stream_world(bin_path, mres, pres, world, backend, label):
+    """(d): streamed data and voting in a world on phase 4's data."""
+    t0 = time.perf_counter()
+    ranks = _run_ranks(_FT_STREAM_RANK, world, PAR_DEADLINE_S,
+                       extra=(backend, FT_ROUNDS, bin_path,
+                              json.dumps(MAIN_PARAMS)))
+    res = []
+    for r, (rc, so, se) in enumerate(ranks):
+        lines = so.strip().splitlines()
+        if rc != 0 or not lines:
+            fail(f"phase 19 (d): rank {r} exited {rc}: {se.strip()[-3000:]}")
+        res.append(json.loads(lines[-1]))
+    launches = 0
+    for tl in ("data", "voting"):
+        for r, out in enumerate(res):
+            o = out[tl]
+            launches += o["launches"]
+            print(f"  (d) streamed {tl}, rank {r} ({label}): {o['world']} "
+                  f"ranks, {o['rows']} rows in {o['shards']} shards of "
+                  f"{o['shard_rows']}; setup {o['setup_s']:.2f} s, first "
+                  f"iteration {o['first_ms']:.1f} ms, then "
+                  f"{o['ms_per_iter']:.1f} ms per iteration; B1 launches "
+                  f"{o['launches']}; flag reads per wave "
+                  f"{o['flag_reads'] / max(o['waves'], 1):.2f}; host-staged "
+                  f"collectives {o['staged_calls']} in "
+                  f"{o['staged_ms']:.1f} ms", flush=True)
+            if o["residency"] != "stream" or o["strategy"] != tl or \
+                    o["trees"] != FT_ROUNDS or o["launches"] != 140:
+                fail(f"phase 19 (d): {tl} rank {r} did not stream a world "
+                     f"of {world} through B1 (140 launches expected)")
+        digests = {o[tl]["digest"] for o in res}
+        if len(digests) != 1:
+            fail(f"phase 19 (d): {tl}: the ranks' model texts differ")
+        digest = digests.pop()
+        want = mres["digest"] if tl == "data" else pres.get("voting_digest")
+        same = digest == want if want else None
+        print(f"  (d) streamed {tl}: every rank's text "
+              f"{'phase 4' if tl == 'data' else 'phase 18 (b) voting'}'s "
+              f"{same}", flush=True)
+        if want and not same:
+            fail(f"phase 19 (d): streamed {tl}'s text is not the resident "
+                 f"one's")
+    if any(o["modules"] for o in res):
+        fail("phase 19 (d): a rank imported JAX or lightgbm_tpu")
+    print(f"  (d) {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def fault_tolerance_phase(mres, pres):
+    """Phase 19: robustness on the card: supervised kill, watchdog abort,
+    gang kill with the elastic resume, streaming in a world. Every
+    training process is a child; this process only supervises."""
+    import shutil
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_19_")
+    try:
+        bin_path = os.path.join(tmp, "train.bin")
+        ds, _, _ = mres["data"]
+        ds.save_binary(bin_path)
+        print(f"  phase 4's dataset as a binary file "
+              f"({os.path.getsize(bin_path) / 1e6:.1f} MB) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        cards = torch.cuda.device_count()
+        world = cards if cards > 1 else 2
+        backend = "nccl" if cards > 1 else "gloo"
+        label = (f"NCCL across {world} cards" if cards > 1
+                 else "gloo over one card: no multi-GPU number")
+
+        # (a) and (b) at once: two supervisors, two children on the card
+        arms = {}
+        hang_marker = os.path.join(tmp, "hang.marker")
+        kill_marker = os.path.join(tmp, "kill.marker")
+        jobs = {
+            "a": (["smoke_kill_rank=0", f"smoke_kill_marker={kill_marker}"],
+                  {}, -9),
+            "b": ([f"hang_timeout_s={FT_HANG_S}", "hang_action=abort"],
+                  {"LGBM_TPU_CHAOS_HANG": "4:120",
+                   "LGBM_TPU_CHAOS_HANG_MARKER": hang_marker}, 142)}
+
+        def arm(k):
+            extra, env, _ = jobs[k]
+            arms[k] = _supervised_arm(k, tmp, bin_path, mres, extra, env)
+        ths = [threading.Thread(target=arm, args=(k,)) for k in jobs]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join()
+        launches = 0
+        for k in ("a", "b"):
+            if k not in arms:
+                fail(f"phase 19 ({k}) did not run")
+            last = _check_supervised(k, arms[k], mres, jobs[k][2])
+            launches += last["launches"]
+            for s in last["saves"]:
+                print(f"  ({k}) checkpoint at iteration {s['iteration']}: "
+                      f"{s['ms']:.1f} ms", flush=True)
+        dumps = [f for f in os.listdir(arms["b"]["ck"])
+                 if f.startswith("watchdog_dump_")]
+        stacks = {}
+        if dumps:
+            stacks = json.load(open(os.path.join(
+                arms["b"]["ck"], dumps[0])))["thread_stacks"]
+        main_hung = any("_hang" in "".join(v) for v in stacks.values())
+        print(f"  (b) watchdog dump {dumps[:1]}: {len(stacks)} thread "
+              f"stacks, the training thread parked in the injected hang "
+              f"{main_hung}", flush=True)
+        if len(dumps) != 1 or len(stacks) < 2 or not main_hung:
+            fail("phase 19 (b): no watchdog dump with every thread's stack")
+
+        # (c) the gang, then its elastic resume beside (d)
+        gang = _gang_arm(tmp, bin_path, mres, world, backend, label)
+        launches += sum(out["launches"] for _, out, _ in
+                        gang["res"][world:])
+        child, e_out, te = _elastic_start(gang, bin_path)
+        launches += _stream_world(bin_path, mres, pres, world, backend,
+                                  label)
+        launches += _elastic_finish(child, e_out, te, mres)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  histogram kernel launches in phase 19 (the children that ran "
+          f"to their end): {launches}; phase 19 took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(launches=launches,
+                mttr=[arms[k]["sup"].recovery_seconds for k in ("a", "b")]
+                + [gang["fleet"].recovery_seconds])
+
+
+PHASES = tuple(range(1, 20))
 
 
 def main():
@@ -4129,7 +4686,7 @@ def main():
     want = set(PHASES) if not args.phases else \
         {int(p) for p in args.phases.split(",")}
     # phases 5-7 and 12-17 run on phase 4's data and booster
-    if want & {5, 6, 7, 12, 13, 14, 15, 16, 17, 18}:
+    if want & {5, 6, 7, 12, 13, 14, 15, 16, 17, 18, 19}:
         want.add(4)
 
     t_start = time.perf_counter()
@@ -4276,6 +4833,17 @@ def main():
               f"rank per card where there are several)", flush=True)
         pres = parallel_phase(mres, dev)
 
+    rbres = none
+    if 19 in want:
+        elapsed(t_start)
+        print(f"phase 19: fault tolerance on the card (phase 4's data and "
+              f"parameters, {FT_ROUNDS} rounds, from a binary file, every "
+              f"training process a child): (a) supervised kill, (b) "
+              f"watchdog abort, (c) gang kill under the fleet supervisor "
+              f"and an elastic resume on one process, (d) streamed data and "
+              f"voting in a world", flush=True)
+        rbres = fault_tolerance_phase(mres, pres)
+
     elapsed(t_start)
     if want != set(PHASES):
         print(f"partial run of phases {sorted(want)}: no result lines",
@@ -4289,7 +4857,8 @@ def main():
           f"{eres['launches']}, phase 12 {lres['launches']}, phase 13 "
           f"{bres['launches']}, phase 14 {vres['launches']}, phase 15 "
           f"{nres['launches']}, phase 16 {fres['launches']}, phase 17 "
-          f"{tres['launches']}, phase 18 {pres['launches']}", flush=True)
+          f"{tres['launches']}, phase 18 {pres['launches']}, phase 19 "
+          f"{rbres['launches']}", flush=True)
 
     full = kres["full"]
     kernels = {"kernels": [{
@@ -4301,7 +4870,7 @@ def main():
         + rres["launches"] + xres["launches"] + eres["launches"]
         + lres["launches"] + bres["launches"] + vres["launches"]
         + nres["launches"] + fres["launches"] + tres["launches"]
-        + pres["launches"],
+        + pres["launches"] + rbres["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kres.values()),
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
@@ -4319,7 +4888,8 @@ def main():
             "11": eres["launches"], "12": lres["launches"],
             "13": bres["launches"], "14": vres["launches"],
             "15": nres["launches"], "16": fres["launches"],
-            "17": tres["launches"], "18": pres["launches"]},
+            "17": tres["launches"], "18": pres["launches"],
+            "19": rbres["launches"]},
     }]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -13,6 +13,7 @@ other. The prediction device is the config's ``device`` (CUDA unless
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -572,8 +573,11 @@ class Booster:
         and the config fingerprint) to ``directory`` (default: the config's
         ``checkpoint_dir``), resumable by :meth:`resume` or
         ``train(resume_from=...)`` (``lightgbm_tpu/basic.py:573-625``).
-        The payload holds builtins and numpy arrays only. Returns the
-        written path."""
+        The payload holds builtins and numpy arrays only. In a world of
+        more than one process (``robustness.distributed.gang_env``) every
+        rank writes its shard and rank 0 commits the epoch manifest behind
+        the commit barrier, so every rank calls this at the same boundary.
+        Returns the written path (this rank's shard in a world)."""
         from .robustness.checkpoint import (CheckpointManager,
                                             config_fingerprint,
                                             fingerprinted_config)
@@ -601,6 +605,18 @@ class Booster:
                 "feature_names": list(self.feature_names),
             },
         }
+        from .robustness import distributed as _dist
+        gang = _dist.gang_env()
+        if gang is not None:
+            client, rank, world = gang
+            coord = _dist.GangCheckpointCoordinator(
+                directory, client=client, rank=rank, world=world,
+                keep_last_n=self.config.checkpoint_keep_last_n,
+                elastic=self.config.elastic)
+            path = coord.save(payload)
+            Log.info("gang checkpoint shard written: %s (rank %d/%d, "
+                     "iteration %d)", path, rank, world, state["iter"])
+            return path
         path = mgr.save(payload)
         Log.info("checkpoint written: %s (iteration %d)", path,
                  state["iter"])
@@ -608,9 +624,10 @@ class Booster:
 
     def resume(self, path_or_dir: Optional[str] = None) -> "Booster":
         """Replay a checkpoint into this booster's training state
-        (``lightgbm_tpu/basic.py:627-680``): a snapshot file, or a directory
-        whose latest snapshot is used (default: the config's
-        ``checkpoint_dir``). The booster must be built on the same dataset
+        (``lightgbm_tpu/basic.py:627-680``): a snapshot file (a gang shard
+        too), or a directory whose latest snapshot is used (default: the
+        config's ``checkpoint_dir``); a gang directory resumes its newest
+        epoch every rank verifies (``GangCheckpointCoordinator``). The booster must be built on the same dataset
         and training config: a config-fingerprint mismatch fails naming the
         fields. Training on is bit-identical to a run never interrupted."""
         from .robustness.checkpoint import (CheckpointError,
@@ -628,6 +645,18 @@ class Booster:
         if not target:
             Log.fatal("resume: no checkpoint path given and checkpoint_dir "
                       "is empty")
+        if os.path.isdir(target):
+            from .robustness import distributed as _dist
+            if _dist.list_manifests(target):
+                gang = _dist.gang_env()
+                client, rank, world = gang if gang is not None \
+                    else (None, 0, 1)
+                shard = _dist.GangCheckpointCoordinator(
+                    target, client=client, rank=rank, world=world,
+                    elastic=self.config.elastic).resolve_resume()
+                if shard is None:
+                    raise CheckpointError(f"no gang epoch under {target}")
+                target = shard
         payload = CheckpointManager.load(target)
         if payload["config_fingerprint"] != config_fingerprint(self.config):
             fields = config_mismatch_fields(payload["config"], self.config)

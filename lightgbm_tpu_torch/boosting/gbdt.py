@@ -76,7 +76,9 @@ valid scores and bagging mask back to pre-step copies, and the host pops
 a poisoned iteration's bookkeeping; clip sanitises g/h and leaf values.
 On the card the flags are read with the grower's, once per tree.
 ``checkpoint_state`` / ``restore_checkpoint_state`` (gbdt.py:2153-2290
-there) carry the training state as builtins and numpy for one device.
+there) carry the training state as builtins and numpy, the world's per-row
+state gathered into its padded layout, so a resume at another world size
+re-lays it out under ``tpu_reshard_on_resume``.
 """
 from __future__ import annotations
 
@@ -231,6 +233,10 @@ class GBDT:
             Log.info("deferred ingest falls back to host binning (%d-process "
                      "layout)", self.pctx.num_devices)
             codes = train_set.X_binned
+        # the data fingerprint of the world's rows (every rank holds them
+        # here, except under is_pre_partition), so that a checkpoint
+        # resumes at another world size
+        fp_codes = codes
         if codes is not None and self.pctx.num_devices > 1:
             codes = self._world_codes(codes)
         self.comm = self.pctx.make_comm(
@@ -258,8 +264,10 @@ class GBDT:
         if self.residency == "stream" and codes is None:
             Log.info("deferred ingest falls back to host binning (stream "
                      "residency)")
-            codes = train_set.X_binned
-        self._data_fingerprint = _data_fingerprint(codes, train_set, md.label)
+            codes = fp_codes = train_set.X_binned
+        self._data_fingerprint = _data_fingerprint(fp_codes, train_set,
+                                                   md.label)
+        del fp_codes
         self._ingest_report = None
         self._stream_store = self._stream = None
         if self.residency == "stream":
@@ -445,12 +453,8 @@ class GBDT:
                            "device-resident (the per-leaf fits read raw "
                            "values every tree)")
         # tree_learner=feature is refused with its own reason before this
-        # (config.check_port_supported)
-        if self.pctx.multi_process:
-            return False, (f"tree_learner={self.pctx.strategy} across "
-                           f"{self.pctx.num_devices} processes streams no "
-                           f"shards yet: each rank's row block would be a "
-                           f"store of its own (ROADMAP A16b)")
+        # (config.check_port_supported); under data and voting each rank
+        # streams a store of its own row block (_setup_stream)
         if config.is_pre_partition:
             return False, "is_pre_partition holds per-process row blocks"
         return True, ""
@@ -461,7 +465,8 @@ class GBDT:
         rows, shard rows and code mode (ops/stream.py)."""
         from ..ops.histogram import code_mode_for
         from ..ops.stream import shard_geometry
-        padded, rows = shard_geometry(train_set.num_data,
+        # a row-sharded rank streams its block (num_rows, padding included)
+        padded, rows = shard_geometry(self.num_rows,
                                       config.tpu_stream_shard_rows)
         max_code = self.efb_plan.max_bundle_bins if self.bundle is not None \
             else train_set.max_num_bin
@@ -486,7 +491,7 @@ class GBDT:
         geo = self._stream_geo = self._shard_geometry(config, train_set,
                                                       cols, itemsize)
         spec = self.spec
-        dims = dict(rows=train_set.num_data, cols=cols, code_itemsize=itemsize,
+        dims = dict(rows=self.num_rows, cols=cols, code_itemsize=itemsize,
                     num_models=self.num_models, num_leaves=spec.num_leaves,
                     hist_bins=spec.hist_bins or spec.num_bins_padded,
                     slots=spec.hist_slots,
@@ -530,7 +535,11 @@ class GBDT:
     def _setup_stream(self, config: Config, codes: np.ndarray) -> None:
         """The host shard store of the (possibly bundled) codes, in the
         geometry ``_resolve_residency`` chose, pinned on the card, and its
-        prefetcher (gbdt.py:511-556 there)."""
+        prefetcher (gbdt.py:511-556 there). Under data and voting ``codes``
+        is this rank's row block (``_world_codes``, its tail padding rows
+        zero and never included): at the JAX package's geometry shard ``i``
+        is, byte for byte, the device-``r`` sub-block of the JAX store's
+        interleaved shard ``i`` (``HostShardStore(n_devices=D)``)."""
         from ..ops.stream import HostShardStore, ShardPrefetcher, log_store
         from ..robustness.chaos import maybe_corrupt_shard_from_env
         store = HostShardStore(codes, num_cols=codes.shape[1],
@@ -790,20 +799,14 @@ class GBDT:
         return self._gather_rows(self.score)[:, real]
 
     def _refuse_in_world(self, config: Config) -> None:
-        """What a world of more than one process does not run yet."""
+        """What a world of more than one process does not run: the JAX
+        package's own refusal."""
         if config.linear_tree:
             # the JAX package's own reason (gbdt.py:717-721 there)
             Log.fatal("linear_tree=true is single-device for now (%d "
                       "devices requested): the per-leaf moment accumulation "
                       "is not wired through the mesh collectives yet",
                       self.pctx.num_devices)
-        if config.checkpoint_dir or config.resume_from:
-            self._unported_in_world("checkpoint/resume")
-
-    def _unported_in_world(self, what: str) -> None:
-        Log.fatal("%s across %d processes (tree_learner=%s) is not ported "
-                  "to lightgbm_tpu_torch yet (ROADMAP A16b)", what,
-                  self.pctx.num_devices, self.pctx.strategy)
 
     def _ingest_device(self, train_set: ConstructedDataset) -> torch.Tensor:
         """The deferred raw rows binned on the device (``ops/ingest.py``,
@@ -1508,14 +1511,25 @@ class GBDT:
 
     # ------------------------------------------------------ checkpoint
 
+    def _world_rows_host(self, t: torch.Tensor) -> np.ndarray:
+        """A ``[..., num_rows]`` per-row tensor as the world's padded layout
+        ``[..., num_data_padded]`` on the host (an all-gather of the ranks'
+        blocks under data / voting; the tensor itself otherwise)."""
+        if self._row_sharded:
+            t = self._gather_rows(t)
+        return t.cpu().numpy().astype(np.float32)
+
     def checkpoint_state(self) -> Dict:
         """Every array and counter an iteration reads or writes, as host
         values of builtins and numpy (gbdt.py:2153-2184 there): scores, the
         bagging mask, the raw threefry key, the forest as one dict of
         arrays per tree, the leaf counts, the counters and the valid
-        scores. One device: ``n_devices`` 1, ``tree_learner`` serial."""
-        if self.pctx.multi_process:
-            self._unported_in_world("checkpoint/resume")
+        scores, with the world it was written in (``n_devices``,
+        ``tree_learner``, ``block_layout``). Per-row state is the world's
+        padded layout on every rank: in a world the ranks' blocks are
+        all-gathered (a collective, so every rank calls this at the same
+        boundary), so each rank's gang shard holds the global scores and a
+        resume at another world size re-lays them out from any one shard."""
         def tree_dict(t: TreeArrays) -> Dict:
             return {f: None if a is None else a.cpu().numpy()
                     for f, a in zip(t._fields, t)}
@@ -1525,14 +1539,15 @@ class GBDT:
             "mutations": int(self.mutations_),
             "consecutive_skips": int(self._consecutive_skips),
             "num_data": int(self.num_data),
-            "num_data_padded": int(self.num_data),
+            "num_data_padded": int(self.num_data_padded),
             "num_models": int(self.num_models),
-            "n_devices": 1,
-            "tree_learner": "serial",
-            "block_layout": None,
+            "n_devices": int(self.pctx.num_devices),
+            "tree_learner": self.pctx.strategy,
+            "block_layout": (None if self._block_counts is None
+                             else list(self._block_counts)),
             "init_score_value": float(self.init_score_value),
-            "score": self.score.cpu().numpy().astype(np.float32),
-            "bag_mask": self.bag_mask.cpu().numpy().astype(np.float32),
+            "score": self._world_rows_host(self.score),
+            "bag_mask": self._world_rows_host(self.bag_mask),
             "rng_key": np.asarray(self._rng_key, np.uint32),
             "models": [[tree_dict(t) for t in it_trees]
                        for it_trees in self.models],
@@ -1544,30 +1559,52 @@ class GBDT:
 
     def restore_checkpoint_state(self, state: Dict) -> None:
         """Replay a snapshot into this booster (gbdt.py:2186-2290 there).
-        A snapshot of another mesh or learner, shape or dataset is refused.
+        A snapshot of another world size is refused loudly unless
+        ``tpu_reshard_on_resume`` (and, for a gang directory, ``elastic``)
+        allows the re-layout: the state is the world's (scores and masks in
+        the padded layout of all rows, trees replicated), so its real rows
+        are laid out onto this world's row blocks and this rank takes its
+        block. A strategy change at the same world size, a pre-partitioned
+        snapshot at another, and another shape or dataset are refused.
         Scores, valid scores and the bagging mask are copied into the
         booster's buffers (captured graphs replay fixed addresses), and the
         next iteration runs as a booster's first: eagerly, then captured."""
-        if self.pctx.multi_process:
-            self._unported_in_world("checkpoint/resume")
+        D = int(self.pctx.num_devices)
         saved_d = state.get("n_devices")
-        if saved_d is not None and int(saved_d) != 1:
-            Log.fatal(
-                "checkpoint/mesh mismatch: the snapshot was written on %d "
-                "device(s) (tree_learner=%s) but this booster runs on 1 "
-                "(serial) — sharded training state does not resume across "
-                "device counts, and lightgbm_tpu_torch trains on one card",
-                int(saved_d), state.get("tree_learner", "?"))
+        reshard = saved_d is not None and int(saved_d) != D
+        if reshard:
+            if not self.config.tpu_reshard_on_resume:
+                Log.fatal(
+                    "checkpoint/mesh mismatch: the snapshot was written on "
+                    "%d device(s) (tree_learner=%s) but this booster runs "
+                    "on %d (%s) — sharded training state does not resume "
+                    "across device counts. Rerun on the original world, or "
+                    "set tpu_reshard_on_resume=true to re-lay the global "
+                    "state out deliberately", int(saved_d),
+                    state.get("tree_learner", "?"), D, self.pctx.strategy)
+            if state.get("block_layout") or self._block_counts is not None:
+                Log.fatal(
+                    "tpu_reshard_on_resume: pre-partitioned snapshots hold "
+                    "per-process row blocks and cannot re-shard — resume on "
+                    "the original process count")
+            Log.warning("tpu_reshard_on_resume: re-laying out checkpoint "
+                        "state written on %d device(s) onto %d (%s)",
+                        int(saved_d), D, self.pctx.strategy)
         saved_tl = state.get("tree_learner")
-        if saved_tl is not None and saved_tl != "serial":
+        if saved_tl is not None and saved_tl != self.pctx.strategy \
+                and not reshard:
             Log.fatal(
                 "checkpoint/learner mismatch: the snapshot was written "
-                "under tree_learner=%s but this booster runs serial on the "
-                "same device count — resume needs the same tree_learner",
-                saved_tl)
-        for name, mine in (("num_data", self.num_data),
-                           ("num_models", self.num_models),
-                           ("num_data_padded", self.num_data)):
+                "under tree_learner=%s but this booster runs %s on the "
+                "same device count — resume needs the same tree_learner "
+                "(a strategy change is only honored through an elastic "
+                "reshard: device count change + tpu_reshard_on_resume=true)",
+                saved_tl, self.pctx.strategy)
+        checks = [("num_data", self.num_data),
+                  ("num_models", self.num_models)]
+        if not reshard:
+            checks.append(("num_data_padded", self.num_data_padded))
+        for name, mine in checks:
             if int(state[name]) != int(mine):
                 Log.fatal("checkpoint/booster mismatch: %s is %d in the "
                           "snapshot but %d here — resume needs the same "
@@ -1580,12 +1617,24 @@ class GBDT:
                       "fingerprint differs) — a shape-compatible but "
                       "different dataset would silently corrupt the resumed "
                       "model")
+
+        def local_rows(arr) -> np.ndarray:
+            # the world's padded layout -> this rank's block; under a
+            # reshard the real rows (at the head: pre-partitioned layouts
+            # were refused above) are laid out anew, padding zero (padding
+            # rows carry no signal: they are never included)
+            arr = np.asarray(arr, np.float32)
+            if arr.shape[-1] != self.num_data_padded:
+                arr = self._row_layout(arr[..., :self.num_data])
+            r0 = self._row0
+            return np.ascontiguousarray(arr[..., r0:r0 + self.num_rows])
+
         dev = self.device
 
         def put(a):
             return torch.as_tensor(np.asarray(a), device=dev)
-        self.score.copy_(put(np.asarray(state["score"], np.float32)))
-        self.bag_mask.copy_(put(np.asarray(state["bag_mask"], np.float32)))
+        self.score.copy_(put(local_rows(state["score"])))
+        self.bag_mask.copy_(put(local_rows(state["bag_mask"])))
         self._rng_key = tuple(int(w) for w in np.asarray(state["rng_key"]))
         self.models = [[TreeArrays(**{f: None if a is None else put(a)
                                       for f, a in t.items()})

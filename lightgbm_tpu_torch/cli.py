@@ -13,6 +13,14 @@ Training and prediction run on the card unless ``device=cpu`` is given.
 detection), and ``two_round=true`` streams a text file in two passes.
 The telemetry directory and ``dump_snapshot`` write the port's
 observability registry at the end of training.
+
+Exit codes a supervisor (``robustness/supervisor.py``) reads: 142 the hang
+watchdog's abort (``robustness/watchdog.py``), 143 a checkpoint written on
+SIGTERM/SIGINT (in a world the ranks agree on the boundary through the
+store and every rank writes its shard), 144 a corrupt stream shard, 145
+comm loss (a peer rank died or stopped answering; ``PeerLostError`` names
+it). In a world these leave through one ``os._exit`` (:func:`_leave`), so
+the interpreter's teardown never waits on a dead peer's process group.
 """
 from __future__ import annotations
 
@@ -28,11 +36,9 @@ from .engine import train as train_fn
 from .io.file_io import load_data_file
 from .ops.stream import EXIT_SHARD_CORRUPT, ShardCorruptionError
 from .robustness.retry import CommTimeoutError, PeerLostError
+from .robustness.supervisor import EXIT_SIGTERM_CHECKPOINT
+from .robustness.watchdog import EXIT_COMM_LOST
 from .utils.log import Log
-
-# a peer rank died or stopped answering (lightgbm_tpu/robustness/
-# watchdog.py:53 there): the typed exit a supervisor attributes to a peer
-EXIT_COMM_LOST = 145
 
 
 # every task value main() dispatches on (bare-subcommand whitelist derives
@@ -146,11 +152,12 @@ def run_train(params: Dict) -> None:
                 pass
 
         def _signal_checkpoint(env):
-            if stop_signals:
+            if _world_agrees_to_stop(bool(stop_signals)):
                 path = env.model.save_checkpoint()
-                Log.warning("checkpoint %s written on signal %d; exiting",
-                            path, stop_signals[0])
-                raise SystemExit(143)
+                Log.warning("checkpoint %s written on signal %s; exiting",
+                            path, stop_signals[0] if stop_signals
+                            else "of a peer rank")
+                raise SystemExit(EXIT_SIGTERM_CHECKPOINT)
         _signal_checkpoint.order = 50
         callbacks.append(_signal_checkpoint)
     if config.snapshot_freq > 0:
@@ -180,23 +187,21 @@ def run_train(params: Dict) -> None:
             Log.warning("stream-shard corruption detected: %s — exiting %d "
                         "(a supervisor relaunch with resume_from=auto "
                         "self-heals)", e, EXIT_SHARD_CORRUPT)
-            raise SystemExit(EXIT_SHARD_CORRUPT) from e
+            _leave(EXIT_SHARD_CORRUPT, e)
         except CommTimeoutError as e:
             # comm loss (lightgbm_tpu/cli.py:192-217): a peer rank died or
             # stopped answering; PeerLostError names it
-            Log.warning("comm loss: %s — exiting %d (%s)", e,
-                        EXIT_COMM_LOST,
+            Log.warning("comm loss: %s — exiting %d (%s; the fleet "
+                        "supervisor relaunches the gang from the newest "
+                        "consistent manifest)", e, EXIT_COMM_LOST,
                         f"lost peer rank {e.rank}"
                         if isinstance(e, PeerLostError)
                         else "collective deadline expired")
-            import torch.distributed as dist
-            if dist.is_available() and dist.is_initialized():
-                # the interpreter's shutdown would wait on the dead peer's
-                # group: leave at once with the typed status
-                sys.stdout.flush()
-                sys.stderr.flush()
-                os._exit(EXIT_COMM_LOST)
-            raise SystemExit(EXIT_COMM_LOST) from e
+            _leave(EXIT_COMM_LOST, e)
+        except SystemExit as e:
+            if e.code == EXIT_SIGTERM_CHECKPOINT:
+                _leave(EXIT_SIGTERM_CHECKPOINT, e)
+            raise
     finally:
         if saved_handlers:
             # past the training loop nothing checks stop_signals — restore
@@ -214,6 +219,43 @@ def run_train(params: Dict) -> None:
         if config.telemetry_dir:
             obs.write_snapshot(os.path.join(config.telemetry_dir,
                                             f"snapshot_{os.getpid()}.json"))
+
+
+def _in_world() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized() \
+        and dist.get_world_size() > 1
+
+
+def _leave(code: int, exc: BaseException) -> None:
+    """The one way the train task leaves with a supervisor's exit code: in
+    a world through ``os._exit`` (the interpreter's teardown would wait on
+    the process group, and a dead peer's never answers), else
+    ``SystemExit``."""
+    if _in_world():
+        from . import observability as obs
+        try:
+            obs.flush()
+        except Exception as e:                               # noqa: BLE001
+            Log.warning("telemetry flush on exit failed: %s: %s",
+                        type(e).__name__, e)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
+    raise SystemExit(code) from exc
+
+
+def _world_agrees_to_stop(signalled: bool) -> bool:
+    """Whether this batch boundary is where training stops on a signal.
+    One process: whether it got one. In a world every rank must checkpoint
+    at the same boundary (the checkpoint all-gathers the scores and the
+    gang commits one epoch), so the ranks exchange their flags through the
+    store at every boundary (host only, no device read) and stop when any
+    rank got a signal."""
+    if not _in_world():
+        return signalled
+    from .parallel.comm import host_allgather
+    return any(host_allgather(signalled, "signal_stop", timeout_ms=120_000))
 
 
 def run_predict(params: Dict) -> None:

@@ -883,17 +883,17 @@ def resolve_device(config: "Config"):
 # and tpu_stream_verify (out-of-core streaming: the budget of the auto
 # decision, the shard rows and the CRC check, ops/stream.py) and
 # tpu_ingest, tpu_ingest_chunk_rows and tpu_ingest_prefetch (device
-# ingest) and tpu_mesh_axis (the constraint of tree_learner=auto); a
-# resident pass is compacted and a row block is padded to 256 rows, so
-# neither tpu_compact_frac nor tpu_hist_chunk has a meaning here, and a
-# checkpoint resumes on one card, so neither has tpu_reshard_on_resume.
+# ingest), tpu_mesh_axis (the constraint of tree_learner=auto) and
+# tpu_reshard_on_resume (a checkpoint of another world size re-laid-out onto
+# this one's row blocks, boosting/gbdt.py); a resident pass is compacted and
+# a row block is padded to 256 rows, so neither tpu_compact_frac nor
+# tpu_hist_chunk has a meaning here.
 TPU_ONLY_KEYS = (
     "tpu_compact_frac",
     "tpu_hist_chunk", "tpu_hist_hilo", "tpu_hist_f64", "tpu_hist_kernel",
     "tpu_incremental_partition", "tpu_efb_unpack",
     "tpu_time_tag", "tpu_profile_dir", "tpu_profile_iters",
-    "tpu_cost_analysis",
-    "tpu_reshard_on_resume", "tpu_linear_warn_fallback",
+    "tpu_cost_analysis", "tpu_linear_warn_fallback",
 )
 
 
@@ -908,11 +908,16 @@ def check_port_supported(config: "Config") -> None:
     numerical and categorical
     features, resident data binned on the host or the device
     (``tpu_ingest``) or data streamed from host shards
-    (``tpu_residency=stream|auto``), batches of iterations
-    (``tree_batch``), single-device checkpoint/resume (``checkpoint_dir``,
-    ``resume_from``) and ``nan_policy``. Each refusal names the ROADMAP
-    queue item that will port it; none of these settings is ever silently
-    ignored."""
+    (``tpu_residency=stream|auto``; under data/voting each rank streams
+    its own row block), batches of iterations (``tree_batch``),
+    checkpoint/resume (``checkpoint_dir``, ``resume_from``; gang-consistent
+    in a world, and across world sizes under ``tpu_reshard_on_resume`` and
+    ``elastic``), ``nan_policy``, the hang watchdog (``hang_timeout_s``,
+    ``hang_median_factor``, ``hang_action``) and the heartbeat leases
+    (``gang_heartbeat_interval_s``, ``gang_lease_timeout_s``, armed in a
+    world; ``engine.train``). Each refusal names its reason or the ROADMAP
+    queue item that will port it; the TPU-only keys are logged as
+    meaningless; none of these settings is ever silently ignored."""
     if config.linear_tree and config.tree_learner != "serial":
         # the JAX package's own refusal (boosting/gbdt.py:712-732): the
         # moments are not reduced across devices

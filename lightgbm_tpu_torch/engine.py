@@ -12,9 +12,22 @@ force batches of one, with the JAX package's warnings. Checkpoints
 after the record callbacks, when a batch crosses an interval boundary, at
 the JAX engine's iterations for the same ``tree_batch``; ``resume_from``
 (a file, a directory, or ``"auto"``: the newest snapshot of
-``checkpoint_dir`` that verifies) resumes before the loop
-(``lightgbm_tpu/engine.py:160-226``). Left out (ROADMAP A17b): the hang
-watchdog, the gang lease, the profiler window and telemetry.
+``checkpoint_dir`` that verifies, or in a gang directory the newest epoch
+every rank verifies, ``robustness/distributed.py``) resumes before the
+loop (``lightgbm_tpu/engine.py:160-226``).
+
+Fault tolerance (``lightgbm_tpu/engine.py:209-214``, ``:315-416``):
+``LGBM_TPU_CHAOS_HANG`` adds a one-shot hang callback; in a world with
+``gang_lease_timeout_s > 0`` each rank beats a heartbeat lease in the
+store, and before each batch beats, then probes the peers' leases
+(``PeerLostError`` names a dead one before the batch's collectives);
+``hang_timeout_s > 0`` arms the hang watchdog, beaten after each batch,
+with the lease as its attribution. Beats and probes are host work at batch
+boundaries, outside every captured graph, with no device read. An error
+from a collective a dead peer broke is mapped onto the typed comm-loss
+errors naming the rank (``comm_loss_error``); the watchdog stops and the
+lease is withdrawn on every exit path. Left out (ROADMAP A17b
+observability): the profiler window and the cost reports.
 """
 from __future__ import annotations
 
@@ -117,19 +130,33 @@ def train(params: Dict[str, Any], train_set: Dataset,
     # ---- checkpoint/resume (robustness/checkpoint.py) ----------------------
     resume_from = resume_from or config.resume_from or None
     start_iter = 0
-    if resume_from and gbdt.pctx.multi_process:
-        gbdt._unported_in_world("checkpoint/resume")
     if resume_from:
         if prev_booster is not None:
             Log.fatal("resume_from cannot be combined with init_model — a "
                       "checkpoint already contains the full training state")
         resolved = resume_from
         if resume_from == "auto":
-            # walk back to the newest snapshot that verifies, so a corrupt
-            # latest costs one interval, not the run
+            from .robustness import distributed as _dist
             from .robustness.checkpoint import CheckpointManager
-            resolved = CheckpointManager(config.checkpoint_dir) \
-                .latest_verified() if config.checkpoint_dir else None
+            resolved = None
+            if config.checkpoint_dir and _dist.list_manifests(
+                    config.checkpoint_dir):
+                # a gang directory: every rank resolves the newest epoch
+                # all of them verify (or falls back a whole epoch
+                # together); a shrunk or single-process resume reads it
+                # without the agreement round
+                gang = _dist.gang_env()
+                client, rank, world = gang if gang is not None \
+                    else (None, 0, 1)
+                resolved = _dist.GangCheckpointCoordinator(
+                    config.checkpoint_dir, client=client, rank=rank,
+                    world=world, keep_last_n=config.checkpoint_keep_last_n,
+                    elastic=config.elastic).resolve_resume()
+            elif config.checkpoint_dir:
+                # walk back to the newest snapshot that verifies, so a
+                # corrupt latest costs one interval, not the run
+                resolved = CheckpointManager(
+                    config.checkpoint_dir).latest_verified()
             if resolved is None:
                 Log.info("resume_from=auto: no checkpoint under %r — "
                          "starting fresh", config.checkpoint_dir)
@@ -142,6 +169,11 @@ def train(params: Dict[str, Any], train_set: Dataset,
                             start_iter, n_rounds)
 
     callbacks = list(callbacks or [])
+    # a one-shot hang for the chaos harness; None without its variable
+    from .robustness.chaos import maybe_hang_callback
+    hang_cb = maybe_hang_callback()
+    if hang_cb is not None:
+        callbacks.append(hang_cb)
     if config.checkpoint_dir and config.checkpoint_interval > 0:
         # interval-crossing, not modulo: under tree_batch > 1 the callback
         # runs at batch boundaries, which may skip an exact multiple
@@ -195,17 +227,28 @@ def train(params: Dict[str, Any], train_set: Dataset,
         tree_batch = 1
     metric_freq = max(config.metric_freq, 1)
     best_iteration = 0
+    lease, watchdog = _arm_fault_detection(config, start_iter)
     try:
         it = start_iter
         while it < n_rounds:
             k = min(tree_batch, n_rounds - it)
             for cb in before:
                 cb(CallbackEnv(booster, params, it, 0, n_rounds, None))
+            if lease is not None:
+                # beat first (the lease advances before this rank goes into
+                # a possibly long batch), then the pre-batch probe: a dead
+                # peer raises PeerLostError before the collectives
+                lease.beat()
+                lease.probe()
             if fobj is not None:
                 gbdt.train_one_iter_custom(fobj)
             else:
                 gbdt.train_batch(k)
             it_end = it + k
+            if watchdog is not None:
+                watchdog.beat(it_end)
+            if lease is not None:
+                lease.beat()
             eval_results = []
             if gbdt.valid_sets or gbdt.config.is_training_metric:
                 # eval when the batch crossed a metric_freq boundary
@@ -223,6 +266,24 @@ def train(params: Dict[str, Any], train_set: Dataset,
     except EarlyStopException as e:
         best_iteration = e.best_iteration + 1
         booster.best_score = e.best_score
+    except Exception as e:
+        # a peer that died inside a batch (after the probe) breaks the
+        # collective: gloo's reset pair, the store's network error. Named
+        # from the leases, it leaves the command line with exit 145
+        from .robustness.retry import CommRetryError
+        if gbdt.pctx.multi_process and not isinstance(e, CommRetryError):
+            from .robustness.distributed import comm_loss_error
+            typed = comm_loss_error(e, lease)
+            if typed is not None:
+                raise typed from e
+        raise
+    finally:
+        if watchdog is not None:
+            watchdog.stop()
+        if lease is not None:
+            from .robustness.distributed import set_active_lease
+            set_active_lease(None)
+            lease.withdraw()
 
     booster._finalize()
     if best_iteration:
@@ -233,6 +294,45 @@ def train(params: Dict[str, Any], train_set: Dataset,
     if not keep_training_booster:
         booster.free_dataset()
     return booster
+
+
+def _arm_fault_detection(config: Config, start_iter: int):
+    """``(lease, watchdog)`` of this run, either None when off: the
+    heartbeat lease in a world under ``gang_lease_timeout_s > 0``, and the
+    hang watchdog under ``hang_timeout_s > 0`` with the lease's
+    attribution (``lightgbm_tpu/engine.py:315-348``)."""
+    from . import observability as obs
+    from .robustness import distributed as _dist
+    lease = None
+    if config.gang_lease_timeout_s > 0:
+        gang = _dist.gang_env()
+        if gang is not None:
+            client, rank, world = gang
+            lease = _dist.HeartbeatLease(
+                client=client, rank=rank, world=world,
+                lease_timeout_s=config.gang_lease_timeout_s,
+                interval_s=config.gang_heartbeat_interval_s)
+            lease.beat(force=True)
+            _dist.set_active_lease(lease)
+            Log.info("gang heartbeat lease armed: rank %d/%d, interval "
+                     "%.1fs, lease timeout %.1fs", rank, world,
+                     config.gang_heartbeat_interval_s,
+                     config.gang_lease_timeout_s)
+    watchdog = None
+    if config.hang_timeout_s > 0:
+        from .robustness.watchdog import HangWatchdog
+        watchdog = HangWatchdog(
+            timeout_s=config.hang_timeout_s,
+            median_factor=config.hang_median_factor,
+            action=config.hang_action,
+            dump_dir=(obs.telemetry_dir() or config.checkpoint_dir or "."),
+            attribution_fn=lease.attribution if lease is not None else None)
+        watchdog.beat(start_iter)
+        watchdog.start()
+        Log.info("hang watchdog armed: timeout %.1fs, median factor %g, "
+                 "action=%s", config.hang_timeout_s,
+                 config.hang_median_factor, config.hang_action)
+    return lease, watchdog
 
 
 def _run_feval(feval, gbdt):

@@ -745,7 +745,11 @@ class StreamedGrower(TreeGrower):
     The host drives the shard loop, so the loop is eager: :meth:`run_waves`
     reads the grower's flags once per wave (``flag_reads``), the JAX
     package's ``_fetch_wave_flags``. A tail shard's padding rows are never
-    routed or counted (``HostShardStore.real_rows``)."""
+    routed or counted (``HostShardStore.real_rows``). Under data-parallel
+    the store holds this rank's row block and the wave reduces the
+    accumulator's int64 sums over the ranks before the conversion; under
+    voting the local histograms are converted at the world's scale and the
+    strategy reduces the voted columns, as in the resident wave."""
 
     def __init__(self, stream, is_cat: torch.Tensor, num_bins: torch.Tensor,
                  missing_code: torch.Tensor, default_bin: torch.Tensor,
@@ -808,7 +812,14 @@ class StreamedGrower(TreeGrower):
         with record_function("wave.stream"):
             self.acc.zero_()
             self._shard_pass(slot_of_leaf)
-            new_hist = comm.reduce_hist(self.acc.finalize(self.scales))
+            if self.acc_block is not None:
+                # data-parallel: the carried integer sums, reduced over the
+                # ranks before their one conversion, as the resident wave
+                # does (exact, so the text is the serial one on any floats)
+                new_hist = comm.reduce_sums(self.acc, self.acc_block) \
+                    .finalize(self.scales)
+            else:
+                new_hist = comm.reduce_hist(self.acc.finalize(self.scales))
         with record_function("wave.split"):
             table, map_mask, p, q, n_apply = _apply_wave_splits(
                 st, new_hist, leaf_of_slot, live, nl, self.bm, spec, comm,

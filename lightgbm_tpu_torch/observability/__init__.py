@@ -4,7 +4,8 @@ The part of ``lightgbm_tpu/observability/__init__.py`` (:54-201) that the
 serving subsystem and its tests call: ``clock``, the process-wide
 ``MetricsRegistry`` (metrics.py) and ``SpanTracer`` (tracer.py),
 ``configure``, ``span`` / ``event`` / ``inc``, ``snapshot``,
-``write_snapshot``, ``flush`` and ``reset_for_tests``. The JAX package's
+``write_snapshot``, ``flush``, ``telemetry_dir`` and ``reset_for_tests``
+(the hang watchdog dumps the snapshot too). The JAX package's
 cost reports, device-memory accounting, perf ledger, profiler window and
 phase breakdown are not ported yet (ROADMAP A17b), so ``snapshot()`` holds
 the registry and the tracer's bookkeeping only.
@@ -84,6 +85,11 @@ def inc(name: str, n: int = 1) -> None:
 
 
 # ------------------------------------------------------------------- export
+
+def telemetry_dir() -> Optional[str]:
+    """The configured telemetry directory (None: not configured)."""
+    return _state["dir"]
+
 
 def trace_path() -> Optional[str]:
     d = _state["dir"]

@@ -31,7 +31,16 @@ key-value store) and :func:`init_distributed` (a ``TCPStore`` on the
 machine list's first entry, then ``init_process_group`` with NCCL on the
 card or gloo on the CPU; a default group the caller made is used as it
 stands). :class:`ParallelContext` and :func:`make_parallel_context` hold
-the group, rank, world size and device a booster trains with.
+the group, rank, world size and device a booster trains with. For the
+fault-tolerance layer (``robustness/distributed.py``):
+:func:`distributed_store` and :func:`world_rank_and_size` (the live
+world's store, through the chaos harness's wrapper when installed),
+:func:`arrive_and_wait` (a barrier on the store, which has none),
+:func:`leave_last` and :func:`store_loss_error`: rank 0 hosts the
+``TCPStore``, so it leaves every exchange last (its process ending must
+not take the store from a peer still polling), and when it dies every
+store call of a survivor fails at once, each such failure becoming
+``PeerLostError`` naming rank 0 (exit 145), never a hang.
 
 No fallback: a collective on an NCCL group never stages through the host.
 A CUDA tensor under a gloo group (a group the caller chose) is staged
@@ -903,21 +912,106 @@ def local_device_index(config, rank: int) -> int:
     return on_host.index(rank) if rank in on_host else int(rank)
 
 
-_host_allgather_seq = [0]
+class _PerThreadSeq:
+    """The host_allgather sequence counter, kept per thread (``comm.py:904``
+    there). A world has one process per rank, so module state advances in
+    lockstep; the thread-per-rank gang tests over one in-process store need
+    the same isolation, or concurrent ranks take each other's sequence
+    numbers and the exchange keys never meet. Indexable like a list."""
+
+    def __init__(self):
+        import threading
+        self._local = threading.local()
+
+    def _lst(self):
+        lst = getattr(self._local, "lst", None)
+        if lst is None:
+            lst = self._local.lst = [0]
+        return lst
+
+    def __getitem__(self, i):
+        return self._lst()[i]
+
+    def __setitem__(self, i, value):
+        self._lst()[i] = value
+
+
+_host_allgather_seq = _PerThreadSeq()
 # the key-value store init_distributed created (None: use the default
 # group's own store)
 _store: dict = {}
+# fault injection (robustness/chaos.install_kv_chaos): when set, every store
+# this module hands out is wrapped before use
+_client_wrapper = None
+
+# rank 0 serves the world's TCPStore (init_distributed); when it dies every
+# store call of a survivor fails at once
+STORE_HOST_RANK = 0
+
+# what a store call raises when the TCPStore's host is gone: torch's
+# DistNetworkError (its class, or in older builds its message on a bare
+# RuntimeError). A gloo collective's "connection reset by peer" is not one:
+# it names no rank, and the leases attribute it
+_STORE_LOSS_SIGNATURES = (
+    "connection was likely closed", "did the remote server shutdown")
 
 
 def distributed_store():
     """The store of the world: the one :func:`init_distributed` made, else
-    the default process group's; None without a group."""
+    the default process group's; None without a group. Routed through the
+    fault-injection wrapper when one is installed."""
     dist = _dist()
     if not (dist.is_available() and dist.is_initialized()):
         return None
-    if "store" in _store:
-        return _store["store"]
-    return dist.distributed_c10d._get_default_store()
+    store = _store.get("store") or \
+        dist.distributed_c10d._get_default_store()
+    return wrap_store(store)
+
+
+def wrap_store(store):
+    """``store`` through the installed fault-injection wrapper, if any."""
+    if store is not None and _client_wrapper is not None:
+        return _client_wrapper(store)
+    return store
+
+
+def world_rank_and_size():
+    """``(rank, world)`` of the live default group; ``(0, 1)`` without one."""
+    dist = _dist()
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
+def is_store_loss(exc: BaseException) -> bool:
+    """True when ``exc`` (or an exception it was raised from) is the
+    store's connection failing: the store's host, rank 0, is gone. A
+    timeout waiting on a key is not (the store answered)."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        if type(exc).__name__ == "DistNetworkError":
+            return True
+        msg = str(exc).lower()
+        if any(sig in msg for sig in _STORE_LOSS_SIGNATURES):
+            return True
+        exc = exc.__cause__ or exc.__context__
+    return False
+
+
+def store_loss_error(exc: BaseException, what: str):
+    """The typed error of a store call that failed because the store's
+    host is gone: ``PeerLostError`` naming rank 0 (exit 145 at the top),
+    never a hang or a bare traceback. None when ``exc`` is not that."""
+    if not is_store_loss(exc):
+        return None
+    from ..robustness.retry import PeerLostError
+    from .. import observability as obs
+    obs.inc("fault.peer_lost")
+    detail = f"{type(exc).__name__}: {exc}".splitlines()[0][:300]
+    return PeerLostError(
+        f"{what}: the key-value store is unreachable — its host, peer rank "
+        f"{STORE_HOST_RANK}, is lost ({detail})", rank=STORE_HOST_RANK)
 
 
 def host_allgather(obj, tag: str, timeout_ms: int = 600_000, *,
@@ -956,9 +1050,16 @@ def host_allgather(obj, tag: str, timeout_ms: int = 600_000, *,
     obs.inc("comm.host_allgather")
     with obs.span("comm", op="host_allgather", tag=tag, seq=seq, rank=rank,
                   world=world):
-        retry_call(lambda: client.set(f"{key}/{rank}", payload),
-                   what=f"host_allgather set tag={tag!r} seq={seq} "
-                        f"rank={rank}")
+        try:
+            retry_call(lambda: client.set(f"{key}/{rank}", payload),
+                       what=f"host_allgather set tag={tag!r} seq={seq} "
+                            f"rank={rank}")
+        except Exception as e:
+            typed = store_loss_error(e, f"host_allgather tag={tag!r} "
+                                        f"seq={seq} rank={rank}")
+            if typed is not None:
+                raise typed from e
+            raise
         per_attempt = datetime.timedelta(
             milliseconds=max(1, timeout_ms // comm_attempts()))
         out = []
@@ -976,6 +1077,10 @@ def host_allgather(obj, tag: str, timeout_ms: int = 600_000, *,
                     _get, what=f"host_allgather get tag={tag!r} seq={seq} "
                                f"rank={rank}<-{r}"))
             except Exception as e:
+                typed = store_loss_error(e, f"host_allgather tag={tag!r} "
+                                            f"seq={seq} rank={rank}<-{r}")
+                if typed is not None:
+                    raise typed from e
                 obs.inc("comm.timeouts")
                 obs.inc("fault.peer_lost")
                 raise PeerLostError(
@@ -986,18 +1091,85 @@ def host_allgather(obj, tag: str, timeout_ms: int = 600_000, *,
                     f"({e.__class__.__name__}: {e})", rank=r) from e
         # every rank must have read every shard before any key disappears
         done = f"{key}/done"
-        client.add(done, 1)
-        deadline = time.monotonic() + timeout_ms / 1e3
-        while client.add(done, 0) < world:
-            if time.monotonic() > deadline:
-                obs.inc("comm.barrier_failures")
-                Log.warning("host_allgather tag=%r seq=%d rank=%d: cleanup "
-                            "barrier timed out; leaving key %s/%d", tag,
-                            seq, rank, key, rank)
-                return out
-            time.sleep(0.001)
-        client.delete_key(f"{key}/{rank}")
+        what = f"host_allgather tag={tag!r} seq={seq} rank={rank}"
+        try:
+            cycle = arrive_and_wait(client, done, world, timeout_ms,
+                                    what=what)
+        except TimeoutError:
+            obs.inc("comm.barrier_failures")
+            Log.warning("host_allgather tag=%r seq=%d rank=%d: cleanup "
+                        "barrier timed out; leaving key %s/%d", tag, seq,
+                        rank, key, rank)
+            return out
+        try:
+            client.delete_key(f"{key}/{rank}")
+        except Exception as e:
+            typed = store_loss_error(e, what)
+            if typed is not None:
+                raise typed from e
+            raise
+        leave_last(client, f"{key}/left", rank, world, cycle, timeout_ms,
+                   what=what)
         return out
+
+
+def arrive_and_wait(client, key: str, world: int, timeout_ms: int, *,
+                    what: str, probe=None, poll_s: float = 0.001) -> int:
+    """A barrier on the store, which has none: ``add(key, 1)``, then poll
+    ``add(key, 0)`` until the arrivals reach the next multiple of ``world``
+    (a key used again, as thread-per-rank tests do, forms a new barrier).
+    ``probe()`` (a heartbeat lease's, rate-limited) runs between polls and
+    raises ``PeerLostError`` for a peer that died before arriving. A store
+    whose host is gone raises ``PeerLostError`` naming it; past
+    ``timeout_ms`` a ``TimeoutError``. Returns the barrier's cycle (1 the
+    first time a key is used), for :func:`leave_last`."""
+    try:
+        n = client.add(key, 1)
+        cycle = -(-n // world)
+        deadline = time.monotonic() + timeout_ms / 1e3
+        while client.add(key, 0) < cycle * world:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{what}: barrier {key!r} saw fewer than "
+                                   f"{world} arrivals in {timeout_ms} ms")
+            if probe is not None:
+                probe()
+            time.sleep(poll_s)
+        return cycle
+    except Exception as e:
+        typed = store_loss_error(e, what)
+        if typed is not None:
+            raise typed from e
+        raise
+
+
+def leave_last(client, key: str, rank: int, world: int, cycle: int,
+               timeout_ms: int, *, what: str, probe=None,
+               poll_s: float = 0.001) -> None:
+    """Rank 0 hosts the store and takes it with it when its process ends,
+    so it leaves an exchange last: every other rank marks its last use of
+    the exchange's keys (``add(key, 1)``) and goes on; rank 0 returns once
+    all of them have (the ``cycle``-th time ``key`` is used), so that it
+    never ends while a peer still polls a barrier. A peer lost in between
+    is not waited for past ``timeout_ms`` (logged)."""
+    try:
+        if rank != 0:
+            client.add(key, 1)
+            return
+        deadline = time.monotonic() + timeout_ms / 1e3
+        while client.add(key, 0) < cycle * (world - 1):
+            if time.monotonic() > deadline:
+                Log.warning("%s: rank 0 stopped waiting for the other "
+                            "ranks to leave %r after %d ms", what, key,
+                            timeout_ms)
+                return
+            if probe is not None:
+                probe()
+            time.sleep(poll_s)
+    except Exception as e:
+        typed = store_loss_error(e, what)
+        if typed is not None:
+            raise typed from e
+        raise
 
 
 def init_distributed(config) -> bool:

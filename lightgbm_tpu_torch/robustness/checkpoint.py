@@ -1,5 +1,6 @@
 """Atomic checkpoint store for booster training state; port of
-``lightgbm_tpu/robustness/checkpoint.py`` for one device.
+``lightgbm_tpu/robustness/checkpoint.py`` (a world's gang-consistent
+epochs are ``robustness/distributed.py``, in the same envelope).
 
 Layout: one file per snapshot inside ``checkpoint_dir``,
 ``ckpt_0000000001.pkl``, ``ckpt_0000000002.pkl``, ... with increasing ids
@@ -16,7 +17,8 @@ endian), then the pickled payload. ``load`` checks the checksum before
 unpickling; ``latest_verified`` walks back to the newest snapshot that
 verifies (``resume_from="auto"``). Each package's ``--verify`` reads the
 other's files: ``python -m lightgbm_tpu_torch.robustness.checkpoint
---verify DIR`` audits a directory from the shell.
+--verify DIR`` audits a directory from the shell, a gang directory of
+``robustness/distributed.py`` at the manifest level.
 
 The payload holds builtins and numpy arrays only, never a class of either
 package, and this module unpickles it through a ``find_class`` that admits
@@ -443,9 +445,14 @@ def verify_checkpoint(path: str) -> Tuple[bool, str]:
 def main(argv: Optional[List[str]] = None) -> int:
     """``python -m lightgbm_tpu_torch.robustness.checkpoint --verify
     DIR|FILE``: audit every snapshot's integrity from the shell (safe on a
-    live run's directory). Exit codes: 0 every snapshot verifies; 1 some
-    are corrupt but a verified resume target exists (named on stdout); 2
-    no usable snapshot (none found, or all corrupt)."""
+    live run's directory). A gang directory (``robustness/distributed.py``)
+    is audited at the manifest level too: every listed shard must be
+    present with the crc32 its manifest records, and the resume target is
+    the newest manifest whose whole shard set verifies (a shard without its
+    committed manifest is never one). Exit codes, the JAX package's: 0
+    everything verifies; 1 something is corrupt but a verified resume
+    target exists (named on stdout); 2 nothing usable (none found, or all
+    corrupt)."""
     import argparse
     import sys
     ap = argparse.ArgumentParser(
@@ -456,14 +463,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = ap.parse_args(argv)
 
     target = args.verify
+    manifests = []
     if os.path.isfile(target):
         entries = [(None, target)]
     else:
+        from .distributed import audit_manifest_dir
+        manifests = audit_manifest_dir(target) if os.path.isdir(target) \
+            else []
         entries = CheckpointManager(target).list_checkpoints() \
             if os.path.isdir(target) else []
-        if not entries:
-            print(f"no checkpoints (ckpt_*.pkl) found under {target}",
-                  file=sys.stderr)
+        if not entries and not manifests:
+            print(f"no checkpoints (ckpt_*.pkl) or gang manifests "
+                  f"(manifest_*.json) found under {target}", file=sys.stderr)
             return 2
     newest_ok, n_bad = None, 0
     for _ckpt_id, path in entries:
@@ -474,8 +485,19 @@ def main(argv: Optional[List[str]] = None) -> int:
             newest_ok = path
         else:
             n_bad += 1
+    if manifests:
+        # gang semantics override loose files
+        newest_ok = None
+        for _epoch, path, ok, detail in manifests:
+            print(f"{os.path.basename(path):<24} "
+                  f"{'OK     ' if ok else 'CORRUPT'}  {detail}")
+            if ok:
+                newest_ok = path
+            else:
+                n_bad += 1
     if newest_ok is None:
-        print("no verified snapshot — nothing to resume from",
+        print("no verified %s — nothing to resume from"
+              % ("gang manifest" if manifests else "snapshot"),
               file=sys.stderr)
         return 2
     print(f"resume target: {newest_ok}")

@@ -2,8 +2,8 @@
 worlds of two CPU processes: ``Booster.set_network``, ``LGBM_NetworkInit``
 (the C API), the command line with ``machines`` / ``machine_list_file`` /
 ``local_listen_port`` and its comm-loss exit, distributed bin finding,
-lambdarank under ``is_pre_partition``, and what a world still refuses
-(ROADMAP A16b). The ports of ``tests/test_multihost.py`` and
+lambdarank under ``is_pre_partition``, and what a world refused before
+ROADMAP A16b's streaming and checkpoints were ported. The ports of ``tests/test_multihost.py`` and
 ``test_distributed.py`` of the JAX package.
 
 Ranks run the scripts held below as strings (``_torch_world.run_world``),
@@ -32,7 +32,7 @@ from _torch_world import run_world
 torch.set_num_threads(1)
 
 API_SCRIPT = r'''
-import json, sys
+import json, os, sys
 import numpy as np, torch
 torch.set_num_threads(1)
 spec = json.load(open(sys.argv[1])); rank = int(sys.argv[2])
@@ -77,20 +77,24 @@ b = lgt.train(dict(net, objective="lambdarank", num_leaves=7,
 out["lambdarank"] = b.model_to_string()
 out["block_counts"] = b._gbdt._block_counts
 
-# what a world still refuses, each naming its item
-refused = {}
+# what a world refused before ROADMAP A16b was ported: each now trains
+# (a refusal would be recorded), every rank to the same text
+refused, texts = {}, {}
 for name, extra, kw in (
         ("stream", dict(tree_learner="data", tpu_residency="stream"), {}),
-        ("checkpoint", dict(tree_learner="voting",
+        ("checkpoint", dict(tree_learner="voting", checkpoint_interval=1,
                             checkpoint_dir=spec["ckpt"] + str(rank)), {}),
         ("resume", dict(tree_learner="data"), dict(resume_from="auto"))):
     try:
-        lgt.train(dict(net, objective="binary", **extra),
-                  lgt.Dataset(X, label=y), num_boost_round=1, **kw)
+        texts[name] = lgt.train(dict(net, objective="binary", **extra),
+                                lgt.Dataset(X, label=y), num_boost_round=1,
+                                **kw).model_to_string()
         refused[name] = None
     except LightGBMError as e:
         refused[name] = str(e)
 out["refused"] = refused
+out["texts"] = texts
+out["ckpt_files"] = sorted(os.listdir(spec["ckpt"] + str(rank)))
 out["modules"] = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "lightgbm_tpu"))
 json.dump(out, open(spec["out"].format(rank=rank), "w"))
@@ -258,10 +262,21 @@ def test_lambdarank_under_pre_partition(api_world):
 
 @pytest.mark.parametrize("name", ["stream", "checkpoint", "resume"])
 def test_a_world_refuses_naming_a16b(api_world, name):
-    outs, _, _ = api_world
+    """These refused naming ROADMAP A16b; a world of two now trains them:
+    streamed and resumed (from nothing: a fresh start) data-parallel to the
+    serial text, and voting with a gang checkpoint each rank's directory
+    holds (its shard and the epoch's manifest)."""
+    outs, (X, y), _ = api_world
     for o in outs:
-        msg = o["refused"][name]
-        assert msg is not None and "ROADMAP A16b" in msg, msg
+        assert o["refused"][name] is None, o["refused"][name]
+    assert outs[0]["texts"][name] == outs[1]["texts"][name]
+    if name != "checkpoint":
+        want = _serial(dict(objective="binary"), X, y, 1)
+        assert outs[0]["texts"][name] == want
+    else:
+        for r, o in enumerate(outs):
+            assert o["ckpt_files"] == ["manifest_0000000001.json",
+                                       f"shard_0000000001_r000{r}.pkl"]
 
 
 def test_network_init_trains_a_world_of_two_to_the_serial_text(tmp_path):

@@ -244,8 +244,8 @@ def test_unported_configs_raise_with_roadmap_item(params, tmp_path,
                                                   monkeypatch):
     """These settings were refused naming ROADMAP A16. The distributed
     learners are ported: without a world (one process) each trains to the
-    serial text, as the JAX package collapses one device to serial. In a
-    world of two, the ones still refused name A16b
+    serial text, as the JAX package collapses one device to serial. A
+    world of two trains the ones it refused before A16b was ported
     (``test_torch_multihost.py::test_a_world_refuses_naming_a16b``)."""
     monkeypatch.chdir(tmp_path)
     X, y = _nan_det()
