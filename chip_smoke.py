@@ -56,9 +56,9 @@ Phases (any failure exits non-zero and prints no result line):
    compared on one card; then the same package on the CPU (every kernel's
    plain version) as the reference on a small input, with ``max_bin`` 255
    and with ``max_bin`` 511 (uint16 codes, which must launch the kernel);
-5. profile of the eager loop (the booster's ``_capture`` off): three more
+5. profile of the eager loop (the booster's ``_capture`` off): two more
    iterations of the second run timed on the host
-   clock, three under ``torch.profiler`` (CPU + CUDA): wall time, device
+   clock, two under ``torch.profiler`` (CPU + CUDA): wall time, device
    busy time and idle share, host time of each wave step (the
    ``wave.*`` ranges of ``grower.py``), CUDA launches per iteration, the
    histogram's device time (``hist_kernel`` and ``finalize_kernel``, and
@@ -283,8 +283,27 @@ Phases (any failure exits non-zero and prints no result line):
    text), B1's 140 launches per rank and learner, ms per iteration per
    rank.
 
+20. training observability on the card (A17b): phase 4's data and
+   parameters, 10 rounds on the captured iteration, with ``telemetry_dir``
+   in a temporary directory, ``tpu_cost_analysis=true``,
+   ``tpu_time_tag=true`` and ``tpu_profile_iters=3:6`` (after the graph
+   capture), then again at ``0:3`` (over it). Each arm must give phase 4's
+   model text with 140 B1 launches, no ``not captured:`` line, 1.00 host
+   syncs per replayed tree (flag reads + calls ``set_sync_debug_mode``
+   flags) and one more in the run's publish fetch; ``trace_<pid>.json``,
+   ``events_<pid>.jsonl`` and ``snapshot_<pid>.json`` with 1 ``train``
+   span, 10 ``iteration`` spans, derived ``wave`` spans summing to the
+   ``tree.waves`` histogram and ``trees.trained`` 10; a profiler Chrome
+   trace holding 14 ``finalize_kernel`` events per iteration of the
+   batch-aligned window; the ``histogram.full.s25`` cost report's
+   ``bytes_accessed`` equal to phase 3's ``full`` bound bytes;
+   ``device_memory()["peak_bytes"]`` equal to
+   ``torch.cuda.max_memory_allocated()``; the logged TIMETAG summary.
+   Printed, not gated: ms per iteration inside and outside the window
+   beside phase 13's captured K=1.
+
 ``--phases 3,11`` runs only the listed phases (and those they need: 5-7
-and 12-19 add phase 4); such a partial run prints no result lines and
+and 12-20 add phase 4); such a partial run prints no result lines and
 exits 4.
 
 The card's line comes before the last two lines; the line before the last
@@ -542,6 +561,7 @@ def pass_costs(name, args, scales, kw, ms):
     """The plain version's and ``torch.bincount``'s device ms on one pass's
     inputs, and the pass's bound; printed beside the kernel's ``ms``."""
     import torch
+    from lightgbm_tpu_torch.ops.cuda_histogram import histogram_pass_cost
     from lightgbm_tpu_torch.ops.histogram import build_histograms, pass_rows
     X, gw, hw, inc, leaf_id, slot_of_leaf, _, nb = args
     dev = X.device
@@ -567,13 +587,15 @@ def pass_costs(name, args, scales, kw, ms):
     n_rows = int(rows.numel())
     # each input byte the function needs, read once: codes and g/h/inc
     # of every row of the pass, plus its position (perm) or, without a
-    # partition, every row's leaf id; the output written once
-    row_bytes = nf * X.element_size() + 3 * 4
-    where_bytes = nx * 4 + (255 + 1) * 4 if name in ("wrapper", "stream") \
-        else n_rows * 4 + 2 * S * 4
-    nbytes = n_rows * row_bytes + where_bytes + S * nf * nb * 3 * 4
+    # partition, every row's leaf id; the output written once — the
+    # formula of the port's histogram cost report
+    cost = histogram_pass_cost(
+        n_rows, nf, nb, S, X.element_size(),
+        derived_positions=name in ("wrapper", "stream"), total_rows=nx,
+        slot_table=slot_of_leaf.numel())
+    nbytes = cost["bytes"]
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 3.0 * n_rows * nf / F32_OPS_PER_S * 1e3
+    ops_ms = cost["operations"] / F32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     print(f"  {name} pass over {n_rows} rows (F={nf}, B={nb}): kernel "
           f"{ms:.4f} ms, plain {plain_ms:.3f} ms, torch.bincount "
@@ -583,7 +605,7 @@ def pass_costs(name, args, scales, kw, ms):
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                rows=n_rows, num_features=nf, num_bins=nb)
+                rows=n_rows, num_features=nf, num_bins=nb, bytes=nbytes)
 
 
 def stream_case(dev, gen, X8, g, h):
@@ -3116,12 +3138,14 @@ def checkpoint_checks(mres, k8_text):
 
 
 class _Records:
-    """Warnings of the port's logger, collected."""
+    """Messages of the port's logger at ``level`` and above (warnings by
+    default), collected."""
 
-    def __init__(self):
+    def __init__(self, level=None):
         import logging
         self.logger = logging.getLogger("lightgbm_tpu_torch")
-        self.handler = logging.Handler(logging.WARNING)
+        self.handler = logging.Handler(
+            logging.WARNING if level is None else level)
         self.handler.emit = lambda rec: self.messages.append(
             rec.getMessage())
         self.messages = []
@@ -4658,7 +4682,251 @@ def fault_tolerance_phase(mres, pres):
                 + [gang["fleet"].recovery_seconds])
 
 
-PHASES = tuple(range(1, 20))
+OBS_ROUNDS = 10                     # phase 20: phase 4's rounds
+OBS_WINDOWS = ("3:6", "0:3")        # after the graph capture, and over it
+B1_PER_TREE = 14                    # phase 4's 140 passes over 10 trees
+
+
+def _observability_arm(mres, window, kres):
+    """One arm of phase 20: phase 4's training with every telemetry knob
+    on and the profiler window at ``window``; returns its facts."""
+    import logging
+    import shutil
+    import tempfile
+    import warnings
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import observability as obs
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.observability.export import read_jsonl
+    from lightgbm_tpu_torch.observability.memory import device_memory
+    from lightgbm_tpu_torch.ops.cuda_histogram import (
+        histogram_pass_cost, launch_count, reset_launch_count)
+    from lightgbm_tpu_torch.utils.timer import TIMERS
+    ds, X, _ = mres["data"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_20_")
+    obs.reset_for_tests()
+    TIMERS.reset()
+    params = dict(MAIN_PARAMS, verbose=1, telemetry_dir=tmp,
+                  tpu_profile_iters=window, tpu_cost_analysis=True,
+                  tpu_time_tag=True)
+    stamps = []
+    publish = {}
+    origins = []
+    orig_publish = GBDT.publish_telemetry
+
+    def nsync():
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    def stamp(env):
+        # host clock at each iteration's end; after the capture (iteration
+        # 1) the synchronizing calls set_sync_debug_mode flags are recorded,
+        # as phase 13 records them over its steady iterations
+        stamps.append(time.perf_counter())
+        if env.iteration == 1:
+            r = env.model._gbdt._graphs
+            publish["reads0"] = (r.syncs, r.trees) if r else (0, 0)
+            torch.cuda.set_sync_debug_mode("warn")
+            # turning the mode on warns once itself: not the run's
+            publish["base"] = nsync()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # each flagged call with the innermost frame of the port or this
+        # script that made it
+        caught.append(warnings.WarningMessage(message, category, filename,
+                                              lineno))
+        if "synchroniz" in str(message):
+            import traceback
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if "lightgbm_tpu_torch" in f.filename
+                      or "chip_smoke" in f.filename]
+            if frames:
+                f = frames[-1]
+                origins.append(f"{os.path.basename(f.filename)}:{f.lineno} "
+                               f"{f.name}")
+
+    def counted_publish(self):
+        # the run's one leaf-count fetch, counted apart from the loop's
+        publish["before"] = nsync()
+        try:
+            orig_publish(self)
+        finally:
+            publish["syncs"] = nsync() - publish["before"]
+            torch.cuda.set_sync_debug_mode(0)
+
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                _Records(logging.DEBUG) as logs:
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            GBDT.publish_telemetry = counted_publish
+            reset_launch_count()            # the arm's path starts
+            t0 = time.perf_counter()
+            bst = lgt.train(params, ds, num_boost_round=OBS_ROUNDS,
+                            callbacks=[stamp], keep_training_booster=True)
+            pred = bst.predict(X[:100_000])
+            text = bst.model_to_string()
+            launches = launch_count()       # ... and ends here
+            secs = time.perf_counter() - t0
+    finally:
+        GBDT.publish_telemetry = orig_publish
+        torch.cuda.set_sync_debug_mode(0)
+    gbdt = bst._gbdt
+    runner = gbdt._graphs
+    flagged = publish.get("before", 0) - publish.get("base", 0)
+    replayed = runner.trees if runner is not None else 0
+    reads0, trees0 = publish.get("reads0", (0, 0))
+    steady = replayed - trees0
+    syncs_per_tree = (runner.syncs - reads0 + flagged) / max(steady, 1) \
+        if runner is not None else float("nan")
+    where = [o for o in origins if " stamp" not in o]
+    digest = text_digest(text)
+    not_captured = [m for m in logs if m.startswith("not captured:")]
+    timetag = [m for m in logs if m.startswith("TIMETAG phase summary")]
+    print(f"  tpu_profile_iters={window}: {OBS_ROUNDS} rounds in {secs:.2f} s "
+          f"(predict and model text included); model text sha256 {digest}, "
+          f"phase 4's {digest == mres['digest']}; B1 launches {launches}; "
+          f"{replayed} trees replayed from CUDA graphs; host syncs per "
+          f"tree after the capture {syncs_per_tree:.2f} over {steady} trees "
+          f"({runner and runner.syncs - reads0} flag reads + {flagged} "
+          f"flagged calls {where}), the publish fetch "
+          f"{publish.get('syncs')} sync(s); 'not captured:' lines "
+          f"{len(not_captured)}; predictions finite "
+          f"{bool(torch.isfinite(torch.as_tensor(pred)).all())}", flush=True)
+    if digest != mres["digest"]:
+        fail(f"phase 20 ({window}): the model text is not phase 4's")
+    if launches != B1_PER_TREE * OBS_ROUNDS:
+        fail(f"phase 20 ({window}): {launches} B1 launches, not "
+             f"{B1_PER_TREE * OBS_ROUNDS}")
+    if not_captured or runner is None or replayed != OBS_ROUNDS - 1:
+        fail(f"phase 20 ({window}): the iterations were not captured "
+             f"({not_captured})")
+    if f"{syncs_per_tree:.2f}" != "1.00" or publish.get("syncs") != 1:
+        fail(f"phase 20 ({window}): {syncs_per_tree:.2f} host syncs per "
+             f"tree, {publish.get('syncs')} in the publish fetch")
+
+    # ---- the telemetry files -------------------------------------------
+    pid = os.getpid()
+    files = {k: os.path.join(tmp, f"{k}_{pid}.{x}") for k, x in
+             (("trace", "json"), ("events", "jsonl"), ("snapshot", "json"))}
+    missing = [k for k, f in files.items() if not os.path.exists(f)]
+    if missing:
+        fail(f"phase 20 ({window}): no {missing} file in {os.listdir(tmp)}")
+    trace = json.load(open(files["trace"]))["traceEvents"]
+    events = read_jsonl(files["events"])
+    snap = json.load(open(files["snapshot"]))
+    names = {}
+    for e in trace:
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    waves_hist = snap["histograms"].get("tree.waves", {})
+    print(f"  trace_{pid}.json: {names.get('train', 0)} train, "
+          f"{names.get('tree_batch', 0)} tree_batch, "
+          f"{names.get('iteration', 0)} iteration, {names.get('wave', 0)} "
+          f"derived wave spans (tree.waves sum {waves_hist.get('sum')}); "
+          f"events_{pid}.jsonl {len(events)} records; snapshot_{pid}.json "
+          f"trees.trained {snap['counters'].get('trees.trained')}, "
+          f"rows.routed {snap['counters'].get('rows.routed')}, cost reports "
+          f"{sorted(snap.get('cost_reports', {}))}", flush=True)
+    if names.get("train") != 1 or names.get("iteration") != OBS_ROUNDS \
+            or names.get("wave") != waves_hist.get("sum") \
+            or snap["counters"].get("trees.trained") != OBS_ROUNDS:
+        fail(f"phase 20 ({window}): the spans or counters are wrong")
+
+    # ---- the profiler window --------------------------------------------
+    start = [e for e in trace if e["name"] == "profiler_window_start"]
+    stop = [e for e in trace if e["name"] == "profiler_window_stop"]
+    if len(start) != 1 or len(stop) != 1:
+        fail(f"phase 20 ({window}): no profiler window in the trace")
+    first, end = start[0]["args"]["iteration"], stop[0]["args"]["iteration"]
+    prof_path = stop[0]["args"]["trace"]
+    prof = json.load(open(prof_path))["traceEvents"]
+    kernels = [e for e in prof if e.get("cat") == "kernel"]
+    fin = sum("finalize_kernel" in e.get("name", "") for e in kernels)
+    hist = sum("hist_kernel" in e.get("name", "") for e in kernels)
+    covered = end - first
+    print(f"  profiler window {window}: iterations {first}:{end} "
+          f"({covered} batch-aligned), {os.path.getsize(prof_path) / 1e6:.1f} "
+          f"MB Chrome trace, {len(kernels)} kernel events, finalize_kernel "
+          f"{fin} = {B1_PER_TREE} x {covered} {fin == B1_PER_TREE * covered}"
+          f", hist_kernel {hist}", flush=True)
+    if fin != B1_PER_TREE * covered or hist < fin:
+        fail(f"phase 20 ({window}): the profile holds {fin} B1 passes for "
+             f"{covered} iterations")
+
+    # ---- the cost report and device memory -------------------------------
+    rep = snap["cost_reports"].get(f"histogram.full.s{S}", {})
+    want = kres["full"]["bytes"] if "full" in kres \
+        else histogram_pass_cost(N, F, B, S)["bytes"]
+    step = snap["cost_reports"].get("train_step.k1", {})
+    dm = device_memory()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  cost report histogram.full.s{S}: bytes_accessed "
+          f"{rep.get('bytes_accessed')}, flops {rep.get('flops')}, temp "
+          f"{rep.get('temp_bytes')}; phase 3's full bound bytes {want} "
+          f"{rep.get('bytes_accessed') == want}; train_step.k1: arguments "
+          f"{step.get('argument_bytes')}, temps across the capture "
+          f"{step.get('temp_bytes')}, peak {step.get('peak_hbm_bytes')}; "
+          f"device_memory peak_bytes {dm.get('peak_bytes')} == "
+          f"max_memory_allocated {peak} {dm.get('peak_bytes') == peak}, "
+          f"capacity {dm.get('capacity_bytes')}", flush=True)
+    if rep.get("bytes_accessed") != want:
+        fail(f"phase 20 ({window}): the histogram report's bytes are not "
+             f"phase 3's bound's")
+    if dm.get("peak_bytes") != peak or not step.get("argument_bytes"):
+        fail(f"phase 20 ({window}): device memory or the step report is "
+             f"wrong")
+    if not timetag:
+        fail(f"phase 20 ({window}): no TIMETAG summary was logged")
+    print("  " + timetag[-1].replace("\n", "\n  "), flush=True)
+
+    # ms per iteration (host clock between iteration ends; the tree's
+    # flag read waits for the card): the window's first iteration holds the
+    # profiler's start, its last the stop and the trace's export; the
+    # captured iterations between them against those outside the window
+    ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]   # its 1..9
+
+    def at(i):
+        return ms[i - 1] if 1 <= i <= len(ms) else None
+    inside = [ms[i - 1] for i in range(max(first + 1, 2), end - 1)
+              if 1 <= i <= len(ms)]
+    outside = [ms[i - 1] for i in range(2, OBS_ROUNDS)
+               if not first <= i < end]
+    del bst, gbdt, runner
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    obs.reset_for_tests()
+    return dict(launches=launches, ms=ms, window=(first, end),
+                start_ms=at(first), stop_ms=at(end - 1),
+                inside=sum(inside) / len(inside) if inside else None,
+                n_inside=len(inside),
+                outside=sum(outside) / len(outside) if outside else None)
+
+
+def observability_phase(mres, bres, kres):
+    """Phase 20: training observability on the card (A17b)."""
+    t0 = time.perf_counter()
+    arms = {w: _observability_arm(mres, w, kres) for w in OBS_WINDOWS}
+    k1 = (bres or {}).get("stats", {}).get("captured K=1", {}).get("ms")
+
+    def fmt(v):
+        return "n/a" if v is None else f"{v:.2f}"
+
+    for w, a in arms.items():
+        print(f"  {w}: ms of iterations 1-9 (1 captures the graphs) "
+              f"{', '.join(f'{m:.1f}' for m in a['ms'])}; the window's "
+              f"first (profiler start) {fmt(a['start_ms'])}, last (stop "
+              f"and export) {fmt(a['stop_ms'])}, captured between them "
+              f"{fmt(a['inside'])} (mean of {a['n_inside']}), captured "
+              f"outside it {fmt(a['outside'])}; phase 13's captured K=1 "
+              f"steady "
+              f"{fmt(k1)} ms", flush=True)
+    launches = sum(a["launches"] for a in arms.values())
+    print(f"  histogram kernel launches in phase 20: {launches}; phase 20 "
+          f"took {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(launches=launches)
+
+
+PHASES = tuple(range(1, 21))
 
 
 def main():
@@ -4686,7 +4954,7 @@ def main():
     want = set(PHASES) if not args.phases else \
         {int(p) for p in args.phases.split(",")}
     # phases 5-7 and 12-17 run on phase 4's data and booster
-    if want & {5, 6, 7, 12, 13, 14, 15, 16, 17, 18, 19}:
+    if want & {5, 6, 7, 12, 13, 14, 15, 16, 17, 18, 19, 20}:
         want.add(4)
 
     t_start = time.perf_counter()
@@ -4844,6 +5112,16 @@ def main():
               f"voting in a world", flush=True)
         rbres = fault_tolerance_phase(mres, pres)
 
+    ores = none
+    if 20 in want:
+        elapsed(t_start)
+        print(f"phase 20: training observability at the main path's width "
+              f"(2M x 28, 255 leaves, {OBS_ROUNDS} rounds captured, "
+              f"telemetry_dir, tpu_cost_analysis, tpu_time_tag; "
+              f"tpu_profile_iters {' and '.join(OBS_WINDOWS)})", flush=True)
+        ores = observability_phase(mres, bres if 13 in want else None,
+                                   kres)
+
     elapsed(t_start)
     if want != set(PHASES):
         print(f"partial run of phases {sorted(want)}: no result lines",
@@ -4858,7 +5136,7 @@ def main():
           f"{bres['launches']}, phase 14 {vres['launches']}, phase 15 "
           f"{nres['launches']}, phase 16 {fres['launches']}, phase 17 "
           f"{tres['launches']}, phase 18 {pres['launches']}, phase 19 "
-          f"{rbres['launches']}", flush=True)
+          f"{rbres['launches']}, phase 20 {ores['launches']}", flush=True)
 
     full = kres["full"]
     kernels = {"kernels": [{
@@ -4870,7 +5148,7 @@ def main():
         + rres["launches"] + xres["launches"] + eres["launches"]
         + lres["launches"] + bres["launches"] + vres["launches"]
         + nres["launches"] + fres["launches"] + tres["launches"]
-        + pres["launches"] + rbres["launches"],
+        + pres["launches"] + rbres["launches"] + ores["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kres.values()),
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
@@ -4889,7 +5167,7 @@ def main():
             "13": bres["launches"], "14": vres["launches"],
             "15": nres["launches"], "16": fres["launches"],
             "17": tres["launches"], "18": pres["launches"],
-            "19": rbres["launches"]},
+            "19": rbres["launches"], "20": ores["launches"]},
     }]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

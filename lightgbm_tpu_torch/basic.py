@@ -180,11 +180,13 @@ class Dataset:
             self._metadata = meta
         else:
             cfg = config or Config.from_params(self.params)
-            self._constructed = construct_dataset(
-                self.raw_data, self.label, cfg, weight=self.weight,
-                group=self.group, init_score=self.init_score,
-                feature_names=self.feature_name,
-                categorical_features=self.categorical_feature)
+            from .utils.timer import TIMERS
+            with TIMERS("dataset_construct"):
+                self._constructed = construct_dataset(
+                    self.raw_data, self.label, cfg, weight=self.weight,
+                    group=self.group, init_score=self.init_score,
+                    feature_names=self.feature_name,
+                    categorical_features=self.categorical_feature)
         if self.free_raw_data:
             self.raw_data = None
         return self
@@ -395,6 +397,9 @@ class Booster:
                  model_str: Optional[str] = None, silent: bool = False):
         self.params = dict(params or {})
         self.config = Config.from_params(self.params)
+        if self.config.tpu_time_tag:
+            from .utils.timer import TIMERS
+            TIMERS.enabled = True
         self._gbdt = None
         self.trees: List[Tree] = []
         self._forest_rev = 0                 # bumped whenever trees change

@@ -94,18 +94,22 @@ import torch
 from ..config import Config, check_port_supported
 from ..dataset import ConstructedDataset, Metadata, MetadataDuckTyping
 from ..grower import (BundleDecode, GrowerSpec, StreamedGrower, TreeArrays,
-                      TreeGrower)
+                      TreeGrower, waves_for_tree)
 from ..metrics import Metric, _PointwiseRegressionMetric, create_metrics
 from ..objectives import create_objective
-from ..ops.cuda_histogram import feature_groups
-from ..ops.linear import fit_linear_leaves, linear_leaf_scores
+from ..ops.cuda_histogram import feature_groups, histogram_cost_report
+from ..ops.linear import (fit_linear_leaves, linear_cost_report,
+                          linear_leaf_scores)
 from ..ops.predict import leaves_from_binned
 from ..robustness.numeric import (FLAG_NAMES, NonFiniteError, clip_nonfinite,
                                   nonfinite_flag)
 from ..parallel.comm import make_parallel_context
 from ..tree import Tree, tree_from_device_arrays
+from .. import observability as obs
+from ..observability import costs as obs_costs
 from ..utils import prng
 from ..utils.log import Log
+from ..utils.timer import TIMERS
 
 
 def _round_up(x: int, m: int) -> int:
@@ -324,6 +328,11 @@ class GBDT:
         # per iteration, the K trees' leaf counts: an i32 [K] device tensor
         self._num_leaves: List[torch.Tensor] = []
         self.iter_ = 0
+        # telemetry high-water mark: iterations already counted into the
+        # monotonic trees.trained / rows.routed counters
+        # (publish_telemetry); a checkpoint restore and repeated train()
+        # calls on one booster raise it, so nothing is counted twice
+        self._telemetry_iters_base = 0
         # monotonic forest-content counter: iter_ alone collides after a
         # rollback followed by a retrain
         self.mutations_ = 0
@@ -390,23 +399,43 @@ class GBDT:
         self._consecutive_skips = 0
         self.best_iteration = 0
 
-        from .. import observability as obs
+        # telemetry (gbdt.py:866-912 there): the booster's kernel route
+        # and dispatch shape, the world, and the analytic per-wave
+        # collective bytes (parallel/comm.py); host facts at construction
+        self.kernel_route = "cuda" if dev.type == "cuda" else "plain"
         reg = obs.get_registry()
+        reg.counter(f"booster.kernel.{self.kernel_route}").inc()
         reg.counter(f"booster.residency.{self.residency}").inc()
-        reg.counter(f"booster.tree_learner.{self.pctx.strategy}").inc()
-        reg.gauge("comm.world_size").set(self.pctx.num_devices)
-        for cname, nbytes in self.comm.collective_bytes(
-                self.spec.hist_slots, self.spec.num_bins_padded,
-                use_categorical=self.spec.use_categorical,
-                hist_bins=self.spec.hist_bins or None).items():
-            reg.gauge(f"comm.bytes_per_wave.{cname}").set(nbytes)
-        if self.pctx.multi_process:
-            obs.event("world", **self.pctx.describe())
+        reg.gauge("booster.tree_batch").set(tb)
+        reg.gauge("booster.wave_size").set(self.spec.wave_size)
+        reg.gauge("booster.hist_slots").set(self.spec.hist_slots)
         if self._stream_store is not None:
             reg.gauge("stream.n_shards").set(self._stream_store.n_shards)
             reg.gauge("stream.shard_bytes").set(
                 self._stream_store.shard_bytes)
+        obs.event("booster_init", kernel=self.kernel_route, tree_batch=tb,
+                  rows=int(N), features=int(F),
+                  num_leaves=int(self.spec.num_leaves),
+                  strategy=self.pctx.strategy, nan_policy=self.nan_policy,
+                  mesh_axis=self.pctx.axis_kind,
+                  n_devices=self.pctx.num_devices, residency=self.residency)
+        if self._stream_store is not None:
             obs.event("stream_init", **self._stream_store.describe())
+        reg.gauge("comm.world_size").set(self.pctx.num_devices)
+        reg.gauge("comm.mesh.n_devices").set(self.pctx.num_devices)
+        reg.gauge("comm.mesh.rows_sharded").set(
+            1 if self.pctx.axis_kind == "rows" else 0)
+        reg.counter(f"booster.tree_learner.{self.pctx.strategy}").inc()
+        if self.pctx.multi_process:
+            obs.event("mesh_axes", **self.pctx.describe())
+        comm_bytes = self.comm.collective_bytes(
+            self.spec.hist_slots, self.spec.num_bins_padded,
+            use_categorical=self.spec.use_categorical,
+            hist_bins=self.spec.hist_bins or None)
+        for cname, nbytes in comm_bytes.items():
+            reg.gauge(f"comm.bytes_per_wave.{cname}").set(nbytes)
+        if comm_bytes:
+            obs.event("comm_cost", strategy=self.pctx.strategy, **comm_bytes)
 
     @staticmethod
     def _make_spec(config: Config, F: int, max_num_bin: int,
@@ -1038,6 +1067,7 @@ class GBDT:
             self._pre_bag = torch.empty_like(self.bag_mask)
         self._stack = None
         self._graphs = None
+        self._publish_cost_reports()
 
     def _batch_inputs(self, its: List[int], shrinkage: float
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1268,20 +1298,36 @@ class GBDT:
         """``n`` boosting iterations (tree_batch; the JAX package's
         ``train_batch``): on a captured path ``n`` replays of the iteration
         back to back, else ``n`` eager iterations, with the same trees.
-        Eval and callbacks are the caller's, on batch boundaries."""
+        Eval and callbacks are the caller's, on batch boundaries.
+
+        Telemetry (gbdt.py:1760-1770 there): a batch of ``m > 1`` is one
+        ``tree_batch`` span with ``m`` derived ``iteration`` slices,
+        recorded after it closes; host work at the batch boundary only."""
         if self.tree_batch <= 1:      # DART and GOSS keep their own step
             for _ in range(n):
                 self.train_one_iter()
             return
         while n > 0:
             m = min(n, self.tree_batch)
-            self._run_batch(m)
+            if m == 1:
+                self.train_one_iter()
+            else:
+                base_iter = self.iter_
+                with TIMERS("train_step"), obs.span("tree_batch", k=m):
+                    self._run_batch(m)
+                obs.get_tracer().subdivide_last(
+                    "tree_batch", "iteration", m, base_iteration=base_iter)
+                self._publish_step_cost(m)
             n -= m
 
     def train_one_iter(self) -> None:
         """One boosting iteration: gradients -> sampling -> grow -> shrink
-        -> score updates."""
-        self._run_batch(1)
+        -> score updates; one ``tree_batch`` span holding one ``iteration``
+        span (gbdt.py:1568-1569 there)."""
+        with TIMERS("train_step"), obs.span("tree_batch", k=1), \
+                obs.span("iteration", iteration=self.iter_):
+            self._run_batch(1)
+        self._publish_step_cost(1)
 
     def train_one_iter_custom(self, fobj) -> None:
         """One iteration with user-supplied gradients (reference
@@ -1293,15 +1339,17 @@ class GBDT:
             Log.fatal("custom objectives are not supported with "
                       "is_pre_partition (host gradients need the full score "
                       "vector on every process)")
-        preds = self._world_scores().cpu().numpy().reshape(-1)
-        grad, hess = fobj(preds, self.train_set)
-        self._custom_gh = tuple(
-            self._rows_tensor(np.asarray(a, np.float32).reshape(K, N))
-            for a in (grad, hess))
-        try:
-            self._run_batch(1, shrinkage=self.config.learning_rate)
-        finally:
-            self._custom_gh = None
+        with obs.span("tree_batch", k=1, custom_fobj=True), \
+                obs.span("iteration", iteration=self.iter_):
+            preds = self._world_scores().cpu().numpy().reshape(-1)
+            grad, hess = fobj(preds, self.train_set)
+            self._custom_gh = tuple(
+                self._rows_tensor(np.asarray(a, np.float32).reshape(K, N))
+                for a in (grad, hess))
+            try:
+                self._run_batch(1, shrinkage=self.config.learning_rate)
+            finally:
+                self._custom_gh = None
 
     def add_base_score(self, raw_scores: np.ndarray,
                        valid_raw: Optional[List[np.ndarray]] = None) -> None:
@@ -1641,6 +1689,9 @@ class GBDT:
                         for t in it_trees] for it_trees in state["models"]]
         self._num_leaves = [put(nl) for nl in state["num_leaves"]]
         self.iter_ = int(state["iter"])
+        # restored iterations were trained (and counted) by the run that
+        # wrote the snapshot: telemetry counts only what this run adds
+        self._telemetry_iters_base = len(self.models)
         self.mutations_ = int(state["mutations"])
         self._consecutive_skips = int(state.get("consecutive_skips", 0))
         self.init_score_value = float(state["init_score_value"])
@@ -1683,6 +1734,13 @@ class GBDT:
     def eval_all(self, force_training: bool = False,
                  only: Optional[str] = None
                  ) -> List[Tuple[str, str, float, bool]]:
+        """``_eval_all`` in an ``eval`` span (gbdt.py:2077 there)."""
+        with TIMERS("metric_eval"), obs.span("eval", only=only):
+            return self._eval_all(force_training, only)
+
+    def _eval_all(self, force_training: bool = False,
+                  only: Optional[str] = None
+                  ) -> List[Tuple[str, str, float, bool]]:
         """Metric values of the training set (when ``is_training_metric``
         or ``force_training``) and every valid set; ``only`` names one
         dataset. The pointwise family reduces on the device in f32 and
@@ -1744,6 +1802,98 @@ class GBDT:
                 out[i][2] = out[i][4].transform(float(raw))
         return [(d, n, v, h) for (d, n, v, h, _m) in out]
 
+    # ------------------------------------------------------------- telemetry
+
+    def publish_telemetry(self) -> None:
+        """This booster's per-run training facts into the telemetry
+        subsystem (gbdt.py:2305-2345 there; ``engine.train`` calls it once,
+        after the loop): ``trees.trained`` / ``rows.routed`` always; with
+        span recording on, ONE batched fetch of the new iterations' leaf
+        counts derives each tree's wave count (``grower.waves_for_tree``)
+        into the ``wave`` children of the recorded ``iteration`` spans and
+        the ``tree.waves`` / ``tree.leaves`` histograms."""
+        reg = obs.get_registry()
+        base = min(self._telemetry_iters_base, len(self.models))
+        n_new = len(self.models) - base
+        self._telemetry_iters_base = len(self.models)
+        if n_new:
+            reg.counter("trees.trained").inc(n_new * self.num_models)
+            reg.counter("rows.routed").inc(
+                n_new * self.num_models * self.num_data)
+        if not obs.enabled() or not n_new:
+            return
+        leaves = torch.stack(self._num_leaves[base:]).cpu().numpy()
+        wave_hist = reg.histogram("tree.waves")
+        leaf_hist = reg.histogram("tree.leaves")
+        counts = []
+        for nl in leaves:
+            # the K trees of an iteration grow one after the other; the
+            # iteration's count is the deepest tree's, as the JAX package
+            # records it
+            counts.append(max(waves_for_tree(int(v), self.spec.wave_size,
+                                             self.spec.hist_slots)
+                              for v in nl))
+            wave_hist.observe(counts[-1])
+            for v in nl:
+                leaf_hist.observe(int(v))
+        obs.get_tracer().derive_children("iteration", "wave", counts)
+
+    def _publish_cost_reports(self) -> None:
+        """The analytic cost reports of this booster's shape classes
+        (``observability/costs.py``), once each, host arithmetic: B1's
+        full wave (``histogram.full.s<S>``) and, with linear leaves, the
+        fit (``linear.fit.k<K>``). Gated on ``costs.enabled()``."""
+        if not obs_costs.enabled():
+            return
+        g = self._grower
+        X = g.X_hist if self.residency != "stream" else None
+        F = X.shape[1] if X is not None else self._stream_store.num_cols
+        cb = X.element_size() if X is not None \
+            else np.dtype(self._stream_store.dtype).itemsize
+        histogram_cost_report(self.num_rows, F, g.B_hist,
+                              self.spec.hist_slots, cb,
+                              route=self.kernel_route, force=False)
+        if self.linear_tree:
+            linear_cost_report(self.num_rows, self.raw[0].shape[1],
+                               self.spec.num_leaves,
+                               self.config.linear_max_features,
+                               route=self.kernel_route, force=False)
+
+    def _publish_step_cost(self, batch: int) -> None:
+        """The iteration's report, ``train_step.k<batch>``: arguments the
+        per-row state an iteration reads, outputs the stacked trees of the
+        batch, temps the bytes the allocator reserved across the capture
+        of the CUDA graphs (None where nothing was captured). Republished
+        when a capture adds graphs; no device traffic."""
+        if not obs_costs.enabled() or self._grower is None:
+            return
+        r = self._graphs
+        fp = (batch, 0 if r is None else len(r.graphs),
+              0 if r is None else r.pool_bytes)
+
+        def make():
+            args = obs_costs.tensor_bytes(
+                self.Xb, self.label, self.weight, self.pad_mask,
+                self.bag_mask, self.score, self._g, self._h,
+                *[t for vs in self.valid_sets for t in (vs.Xb, vs.score)])
+            out = obs_costs.tensor_bytes(*[f for f in (self._stack or ())
+                                           if f is not None])
+            out = out * batch // max(self.tree_batch, 1)
+            return obs_costs.analytic_report(
+                f"train_step.k{batch}",
+                dict(rows=int(self.num_data), rows_padded=int(
+                    self.num_data_padded),
+                     features=int(self.spec.num_features),
+                     num_leaves=int(self.spec.num_leaves),
+                     hist_slots=int(self.spec.hist_slots),
+                     tree_batch=int(batch), num_models=int(self.num_models),
+                     kernel=self.kernel_route, strategy=self.pctx.strategy,
+                     n_devices=int(self.pctx.num_devices),
+                     captured_graphs=fp[1]),
+                argument_bytes=args, output_bytes=out,
+                temp_bytes=None if r is None else r.pool_bytes)
+        obs_costs.capture(f"train_step.k{batch}", make, fingerprint=fp)
+
     # ------------------------------------------------------------- model
 
     def finalize_model(self) -> List[List[Tree]]:
@@ -1751,12 +1901,14 @@ class GBDT:
         bias into the first iteration's trees (gbdt.cpp:445-447)."""
         mappers = self.train_set.mappers
         rfi = self.train_set.real_feature_idx
+        with TIMERS("finalize_fetch"):
+            host = [[TreeArrays(*[None if f is None else f.cpu().numpy()
+                                  for f in t]) for t in it_trees]
+                    for it_trees in self.models]
         forest: List[List[Tree]] = []
-        for it_trees in self.models:
-            forest.append([tree_from_device_arrays(
-                TreeArrays(*[None if f is None else f.cpu().numpy()
-                             for f in t]), mappers, rfi)
-                for t in it_trees])
+        for it_trees in host:
+            forest.append([tree_from_device_arrays(t, mappers, rfi)
+                           for t in it_trees])
         if forest and abs(self.init_score_value) > 1e-15:
             for t in forest[0]:
                 t.add_bias(self.init_score_value)
@@ -1792,6 +1944,10 @@ class _IterationGraphs:
         # measurements read by chip_smoke.py
         self.capture_s = 0.0          # Python capture of every graph
         self.instantiate_s = 0.0      # cudaGraphInstantiate at capture end
+        # device bytes the caching allocator reserved across the captures
+        # (the graphs' private pool): the captured iteration's temps in
+        # its cost report; read from the allocator's stats, no device sync
+        self.pool_bytes = 0
         self.replays = 0
         self.syncs = 0
         self.trees = 0
@@ -1815,6 +1971,9 @@ class _IterationGraphs:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         g = torch.cuda.CUDAGraph()
+        dev = self.gbdt.device
+        reserved0 = torch.cuda.memory_stats(dev).get(
+            "reserved_bytes.all.current", 0)
         t0 = time.perf_counter()
         try:
             with torch.cuda.graph(g, pool=self.pool):
@@ -1825,6 +1984,8 @@ class _IterationGraphs:
                                f"{key} part failed: {e}") from e
         self.capture_s += t1 - t0
         self.instantiate_s += time.perf_counter() - t1
+        self.pool_bytes += max(0, torch.cuda.memory_stats(dev).get(
+            "reserved_bytes.all.current", 0) - reserved0)
         return g
 
     def _read_flags(self, flags: torch.Tensor) -> List[int]:

@@ -411,15 +411,15 @@ class Config:
     # only). Explicit pallas/mixed on a never-gated shape class runs with a
     # warning (exp/pallas_onchip_check.py records the trust markers)
     tpu_hist_kernel: str = "auto"
-    # per-phase wall-clock accumulators (reference TIMETAG) printed after
-    # training; tpu_profile_dir wraps training in a jax.profiler trace
+    # per-phase host wall-clock accumulators (reference TIMETAG) printed
+    # after training (utils/timer.py); tpu_profile_dir wraps training in a
+    # torch.profiler trace (a Chrome trace written there)
     tpu_time_tag: bool = False
     tpu_profile_dir: str = ""
-    # jax.profiler capture WINDOW "start:stop" over boosting iterations
-    # (batch-boundary aligned under tree_batch) — the deep-profiling leg of
-    # the telemetry contract; output under tpu_profile_dir, or
-    # <telemetry_dir>/xprof when only telemetry_dir is set. See
-    # docs/Observability.md.
+    # torch.profiler capture WINDOW "start:stop" over boosting iterations
+    # (batch-boundary aligned under tree_batch, observability/profiler.py);
+    # output under tpu_profile_dir, or <telemetry_dir>/xprof when only
+    # telemetry_dir is set
     tpu_profile_iters: str = ""
 
     # --- observability (lightgbm_tpu/observability, docs/Observability.md) --
@@ -428,14 +428,11 @@ class Config:
     # env LGBM_TPU_TELEMETRY_DIR; empty + no env = span recording disabled
     # (the metrics registry is always live)
     telemetry_dir: str = ""
-    # compile-time cost capture (observability/costs.py): lower+compile each
-    # dispatch site once with the live arguments and publish
-    # cost_analysis()/memory_analysis() — FLOPs, bytes accessed, argument/
-    # temp HBM — as cost.<site>.* gauges, into snapshot(), and as Perfetto
-    # trace metadata. Off by default (it duplicates trace work and, without
-    # the persistent compile cache, the XLA compile); env
-    # LGBM_TPU_COST_ANALYSIS=1 also enables. bench.py --smoke runs with it
-    # on and pins the fused step's FLOPs/bytes to golden values.
+    # cost reports (observability/costs.py): each dispatch site's analytic
+    # FLOPs, bytes accessed and argument/output/temp device bytes, once per
+    # shape class, as cost.<site>.* gauges, into snapshot(), and as trace
+    # metadata; scoped to one engine.train run. Off by default; env
+    # LGBM_TPU_COST_ANALYSIS=1 also enables
     tpu_cost_analysis: bool = False
     # write observability.snapshot() (counters/gauges/histograms + cost and
     # memory reports) to this JSON file at train end; "" = off — but with
@@ -713,6 +710,12 @@ class Config:
                       "gang_heartbeat_interval_s (%g)",
                       self.gang_lease_timeout_s,
                       self.gang_heartbeat_interval_s)
+        if self.tpu_profile_iters:
+            from .observability.profiler import parse_profile_iters
+            try:
+                parse_profile_iters(self.tpu_profile_iters)
+            except ValueError as e:
+                Log.fatal("%s", e)
         if self.linear_lambda < 0:
             Log.fatal("linear_lambda must be >= 0, got %g", self.linear_lambda)
         if self.linear_max_features < 1:
@@ -883,17 +886,18 @@ def resolve_device(config: "Config"):
 # and tpu_stream_verify (out-of-core streaming: the budget of the auto
 # decision, the shard rows and the CRC check, ops/stream.py) and
 # tpu_ingest, tpu_ingest_chunk_rows and tpu_ingest_prefetch (device
-# ingest), tpu_mesh_axis (the constraint of tree_learner=auto) and
+# ingest), tpu_mesh_axis (the constraint of tree_learner=auto),
 # tpu_reshard_on_resume (a checkpoint of another world size re-laid-out onto
-# this one's row blocks, boosting/gbdt.py); a resident pass is compacted and
-# a row block is padded to 256 rows, so neither tpu_compact_frac nor
-# tpu_hist_chunk has a meaning here.
+# this one's row blocks, boosting/gbdt.py) and the observability keys
+# tpu_time_tag, tpu_profile_dir, tpu_profile_iters and tpu_cost_analysis
+# (engine.train); a resident pass is compacted and a row block is padded to
+# 256 rows, so neither tpu_compact_frac nor tpu_hist_chunk has a meaning
+# here.
 TPU_ONLY_KEYS = (
     "tpu_compact_frac",
     "tpu_hist_chunk", "tpu_hist_hilo", "tpu_hist_f64", "tpu_hist_kernel",
     "tpu_incremental_partition", "tpu_efb_unpack",
-    "tpu_time_tag", "tpu_profile_dir", "tpu_profile_iters",
-    "tpu_cost_analysis", "tpu_linear_warn_fallback",
+    "tpu_linear_warn_fallback",
 )
 
 
@@ -915,7 +919,10 @@ def check_port_supported(config: "Config") -> None:
     ``elastic``), ``nan_policy``, the hang watchdog (``hang_timeout_s``,
     ``hang_median_factor``, ``hang_action``) and the heartbeat leases
     (``gang_heartbeat_interval_s``, ``gang_lease_timeout_s``, armed in a
-    world; ``engine.train``). Each refusal names its reason or the ROADMAP
+    world; ``engine.train``), and the observability keys
+    (``telemetry_dir``, ``tpu_time_tag``, ``tpu_profile_dir``,
+    ``tpu_profile_iters``, ``tpu_cost_analysis``, ``dump_snapshot``;
+    ``engine.train``). Each refusal names its reason or the ROADMAP
     queue item that will port it; the TPU-only keys are logged as
     meaningless; none of these settings is ever silently ignored."""
     if config.linear_tree and config.tree_learner != "serial":

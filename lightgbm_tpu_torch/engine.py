@@ -26,12 +26,25 @@ with the lease as its attribution. Beats and probes are host work at batch
 boundaries, outside every captured graph, with no device read. An error
 from a collective a dead peer broke is mapped onto the typed comm-loss
 errors naming the rank (``comm_loss_error``); the watchdog stops and the
-lease is withdrawn on every exit path. Left out (ROADMAP A17b
-observability): the profiler window and the cost reports.
+lease is withdrawn on every exit path.
+
+Observability (``lightgbm_tpu/engine.py:58-64``, ``:100-112``,
+``:280-308``, ``:351``, ``:414-450``): telemetry is configured from
+``LGBM_TPU_TELEMETRY_DIR`` / ``telemetry_dir`` before the booster is
+built (its ``booster_init`` event lands in the recording); the HBM
+pre-flight line is logged once the valid sets are attached; the loop runs
+in a ``train`` span, with ``tpu_profile_iters``' ``ProfileWindow``
+started and stopped around ``gbdt.train_batch`` at batch boundaries (or
+``tpu_profile_dir``'s whole-run ``torch.profiler`` trace);
+``tpu_cost_analysis`` turns the cost reports on for this run only; and
+on every exit path the profiler window closes, ``publish_telemetry``,
+``flush`` and the snapshot dumps run (each logging a warning on failure,
+never taking the run down), then ``tpu_time_tag``'s summary prints.
 """
 from __future__ import annotations
 
 import collections
+import os
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
@@ -67,6 +80,12 @@ def train(params: Dict[str, Any], train_set: Dataset,
             Log.set_level(int(_v))
         except (TypeError, ValueError):
             pass
+    # telemetry before the booster is built: its booster_init event and
+    # construction-time counters land in the recording
+    from . import observability as obs
+    obs.maybe_configure_from_env()
+    if params.get("telemetry_dir"):
+        obs.configure(telemetry_dir=str(params["telemetry_dir"]))
     if "num_iterations" not in params and "num_boost_round" not in params:
         params["num_iterations"] = num_boost_round
     if early_stopping_rounds is not None:
@@ -96,6 +115,16 @@ def train(params: Dict[str, Any], train_set: Dataset,
             vs.reference = train_set
         booster.add_valid(vs, valid_names[i] if valid_names
                           else f"valid_{i}")
+
+    # ---- HBM pre-flight (observability/memory.py), valid sets priced ----
+    from .observability import memory as obs_memory
+    try:
+        obs_memory.log_budget(obs_memory.hbm_preflight(gbdt),
+                              budget=obs_memory.hbm_budget_bytes(
+                                  config, gbdt.device))
+    except Exception as e:                                   # noqa: BLE001
+        Log.debug("HBM pre-flight estimate failed: %s: %s",
+                  type(e).__name__, e)
 
     # continued training: scores start from the loaded model's raw
     # predictions (application.cpp:90-93), and its trees stay in the forest
@@ -227,42 +256,71 @@ def train(params: Dict[str, Any], train_set: Dataset,
         tree_batch = 1
     metric_freq = max(config.metric_freq, 1)
     best_iteration = 0
-    lease, watchdog = _arm_fault_detection(config, start_iter)
+    from .utils.timer import TIMERS, maybe_torch_trace
+    if config.tpu_time_tag:
+        TIMERS.enabled = True
+    # the profiler window (tpu_profile_iters) profiles a bounded iteration
+    # range at batch boundaries; it supersedes the whole-run
+    # tpu_profile_dir trace (one profiler at a time)
+    from .observability.profiler import ProfileWindow
+    profile_out = config.tpu_profile_dir or (
+        os.path.join(obs.telemetry_dir(), "xprof")
+        if obs.telemetry_dir() else "")
+    profile_window = ProfileWindow(config.tpu_profile_iters, profile_out)
+    whole_run_profile = "" if profile_window.enabled \
+        else config.tpu_profile_dir
+    # cost reports for this run only: the prior state (the env knob, an
+    # explicit configure) is restored in the finally below; enabled right
+    # before the try, so that no setup failure leaks it into later runs
+    from .observability import costs as obs_costs
+    costs_was_enabled = None
+    if config.tpu_cost_analysis:
+        costs_was_enabled = obs_costs.enabled()
+        obs_costs.configure(enabled=True)
+    lease = watchdog = None
     try:
-        it = start_iter
-        while it < n_rounds:
-            k = min(tree_batch, n_rounds - it)
-            for cb in before:
-                cb(CallbackEnv(booster, params, it, 0, n_rounds, None))
-            if lease is not None:
-                # beat first (the lease advances before this rank goes into
-                # a possibly long batch), then the pre-batch probe: a dead
-                # peer raises PeerLostError before the collectives
-                lease.beat()
-                lease.probe()
-            if fobj is not None:
-                gbdt.train_one_iter_custom(fobj)
-            else:
-                gbdt.train_batch(k)
-            it_end = it + k
-            if watchdog is not None:
-                watchdog.beat(it_end)
-            if lease is not None:
-                lease.beat()
-            eval_results = []
-            if gbdt.valid_sets or gbdt.config.is_training_metric:
-                # eval when the batch crossed a metric_freq boundary
-                # (== (it+1) % freq == 0 at k=1)
-                if it_end // metric_freq > it // metric_freq:
-                    eval_results = gbdt.eval_all()
-                    if feval is not None:
-                        eval_results.extend(_run_feval(feval, gbdt))
-                    if gbdt._check_no_splits():
-                        break
-            for cb in after:
-                cb(CallbackEnv(booster, params, it_end - 1, 0, n_rounds,
-                               eval_results))
-            it = it_end
+        lease, watchdog = _arm_fault_detection(config, start_iter)
+        with maybe_torch_trace(whole_run_profile), \
+                obs.span("train", rows=gbdt.num_data, n_rounds=n_rounds,
+                         start_iter=start_iter, tree_batch=tree_batch,
+                         objective=config.objective):
+            it = start_iter
+            while it < n_rounds:
+                k = min(tree_batch, n_rounds - it)
+                profile_window.before_step(it, k)
+                for cb in before:
+                    cb(CallbackEnv(booster, params, it, 0, n_rounds, None))
+                if lease is not None:
+                    # beat first (the lease advances before this rank goes
+                    # into a possibly long batch), then the pre-batch
+                    # probe: a dead peer raises PeerLostError before the
+                    # collectives
+                    lease.beat()
+                    lease.probe()
+                if fobj is not None:
+                    gbdt.train_one_iter_custom(fobj)
+                else:
+                    gbdt.train_batch(k)
+                it_end = it + k
+                profile_window.after_step(it_end)
+                if watchdog is not None:
+                    watchdog.beat(it_end)
+                if lease is not None:
+                    lease.beat()
+                eval_results = []
+                if gbdt.valid_sets or gbdt.config.is_training_metric:
+                    # eval when the batch crossed a metric_freq boundary
+                    # (== (it+1) % freq == 0 at k=1)
+                    if it_end // metric_freq > it // metric_freq:
+                        eval_results = gbdt.eval_all()
+                        if feval is not None:
+                            eval_results.extend(_run_feval(feval, gbdt))
+                        if gbdt._check_no_splits():
+                            break
+                for cb in after:
+                    cb(CallbackEnv(booster, params, it_end - 1, 0, n_rounds,
+                                   eval_results))
+                it = it_end
     except EarlyStopException as e:
         best_iteration = e.best_iteration + 1
         booster.best_score = e.best_score
@@ -284,8 +342,12 @@ def train(params: Dict[str, Any], train_set: Dataset,
             from .robustness.distributed import set_active_lease
             set_active_lease(None)
             lease.withdraw()
+        _finish_telemetry(config, gbdt, profile_window)
+        if costs_was_enabled is False:
+            obs_costs.configure(enabled=False)
 
     booster._finalize()
+    TIMERS.dump()       # the reference's TIMETAG destructor dump (gbdt.cpp)
     if best_iteration:
         # best_iteration indexes the FULL forest (prev + new): predict()
         # slices self.trees from the front
@@ -294,6 +356,35 @@ def train(params: Dict[str, Any], train_set: Dataset,
     if not keep_training_booster:
         booster.free_dataset()
     return booster
+
+
+def _finish_telemetry(config: Config, gbdt, profile_window) -> None:
+    """The telemetry of a run on every exit path (early stop,
+    ``nan_policy=raise``, comm errors; ``lightgbm_tpu/engine.py:414-447``):
+    close the profiler window, publish the booster's counters (one leaf
+    count fetch with spans on), flush the trace and the JSONL stream, and
+    write ``snapshot_<pid>.json`` in the telemetry dir and the
+    ``dump_snapshot`` file. Each step logs a warning on failure and never
+    takes the run down."""
+    from . import observability as obs
+    from .observability.export import trace_file_name
+    steps = [("profiler window close", profile_window.close),
+             ("telemetry publish", gbdt.publish_telemetry),
+             ("telemetry flush", obs.flush)]
+    snaps = []
+    if config.dump_snapshot:
+        snaps.append(config.dump_snapshot)
+    if obs.telemetry_dir():
+        snaps.append(os.path.join(obs.telemetry_dir(),
+                                  trace_file_name("snapshot")))
+    for path in snaps:
+        steps.append(("snapshot dump",
+                      lambda path=path: obs.write_snapshot(path)))
+    for what, step in steps:
+        try:
+            step()
+        except Exception as e:                               # noqa: BLE001
+            Log.warning("%s failed: %s: %s", what, type(e).__name__, e)
 
 
 def _arm_fault_detection(config: Config, start_iter: int):

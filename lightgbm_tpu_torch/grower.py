@@ -208,6 +208,20 @@ class GrowerSpec:
                     min_data_per_group=self.min_data_per_group)
 
 
+def waves_for_tree(num_leaves: int, wave_size: int, hist_slots: int) -> int:
+    """Host-side wave-count model of the wave loop, for telemetry
+    attribution (``GBDT.publish_telemetry``; ``lightgbm_tpu/grower.py:
+    246-257``): a tree that finished with ``num_leaves`` leaves applied
+    ``num_leaves - 1`` splits in batches of ``min(wave_size, hist_slots)``.
+    Derived from the finished tree alone (no per-wave device traffic); it
+    undercounts by the terminal no-split wave when growth stopped on gain
+    rather than the leaf budget, which the derived ``wave`` spans say with
+    their ``derived`` tag."""
+    cap = max(1, min(wave_size, hist_slots) if wave_size > 0 else hist_slots)
+    splits = max(0, int(num_leaves) - 1)
+    return max(1, -(-splits // cap))
+
+
 def _empty_tree(L: int, B: int, device) -> TreeArrays:
     M = L - 1
     i32, f32 = torch.int32, torch.float32

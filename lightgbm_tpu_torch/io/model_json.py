@@ -218,8 +218,9 @@ def save_model_json(booster, filename: str,
     """Write the ``dump_model`` dict as a .json artifact (atomic, like the
     text/proto writers) — the symmetric half of ``load_model_json`` so
     ``save_model("m.json")`` round-trips through its own loader."""
-    from ..observability import _atomic_write_json
-    _atomic_write_json(filename, dump_model_dict(booster, num_iteration))
+    from ..observability.export import atomic_write_json
+    atomic_write_json(filename, dump_model_dict(booster, num_iteration),
+                      trailing_newline=True)
 
 
 def load_model_json(booster, filename: str) -> None:

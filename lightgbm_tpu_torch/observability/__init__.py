@@ -1,29 +1,50 @@
-"""Runtime telemetry: the metrics registry and the span tracer.
+"""Runtime telemetry of the port (``lightgbm_tpu/observability`` there).
 
-The part of ``lightgbm_tpu/observability/__init__.py`` (:54-201) that the
-serving subsystem and its tests call: ``clock``, the process-wide
-``MetricsRegistry`` (metrics.py) and ``SpanTracer`` (tracer.py),
-``configure``, ``span`` / ``event`` / ``inc``, ``snapshot``,
-``write_snapshot``, ``flush``, ``telemetry_dir`` and ``reset_for_tests``
-(the hang watchdog dumps the snapshot too). The JAX package's
-cost reports, device-memory accounting, perf ledger, profiler window and
-phase breakdown are not ported yet (ROADMAP A17b), so ``snapshot()`` holds
-the registry and the tracer's bookkeeping only.
+One subsystem for the runtime signals of training and serving:
 
-The module singletons are process-wide on purpose: a serving engine, its
-micro-batcher and a bench read the same registry. With no telemetry
+- ``SpanTracer`` (tracer.py)      — nested host spans (``train`` ->
+  ``tree_batch`` -> ``iteration`` -> derived ``wave``, plus ``eval`` and
+  ``checkpoint``), recorded at batch boundaries only, so that a captured
+  iteration is never touched: no span opens inside a captured part.
+- ``MetricsRegistry`` (metrics.py) — process-wide counters, gauges,
+  histograms and quantile summaries: the booster's kernel route and
+  shape, ``trees.trained`` / ``rows.routed``, ``tree.waves`` /
+  ``tree.leaves``, ``nan_policy``, checkpoint and comm events, and the
+  serving subsystem's ``serve.*`` traffic and p50/p99.
+- exporters (export.py)           — ``events_<pid>.jsonl`` and the Chrome
+  trace ``trace_<pid>.json`` under ``LGBM_TPU_TELEMETRY_DIR`` / config
+  ``telemetry_dir``; ``snapshot()`` is the point-in-time serving API.
+- ``ProfileWindow`` (profiler.py) — optional ``torch.profiler`` capture of
+  an iteration range (``tpu_profile_iters=start:stop``).
+- cost reports (costs.py)         — analytic per-site reports (FLOPs,
+  bytes, argument/output/temp device bytes; ``tpu_cost_analysis`` /
+  ``LGBM_TPU_COST_ANALYSIS``) as ``cost.<site>.*`` gauges, in
+  ``snapshot()`` and as trace metadata.
+- device memory (memory.py)       — ``device_memory()`` stats and the
+  analytic pre-flight residency estimate ``engine.train`` budgets
+  against.
+- ``PhaseBreakdown`` (phases.py)  — warm-up vs steady wall-clock of a
+  named phase, as ``phase.<name>.*`` gauges.
+- perf ledger (ledger.py)         — the port's normalized result history
+  and regression compare.
+
+The module singletons are process-wide on purpose: a training run, a
+serving engine and a bench read the same registry. With no telemetry
 directory configured the tracer is disabled — ``span()`` returns a shared
 no-op and the registry costs one dict lookup and an int add per event.
+Nothing here imports ``torch`` at import time.
 """
 from __future__ import annotations
 
-import json
 import os
 import time
 from typing import Dict, Optional
 
 from .metrics import MetricsRegistry
+from .phases import PhaseBreakdown  # noqa: F401  (public: phase timing)
 from .tracer import SpanTracer
+
+ENV_TELEMETRY_DIR = "LGBM_TPU_TELEMETRY_DIR"
 
 
 def clock() -> float:
@@ -35,7 +56,7 @@ def clock() -> float:
 
 _registry = MetricsRegistry()
 _tracer = SpanTracer()
-_state: Dict = {"dir": None, "jsonl_cursor": 0}
+_state: Dict = {"dir": None, "jsonl_cursor": 0, "env_checked": False}
 
 
 # ------------------------------------------------------------- configuration
@@ -66,6 +87,17 @@ def configure(telemetry_dir: Optional[str] = None,
             enabled = True
     if enabled is not None:
         _tracer.enabled = bool(enabled)
+
+
+def maybe_configure_from_env() -> None:
+    """Honor ``LGBM_TPU_TELEMETRY_DIR`` once per process (called from the
+    training entry points; explicit ``configure()`` calls always win)."""
+    if _state["env_checked"]:
+        return
+    _state["env_checked"] = True
+    env = os.environ.get(ENV_TELEMETRY_DIR)
+    if env and _state["dir"] is None:
+        configure(telemetry_dir=env)
 
 
 # ----------------------------------------------------------------- recording
@@ -102,55 +134,62 @@ def jsonl_path() -> Optional[str]:
 
 
 def snapshot() -> Dict:
-    """Point-in-time metrics snapshot (the serving API): registry contents
-    plus the tracer's bookkeeping."""
+    """Point-in-time metrics snapshot (the serving API): registry contents,
+    the tracer's bookkeeping, the cost reports (costs.py) and the card's
+    memory stats (memory.py; absent while CUDA is not initialized, so
+    this never initializes it)."""
     snap = _registry.snapshot()
     snap["spans_recorded"] = len(_tracer.events())
     snap["spans_dropped"] = _tracer.dropped
+    from . import costs as _costs
+    cost_reports = _costs.reports()
+    if cost_reports:
+        snap["cost_reports"] = cost_reports
+    from .memory import device_memory
+    dm = device_memory()
+    if dm:
+        snap["device_memory"] = dm
     return snap
-
-
-def _atomic_write_json(path: str, doc, **dump_kw) -> str:
-    """tmp + ``os.replace``: a crash mid-write never leaves a truncated
-    file behind (pid-suffixed temp, so two writers never share one)."""
-    tmp = f"{path}.tmp.{os.getpid()}"
-    with open(tmp, "w") as fh:
-        json.dump(doc, fh, **dump_kw)
-        fh.write("\n")
-    os.replace(tmp, path)
-    return path
 
 
 def write_snapshot(path: str) -> str:
     """Write ``snapshot()`` to ``path`` as JSON, atomically."""
-    return _atomic_write_json(path, snapshot(), indent=1, sort_keys=True)
+    from .export import atomic_write_json
+    return atomic_write_json(path, snapshot(), indent=1, sort_keys=True,
+                             trailing_newline=True)
 
 
 def flush() -> Optional[str]:
     """Write pending telemetry to disk: append the new events and a
     counters record to ``events_<pid>.jsonl``, rewrite the Chrome trace
-    ``trace_<pid>.json`` (Perfetto-loadable). Returns the trace path (None
-    when no directory is configured). Never called inside a hot loop."""
+    ``trace_<pid>.json`` (Perfetto-loadable, with the cost reports as
+    ``otherData.cost_reports``). Returns the trace path (None when no
+    directory is configured). Never called inside a hot loop."""
     d = _state["dir"]
     if not d:
         return None
+    from .export import JsonlWriter, write_chrome_trace
     new, _state["jsonl_cursor"] = _tracer.events_since(_state["jsonl_cursor"])
     records = [dict(ev, type="span" if ev.get("ph") == "X" else "event")
                for ev in new]
     records.append(dict(snapshot(), type="counters"))
-    with open(jsonl_path(), "a") as fh:
-        for rec in records:
-            fh.write(json.dumps(rec) + "\n")
-    return _atomic_write_json(trace_path(), {
-        "traceEvents": _tracer.events(), "displayTimeUnit": "ms",
-        "otherData": {"epoch_unix": _tracer.epoch_unix(),
-                      "producer": "lightgbm_tpu_torch"}})
+    JsonlWriter(jsonl_path()).append(records)
+    from . import costs as _costs
+    metadata = {"epoch_unix": _tracer.epoch_unix()}
+    cost_reports = _costs.reports()
+    if cost_reports:
+        metadata["cost_reports"] = cost_reports
+    return write_chrome_trace(_tracer.events(), trace_path(),
+                              metadata=metadata)
 
 
 def reset_for_tests() -> None:
     """Full reset of the process-wide singletons (test isolation)."""
+    from . import costs as _costs
     _registry.reset()
     _tracer.reset()
     _tracer.enabled = False
     _state["dir"] = None
     _state["jsonl_cursor"] = 0
+    _state["env_checked"] = False
+    _costs.reset_for_tests()

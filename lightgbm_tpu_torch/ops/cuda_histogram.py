@@ -206,6 +206,69 @@ def grid_blocks(n_active: int, num_features: int, num_bins: int,
     return min(cap, -(-int(n_active) // MIN_ROWS_PER_BLOCK))
 
 
+def histogram_pass_cost(n_rows: int, num_features: int, num_bins: int,
+                        num_slots: int, code_bytes: int = 1,
+                        derived_positions: bool = False,
+                        total_rows: Optional[int] = None,
+                        slot_table: int = 256) -> Dict[str, int]:
+    """What one pass over ``n_rows`` rows must move and do, from its shapes
+    alone: ``bytes`` reads each input byte the function needs once — the
+    codes and g / h / counts of every row of the pass, plus where each row
+    goes: its position in the partition (and the ``[S]`` segment tables),
+    or with ``derived_positions`` (no partition) every one of the
+    ``total_rows`` rows' leaf id and the ``slot_table`` entries of
+    ``slot_of_leaf`` — and writes the ``[S, F, B, 3]`` f32 output once;
+    ``operations`` are the three adds of each row and feature. The bound
+    ``chip_smoke.py`` prints beside the kernel's time, and the
+    ``histogram`` cost report (:func:`histogram_cost_report`), both come
+    from here."""
+    row_bytes = num_features * code_bytes + 3 * 4
+    if derived_positions:
+        where = (n_rows if total_rows is None else total_rows) * 4 \
+            + slot_table * 4
+    else:
+        where = n_rows * 4 + 2 * num_slots * 4
+    out = num_slots * num_features * num_bins * 3 * 4
+    return {"bytes": n_rows * row_bytes + where + out,
+            "operations": 3 * n_rows * num_features,
+            "output_bytes": out}
+
+
+def histogram_cost_report(n_rows: int, num_features: int,
+                          num_bins_padded: int, num_slots: int,
+                          code_bytes: int = 1, route: str = "cuda",
+                          force: bool = True) -> Optional[Dict]:
+    """B1's cost report at one shape class (``lightgbm_tpu/ops/
+    histogram.py:476-512`` there), analytic (``observability/costs.py``):
+    a pass whose ``num_slots`` pending leaves hold all ``n_rows`` rows,
+    read through the grower's partition — the full wave. ``flops`` and
+    ``bytes_accessed`` are :func:`histogram_pass_cost`'s; arguments are the
+    codes, g / h / counts, leaf ids, partition and segment tables and the
+    scales; the output the ``[S, F, B, 3]`` f32 histogram; the temp the
+    kernel's integer accumulators. ``route`` names what runs the pass
+    (``cuda``, or ``plain`` on the CPU). Published once per site
+    (``histogram.full.s<S>``) and shape; an explicit call runs whatever
+    ``costs.enabled()`` says (``force``)."""
+    from ..observability import costs as obs_costs
+    S, F, B, N = int(num_slots), int(num_features), int(num_bins_padded), \
+        int(n_rows)
+    site = f"histogram.full.s{S}"
+
+    def make():
+        c = histogram_pass_cost(N, F, B, S, code_bytes)
+        args = N * F * code_bytes + 3 * N * 4 + N * 4 + N * 4 \
+            + 2 * S * 4 + 2 * 8
+        return obs_costs.analytic_report(
+            site, dict(rows=N, features=F, bins=B, slots=S,
+                       code_bytes=int(code_bytes), route=route),
+            flops=c["operations"], bytes_accessed=c["bytes"],
+            argument_bytes=args, output_bytes=c["output_bytes"],
+            temp_bytes=S * F * B * BYTES_PER_BIN)
+    return obs_costs.capture(site, make,
+                             fingerprint=(N, F, B, S, int(code_bytes)),
+                             force=force)
+
+
 def _sm_count(dev: torch.device) -> int:
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     if idx not in _num_sms:

@@ -41,7 +41,7 @@ What differs from the JAX package, and why:
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -216,6 +216,42 @@ def fit_linear_leaves(tree, Xraw, Xmiss, leaf_id, g, h, included, is_cat, *,
     n_degraded = (degraded & real).sum()
     return tree._replace(leaf_feat=leaf_feat, leaf_coeff=leaf_coeff,
                          leaf_const=leaf_const), n_degraded
+
+
+def linear_cost_report(n_rows: int, num_features: int, num_leaves: int,
+                       max_features: int, route: str = "cuda",
+                       force: bool = True) -> Optional[Dict]:
+    """The linear fit's cost report at one shape class (``lightgbm_tpu/
+    ops/linear.py:284-320`` there), analytic (``observability/costs.py``):
+    ``flops`` the moments' one-hot products (``2 (L+1) N C`` in f64, ``C
+    = (K+1)^2 + K + 2`` channels) and their channel rows (``N (K+1)^2``),
+    plus the batched Cholesky and two triangular solves (``(L+1) ((K+1)^3
+    / 3 + 2 (K+1)^2)``); arguments the raw f32 slice, its missing plane,
+    the leaf ids, g / h / counts and the leaf path features; the output
+    the leaf models; the temp one chunk's one-hot and channel matrices
+    (f64) and the moments. Published once per site (``linear.fit.k<K>``)
+    and shape; an explicit call runs whatever ``costs.enabled()`` says."""
+    from ..observability import costs as obs_costs
+    N, F, L1, K = int(n_rows), int(num_features), int(num_leaves) + 1, \
+        int(max_features)
+    K1 = K + 1
+    C = K1 * K1 + K1 + 1
+    R = min(MOMENT_CHUNK_ROWS, max(N, 1))
+    site = f"linear.fit.k{K}"
+
+    def make():
+        flops = 2 * L1 * N * C + N * K1 * K1 + L1 * (K1 ** 3 // 3
+                                                      + 2 * K1 * K1)
+        args = N * F * (4 + 1) + N * 4 + 3 * N * 4 + L1 * K * 4
+        out = L1 * (4 + K * 4 + K * 4 + 1)
+        temp = R * (L1 + C) * 8 + L1 * C * 8
+        return obs_costs.analytic_report(
+            site, dict(rows=N, features=F, num_leaves=L1 - 1,
+                       max_features=K, chunk_rows=R, route=route),
+            flops=flops, bytes_accessed=args + out, argument_bytes=args,
+            output_bytes=out, temp_bytes=temp)
+    return obs_costs.capture(site, make, fingerprint=(N, F, L1, K, R),
+                             force=force)
 
 
 def linear_leaf_scores(tree, leaf_id, Xraw, Xmiss) -> torch.Tensor:

@@ -29,6 +29,8 @@ left-set masks, and bundled (EFB) codes through ``decode_bundled_bin``.
 """
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import numpy as np
 import torch
 
@@ -373,6 +375,42 @@ def forest_walk_linear(leaves, leaf_value32, leaf_const, leaf_coeff,
     return torch.where(lin, acc, base)
 
 
+def forest_cost_report(forest: "StackedForest", rows: int,
+                       route: str) -> Optional[Dict]:
+    """The forest walk's cost report (``lightgbm_tpu/ops/predict.py:
+    470-480`` there), analytic from the dispatch's shapes
+    (``observability/costs.py``), once per forest shape and chunk rows:
+    ``flops`` one compare per (row, tree, walk step) and one add per (row,
+    tree); arguments the chunk's rank codes (i32) and NaN / zero masks,
+    the node tables and the f64 leaf values (with linear leaves also the
+    raw f32 values, their missing plane and the leaf models); the output
+    the chunk's f64 raw scores; ``bytes_accessed`` arguments plus output,
+    each read or written once. Gated on ``costs.enabled()``."""
+    from ..observability import costs as obs_costs
+    T, M = forest.split_feature.shape
+    L = forest.leaf_value.shape[1]
+    F = len(forest.grids)
+    linear = bool(forest.has_linear)
+    site = "predict.forest_walk" + (".linear" if linear else "")
+
+    def make():
+        args = rows * F * (4 + 1 + 1) + T * M * (4 + 4 + 1 + 4 + 4) \
+            + T + F * 4 + T * L * 8
+        if linear:
+            Kf = forest.leaf_feat.shape[2]
+            args += rows * F * (4 + 1) + T * L * (4 + 4 + Kf * 8)
+        out = rows * 8
+        ops = rows * T * (max(forest.max_depth, 1) + 1)
+        return obs_costs.analytic_report(
+            site, dict(rows=int(rows), trees=int(T), depth=int(
+                forest.max_depth), route=route),
+            flops=ops, bytes_accessed=args + out, argument_bytes=args,
+            output_bytes=out)
+    return obs_costs.capture(
+        site, make, fingerprint=(int(rows), F, int(T), int(L), M, linear,
+                                 int(forest.max_depth)))
+
+
 def forest_predict_raw(trees, X: np.ndarray, num_features: int, device,
                        chunk_rows: int = 1 << 16,
                        forest: "StackedForest" = None) -> np.ndarray:
@@ -403,6 +441,11 @@ def forest_predict_raw(trees, X: np.ndarray, num_features: int, device,
     out = np.zeros(X.shape[0], np.float64)
     for lo in range(0, X.shape[0], chunk_rows):
         chunk = np.asarray(X[lo:lo + chunk_rows], np.float64)
+        if lo == 0:
+            # the walk's cost report, once per shape (host arithmetic)
+            forest_cost_report(forest, chunk.shape[0],
+                               "cuda" if torch.device(device).type == "cuda"
+                               else "plain")
         codes, is_nan, is_zero = forest.encode_rows(chunk)
         # uploads that do not wait for the card: the chunk's one host read
         # is its result

@@ -49,6 +49,7 @@ does so. A collective a backend cannot run raises.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import datetime
 import pickle
@@ -1172,6 +1173,21 @@ def leave_last(client, key: str, rank: int, world: int, cycle: int,
         raise
 
 
+def _leave_world_at_exit() -> None:
+    """Destroy the gloo world :func:`init_distributed` joined before the
+    interpreter finalizes. Left to finalization, the group's threads are
+    torn down in no set order, and a rank whose work was all done could
+    abort as it exits ("terminate called without an active exception").
+    Destroying a gloo group is local to the rank, so a peer that has
+    already gone does not hold it up."""
+    dist = _dist()
+    try:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    except Exception as e:          # the process is ending: never raise
+        Log.debug("leaving the world at exit: %s: %s", type(e).__name__, e)
+
+
 def init_distributed(config) -> bool:
     """Join the world the network parameters describe (reference
     Network::Init and rank discovery, application.cpp:167-178,
@@ -1229,6 +1245,9 @@ def init_distributed(config) -> bool:
             f"{backend}, timeout {config.time_out} min): "
             f"{type(e).__name__}: {e}") from e
     _store["store"] = store
+    if backend == "gloo" and not _store.get("leaves_at_exit"):
+        _store["leaves_at_exit"] = True
+        atexit.register(_leave_world_at_exit)
     Log.info("joined a world of %d processes as rank %d (%s, store %s:%d)",
              world, rank, backend, host, port)
     return True

@@ -222,7 +222,9 @@ class HangWatchdog:
             f"watchdog_dump_{os.getpid()}_{len(self.dumps)}.json")
         try:
             os.makedirs(self.dump_dir, exist_ok=True)
-            _obs._atomic_write_json(path, payload, indent=1, default=str)
+            from ..observability.export import atomic_write_json
+            atomic_write_json(path, payload, indent=1, default=str,
+                              trailing_newline=True)
         except Exception as e:                               # noqa: BLE001
             Log.warning("watchdog: cannot write diagnostic dump %s: %s: %s",
                         path, type(e).__name__, e)

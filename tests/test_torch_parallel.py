@@ -176,6 +176,33 @@ out["modules"] = sorted(m for m in sys.modules
 json.dump(out, open(spec["out"].format(rank=rank), "w"))
 '''
 
+EXIT_SCRIPT = r'''
+import atexit, json, sys
+import torch
+torch.set_num_threads(1)
+spec = json.load(open(sys.argv[1])); rank = int(sys.argv[2])
+import torch.distributed as dist
+import lightgbm_tpu_torch as lgt
+from lightgbm_tpu_torch.parallel import comm
+
+
+def report():
+    # registered before the world is joined, so it runs after the port's
+    # own exit hook
+    json.dump({"initialized_at_exit": dist.is_initialized()},
+              open(spec["out"].format(rank=rank), "w"))
+
+
+atexit.register(report)
+cfg = lgt.Config.from_params(dict(
+    machines=spec["machines"], num_machines=spec["world"],
+    local_listen_port=spec["ports"][rank], time_out=1, device="cpu"))
+assert comm.init_distributed(cfg)
+t = torch.ones(4)
+dist.all_reduce(t)
+assert t.tolist() == [2.0] * 4
+'''
+
 
 def _exact_fobj(preds, ds):
     """Gradients on a 1/64 grid, unit hessians: every f32 sum exact."""
@@ -653,6 +680,14 @@ def test_host_allgather_exchanges_in_rank_order_and_cleans_up(tmp_path):
         assert out["seqs"] == [0, 1]
         assert out["own_keys_left"] == [False, False]
         assert out["modules"] == []
+
+
+def test_gloo_world_is_left_before_the_interpreter_finalizes(tmp_path):
+    """A gloo world ``init_distributed`` joined is destroyed by an exit
+    hook, before the interpreter's teardown: both ranks exit 0 with no
+    group left."""
+    outs = run_world(EXIT_SCRIPT, 2, {}, str(tmp_path))
+    assert [o["initialized_at_exit"] for o in outs] == [False, False]
 
 
 def test_host_allgather_names_tag_sequence_and_ranks_on_timeout(monkeypatch):

@@ -191,7 +191,14 @@ def test_imports_neither_jax_nor_the_jax_package():
             "lightgbm_tpu_torch.sklearn, lightgbm_tpu_torch.boosting.goss, "
             "lightgbm_tpu_torch.boosting.dart, "
             "lightgbm_tpu_torch.boosting.rf, lightgbm_tpu_torch.efb, "
-            "lightgbm_tpu_torch.ops.linear\n"
+            "lightgbm_tpu_torch.ops.linear, "
+            "lightgbm_tpu_torch.observability.export, "
+            "lightgbm_tpu_torch.observability.phases, "
+            "lightgbm_tpu_torch.observability.costs, "
+            "lightgbm_tpu_torch.observability.profiler, "
+            "lightgbm_tpu_torch.observability.ledger, "
+            "lightgbm_tpu_torch.observability.memory, "
+            "lightgbm_tpu_torch.utils.timer\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'lightgbm_tpu' or "
             "m.startswith('lightgbm_tpu.')]\n"
