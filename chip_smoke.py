@@ -302,8 +302,31 @@ Phases (any failure exits non-zero and prints no result line):
    Printed, not gated: ms per iteration inside and outside the window
    beside phase 13's captured K=1.
 
-``--phases 3,11`` runs only the listed phases (and those they need: 5-7
-and 12-20 add phase 4); such a partial run prints no result lines and
+21. wide bins on the card (ROADMAP B1c): 200,000 x 8, every value
+   distinct, exact-arithmetic L2 labels, 5 rounds at ``max_bin`` 16,383
+   (``int16`` codes, two bin tiles per feature) and 40,000 (``int32``
+   codes up to 39,999, four tiles): the card's model text must equal the
+   CPU port's, B1 launched. Phase 3's ``wide`` (F = 8, B = 16,384,
+   ``int16``) and ``wide32`` (F = 4, B = 40,008, ``int32``) cases hold
+   the tiled kernel bit-equal to the plain version at 2M rows.
+
+22. the capture guard and the op-trace tier on the card (A19), on phase
+   4's data and parameters. (a) ``analysis.CaptureGuard`` around 10
+   captured rounds with telemetry on, warm after the capture iteration:
+   0 captures after warm, 1.00 host sync per steady tree (the runner's
+   flag reads plus the calls ``set_sync_debug_mode`` flags) and the one
+   publish fetch, phase 4's text, the report through
+   ``PhaseBreakdown.attach_guard``; then the graphs dropped and one more
+   iteration: the guard must raise ``GuardViolation``. (b) the guard over
+   a ``ServingEngine`` of that model, 300 requests of 1-64 rows: 0
+   captures after warm-up. (c) contracts T001, T004, T006 and T010
+   evaluated on programs recorded on CUDA tensors (one tree's waves, one
+   eager iteration's parts, the forest walk of 65,536 rows): no sort over
+   rows, no host transfer, f64 only at its allowlisted sites, and exactly
+   one B1 pass per wave by ``launch_count()``.
+
+``--phases 3,11`` runs only the listed phases (and those they need: 5-7,
+12-20 and 22 add phase 4); such a partial run prints no result lines and
 exits 4.
 
 The card's line comes before the last two lines; the line before the last
@@ -369,10 +392,12 @@ def elapsed(t_start):
 
 def kernel_name(mangled):
     """A readable name for a kernel of csrc/histogram.cu in ptxas output."""
-    m = re.search(r"hist_kernelI([ht])Lb([01])E", mangled)
+    m = re.search(r"hist_kernelI([htj])Lb([01])ELb([01])E", mangled)
     if m:
-        return (f"hist_kernel<{'uint8' if m.group(1) == 'h' else 'uint16'}, "
-                f"{'aligned' if m.group(2) == '1' else 'unaligned'} rows>")
+        code = {"h": "uint8", "t": "uint16", "j": "int32"}[m.group(1)]
+        return (f"hist_kernel<{code}, "
+                f"{'aligned' if m.group(2) == '1' else 'unaligned'} rows, "
+                f"{'bin tiles' if m.group(3) == '1' else 'untiled'}>")
     return "finalize_kernel" if "finalize_kernel" in mangled else mangled
 
 
@@ -553,7 +578,72 @@ def kernel_phase(dev):
         del plain, X, leaf_id, kw, args, gw, hw, inc
         torch.cuda.empty_cache()
     results["graph"] = graph_case(dev, gen, X8, g, h)
+    results.update(wide_cases(dev, g, h))
     malformed_input_check()
+    return results
+
+
+WIDE_CASES = {   # name: (features, num_bins_padded, codes) — ROADMAP B1c
+    "wide": (8, 16_384, "int16"),      # max_bin 16,383: two bin tiles
+    "wide32": (4, 40_008, "int32"),    # max_bin 40,000: codes >= 2**15
+}
+
+
+def wide_cases(dev, g, h):
+    """Phase 3's ``wide`` and ``wide32`` cases (B1c): the ``full`` wave
+    (25 pending leaves holding every row, through the partition) at a
+    width past one block's shared memory, so that each feature's bins are
+    cut into tiles (``ops/cuda_histogram.bin_tiles``); ``wide32``'s codes
+    reach past ``2**15`` as ``int32``. Each must be bit-equal to the plain
+    version; a generator of their own keeps the earlier cases' inputs."""
+    import torch
+    from lightgbm_tpu_torch.ops.cuda_histogram import (
+        bin_tiles, build_histograms_cuda, launch_count)
+    from lightgbm_tpu_torch.ops.histogram import (build_histograms,
+                                                  histogram_scales)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    L = 255
+    leaf_id = torch.randint(0, S, (N,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    sol = torch.full((L + 1,), -1, dtype=torch.int32, device=dev)
+    sol[:S] = torch.arange(S, dtype=torch.int32, device=dev)
+    kw = _partition_kw(leaf_id, torch.arange(S, device=dev), L + 1)
+    ones = torch.ones(N, device=dev)
+    scales = histogram_scales(g, h)
+    results = {}
+    for name, (nf, nb, code) in WIDE_CASES.items():
+        X = torch.randint(0, nb, (N, nf), generator=gen, device=dev,
+                          dtype=torch.int32).to(getattr(torch, code))
+        args = (X, g, h, ones, leaf_id, sol, S, nb)
+        plain = build_histograms(*args, scales=scales, **kw)
+        before = launch_count()
+        out1 = build_histograms_cuda(*args, scales=scales, **kw)
+        out2 = build_histograms_cuda(*args, scales=scales, **kw)
+        torch.cuda.synchronize()
+        counted = launch_count() - before
+        bit_equal = bool(torch.equal(out1, plain))
+        identical = bool(torch.equal(out1, out2))
+        max_abs = float((out1 - plain).abs().max())
+        tile, tiles = bin_tiles(nb)
+        top = int(X.max())
+        print(f"  {name}: F={nf}, B={nb} in {tiles} bin tiles of {tile}, "
+              f"{code} codes up to {top}: bit-equal to plain {bit_equal} "
+              f"(max abs err {max_abs:.3e}), two launches identical "
+              f"{identical}, passes counted {counted}", flush=True)
+        if not bit_equal:
+            fail(f"{name}: the kernel is not bit-equal to the plain version")
+        if not identical or counted != 2:
+            fail(f"{name}: two launches differ or counted {counted} passes")
+        if code == "int32" and top < 2 ** 15:
+            fail(f"{name}: no code of 2**15 or more was drawn")
+        del out1, out2, plain
+        ms = cuda_time_ms(
+            lambda: build_histograms_cuda(*args, scales=scales, **kw), 10)
+        results[name] = dict(pass_costs(name, args, scales, kw, ms),
+                             max_abs_err=max_abs, max_rel_err=0.0,
+                             bit_equal=True)
+        del X, args
+        torch.cuda.empty_cache()
     return results
 
 
@@ -2316,27 +2406,28 @@ def _steady_arm(bst, label):
     iteration over ``BATCH_STEADY`` iterations of one batch call (the
     booster's own ``tree_batch``), then device busy ms and idle share from
     a profiler window of ``BATCH_PROFILED`` iterations."""
-    import warnings
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from lightgbm_tpu_torch.analysis import CaptureGuard
     from lightgbm_tpu_torch.ops.cuda_histogram import launch_count
     gbdt = bst._gbdt
     K = gbdt.num_models
     r0, s0, t0_trees = _arm_stats(gbdt)
+    # the guard counts the runner's flag reads and the calls
+    # set_sync_debug_mode flags (analysis/guards.py)
+    guard = CaptureGuard(label, fail=False, device="cuda")
+    guard.register(gbdt._graphs, "iteration")
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
+    with guard:
+        guard.mark_warm()
         t0 = time.perf_counter()
         try:
             gbdt.train_batch(BATCH_STEADY)
             torch.cuda.synchronize()
         finally:
             t1 = time.perf_counter()
-            torch.cuda.set_sync_debug_mode(0)
-    # the closing synchronize above is the measurement's own
-    debug_syncs = sum("synchroniz" in str(w.message) for w in caught)
     r1, s1, t1_trees = _arm_stats(gbdt)
+    debug_syncs = guard.host_syncs - (s1 - s0)
     trees = BATCH_STEADY * K
     ms = (t1 - t0) / BATCH_STEADY * 1e3
     reads = s1 - s0
@@ -4693,10 +4784,10 @@ def _observability_arm(mres, window, kres):
     import logging
     import shutil
     import tempfile
-    import warnings
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch import observability as obs
+    from lightgbm_tpu_torch.analysis import CaptureGuard
     from lightgbm_tpu_torch.boosting.gbdt import GBDT
     from lightgbm_tpu_torch.observability.export import read_jsonl
     from lightgbm_tpu_torch.observability.memory import device_memory
@@ -4711,54 +4802,34 @@ def _observability_arm(mres, window, kres):
                   tpu_profile_iters=window, tpu_cost_analysis=True,
                   tpu_time_tag=True)
     stamps = []
-    publish = {}
-    origins = []
+    reads = {}
     orig_publish = GBDT.publish_telemetry
-
-    def nsync():
-        return sum("synchroniz" in str(w.message) for w in caught)
+    # the steady iterations' syncs (the runner's flag reads and the calls
+    # set_sync_debug_mode flags) and the run's one publish fetch, each
+    # counted by a guard (analysis/guards.py), as phases 13 and 22 count
+    guard = CaptureGuard(f"phase 20 {window}", fail=False, device="cuda")
+    publish = CaptureGuard("publish", fail=False, device="cuda")
 
     def stamp(env):
-        # host clock at each iteration's end; after the capture (iteration
-        # 1) the synchronizing calls set_sync_debug_mode flags are recorded,
-        # as phase 13 records them over its steady iterations
+        # host clock at each iteration's end; the guard's window runs from
+        # the capture (iteration 1) to the last iteration
         stamps.append(time.perf_counter())
+        r = env.model._gbdt._graphs
         if env.iteration == 1:
-            r = env.model._gbdt._graphs
-            publish["reads0"] = (r.syncs, r.trees) if r else (0, 0)
-            torch.cuda.set_sync_debug_mode("warn")
-            # turning the mode on warns once itself: not the run's
-            publish["base"] = nsync()
-
-    def record(message, category, filename, lineno, file=None, line=None):
-        # each flagged call with the innermost frame of the port or this
-        # script that made it
-        caught.append(warnings.WarningMessage(message, category, filename,
-                                              lineno))
-        if "synchroniz" in str(message):
-            import traceback
-            frames = [f for f in traceback.extract_stack()[:-1]
-                      if "lightgbm_tpu_torch" in f.filename
-                      or "chip_smoke" in f.filename]
-            if frames:
-                f = frames[-1]
-                origins.append(f"{os.path.basename(f.filename)}:{f.lineno} "
-                               f"{f.name}")
+            reads["0"] = (r.syncs, r.trees) if r else (0, 0)
+            guard.register(r, "iteration")
+            guard.__enter__()
+            guard.mark_warm()
+        elif env.iteration == OBS_ROUNDS - 1 and guard.active:
+            reads["1"] = (r.syncs, r.trees) if r else (0, 0)
+            guard.__exit__(None, None, None)
 
     def counted_publish(self):
-        # the run's one leaf-count fetch, counted apart from the loop's
-        publish["before"] = nsync()
-        try:
+        with publish:
             orig_publish(self)
-        finally:
-            publish["syncs"] = nsync() - publish["before"]
-            torch.cuda.set_sync_debug_mode(0)
 
     try:
-        with warnings.catch_warnings(record=True) as caught, \
-                _Records(logging.DEBUG) as logs:
-            warnings.simplefilter("always")
-            warnings.showwarning = record
+        with _Records(logging.DEBUG) as logs:
             GBDT.publish_telemetry = counted_publish
             reset_launch_count()            # the arm's path starts
             t0 = time.perf_counter()
@@ -4770,16 +4841,19 @@ def _observability_arm(mres, window, kres):
             secs = time.perf_counter() - t0
     finally:
         GBDT.publish_telemetry = orig_publish
-        torch.cuda.set_sync_debug_mode(0)
+        if guard.active:
+            guard.__exit__(None, None, None)
     gbdt = bst._gbdt
     runner = gbdt._graphs
-    flagged = publish.get("before", 0) - publish.get("base", 0)
     replayed = runner.trees if runner is not None else 0
-    reads0, trees0 = publish.get("reads0", (0, 0))
-    steady = replayed - trees0
-    syncs_per_tree = (runner.syncs - reads0 + flagged) / max(steady, 1) \
+    (reads0, trees0), (reads1, trees1) = (reads.get("0", (0, 0)),
+                                          reads.get("1", (0, 0)))
+    steady = trees1 - trees0
+    flagged = guard.host_syncs - (reads1 - reads0)
+    syncs_per_tree = guard.host_syncs / max(steady, 1) \
         if runner is not None else float("nan")
-    where = [o for o in origins if " stamp" not in o]
+    where = guard.sync_sites
+    publish = {"syncs": publish.host_syncs}
     digest = text_digest(text)
     not_captured = [m for m in logs if m.startswith("not captured:")]
     timetag = [m for m in logs if m.startswith("TIMETAG phase summary")]
@@ -4788,7 +4862,7 @@ def _observability_arm(mres, window, kres):
           f"phase 4's {digest == mres['digest']}; B1 launches {launches}; "
           f"{replayed} trees replayed from CUDA graphs; host syncs per "
           f"tree after the capture {syncs_per_tree:.2f} over {steady} trees "
-          f"({runner and runner.syncs - reads0} flag reads + {flagged} "
+          f"({reads1 - reads0} flag reads + {flagged} "
           f"flagged calls {where}), the publish fetch "
           f"{publish.get('syncs')} sync(s); 'not captured:' lines "
           f"{len(not_captured)}; predictions finite "
@@ -4926,7 +5000,298 @@ def observability_phase(mres, bres, kres):
     return dict(launches=launches)
 
 
-PHASES = tuple(range(1, 21))
+WIDE_ROWS, WIDE_F, WIDE_ROUNDS = 200_000, 8, 5     # phase 21
+WIDE_MAX_BINS = (16_383, 40_000)
+WIDE_PARAMS = {"objective": "regression", "num_leaves": 15,
+               "min_data_in_leaf": 20, "min_data_in_bin": 1,
+               "boost_from_average": False, "learning_rate": 0.5,
+               "metric": "none", "verbose": -1}
+
+
+def wide_data(n, f, seed):
+    """Every value distinct (each column a permutation of the rows, on a
+    1/64 grid, exact in f32), so that ``max_bin`` bins are found; L2
+    labels on a 1/4 grid (exact arithmetic)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    X = np.stack([rng.permutation(n) for _ in range(f)], 1) \
+        .astype(np.float32) / 64.0
+    y = (np.floor(X[:, 0] * 256.0 / n) / 4.0 + (X[:, 1] > n / 128.0) * 0.5
+         - (X[:, 2] > n / 100.0) * 0.25).astype(np.float32)
+    return X, y
+
+
+def wide_bins_phase():
+    """Phase 21: wide bins on the card (ROADMAP B1c). 200,000 x 8, every
+    value distinct, exact-arithmetic L2 labels, 5 rounds at ``max_bin``
+    16,383 (``int16`` codes, two bin tiles) and 40,000 (``int32`` codes,
+    four tiles): the card's model text must equal the CPU port's, B1
+    launched on the card, the codes of the card's dtype."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.cuda_histogram import (
+        bin_tiles, launch_count, reset_launch_count)
+    X, y = wide_data(WIDE_ROWS, WIDE_F, SEED + 21)
+    launches = 0
+    for max_bin in WIDE_MAX_BINS:
+        params = dict(WIDE_PARAMS, max_bin=max_bin)
+        reset_launch_count()
+        t0 = time.perf_counter()
+        card = lgt.train(params, lgt.Dataset(X, label=y),
+                         num_boost_round=WIDE_ROUNDS,
+                         keep_training_booster=True)
+        text = card.model_to_string()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n = launch_count()
+        launches += n
+        g = card._gbdt
+        nb = g.spec.num_bins_padded
+        dtype = g.Xb.dtype
+        top = int(g.Xb.max())
+        cpu = lgt.train(dict(params, device="cpu"), lgt.Dataset(X, label=y),
+                        num_boost_round=WIDE_ROUNDS)
+        t2 = time.perf_counter()
+        equal = cpu.model_to_string() == text
+        tile, tiles = bin_tiles(nb)
+        print(f"  max_bin {max_bin}: num_bins_padded {nb} ({tiles} bin "
+              f"tiles of {tile}), {dtype} codes up to {top} on the card, "
+              f"ingest {'device' if g._ingest_report else 'host'}; "
+              f"{WIDE_ROUNDS} rounds on the card {t1 - t0:.2f} s (binning "
+              f"included), B1 launches {n}, {len(card.trees)} trees; the "
+              f"CPU port {t2 - t1:.2f} s; model text equal to the CPU "
+              f"port's {equal}; sha256 {text_digest(text)}", flush=True)
+        if not equal:
+            fail(f"phase 21: max_bin {max_bin}: the card's model text is "
+                 "not the CPU port's")
+        if n < WIDE_ROUNDS or len(card.trees) != WIDE_ROUNDS:
+            fail(f"phase 21: max_bin {max_bin}: {n} B1 launches, "
+                 f"{len(card.trees)} trees")
+        want = torch.int32 if max_bin > 2 ** 15 else torch.int16
+        if dtype != want or tiles < 2 or (want == torch.int32
+                                          and top < 2 ** 15):
+            fail(f"phase 21: max_bin {max_bin}: {dtype} codes up to {top}, "
+                 f"{tiles} tiles")
+        del card, cpu, g
+        torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
+GUARD_ROUNDS = 10                   # phase 22 (a): phase 4's rounds
+GUARD_REQUESTS = 300                # phase 22 (b): requests of 1-64 rows
+CARD_CONTRACTS = ("T001", "T004", "T006", "T010")
+
+
+def _guarded_training(mres):
+    """Phase 22 (a): ``CaptureGuard`` over phase 4's training, captured,
+    with telemetry on. The guard's window is the steady iterations: it is
+    entered after the capture iteration (iteration 1) and left after the
+    last, so the set-up, the warm-up and the model fetch after training lie
+    outside it, as in phase 20's count; a second guard counts the run's
+    one publish fetch. Then a planted recapture that the guard must
+    refuse."""
+    import tempfile
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import observability as obs
+    from lightgbm_tpu_torch.analysis import CaptureGuard, GuardViolation
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.observability.phases import PhaseBreakdown
+    from lightgbm_tpu_torch.ops.cuda_histogram import (launch_count,
+                                                       reset_launch_count)
+    ds, X, _ = mres["data"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_22_")
+    obs.reset_for_tests()
+    guard = CaptureGuard("train", device="cuda")
+    publish = CaptureGuard("publish", device="cuda")
+    steady = {}
+
+    def window(env):
+        # iteration 0 runs eagerly, iteration 1 captures the graphs
+        if env.iteration == 1:
+            graphs = env.model._gbdt._graphs
+            guard.register(graphs, "iteration")
+            guard.__enter__()
+            guard.mark_warm()
+            steady["trees0"] = graphs.trees
+        elif env.iteration == GUARD_ROUNDS - 1:
+            steady["trees"] = env.model._gbdt._graphs.trees \
+                - steady["trees0"]
+            guard.__exit__(None, None, None)
+
+    orig_publish = GBDT.publish_telemetry
+
+    def counted_publish(self):
+        with publish:
+            orig_publish(self)
+    reset_launch_count()
+    t0 = time.perf_counter()
+    GBDT.publish_telemetry = counted_publish
+    try:
+        bst = lgt.train(dict(MAIN_PARAMS, telemetry_dir=tmp), ds,
+                        num_boost_round=GUARD_ROUNDS, callbacks=[window],
+                        keep_training_booster=True)
+    finally:
+        GBDT.publish_telemetry = orig_publish
+        if guard.active:                      # a failure inside the window
+            guard.__exit__(None, None, None)
+    secs = time.perf_counter() - t0
+    text = bst.model_to_string()
+    graphs = bst._gbdt._graphs
+    rep = guard.report()
+    trees = steady.get("trees", 0)
+    per_tree = rep["host_syncs"] / max(trees, 1)
+    fetch = publish.report()["host_syncs"]
+    pb = PhaseBreakdown("guarded")
+    pb.attach_guard(rep)
+    print(f"  (a) CaptureGuard over the steady iterations of {GUARD_ROUNDS} "
+          f"captured rounds ({secs:.2f} s): report {rep}; captures after "
+          f"warm {rep['post_warmup_cache_misses']}; host syncs per tree "
+          f"{per_tree:.2f} over {trees} steady trees (flagged sites "
+          f"{guard.sync_sites}); the publish fetch {fetch} sync(s) "
+          f"({publish.sync_sites}); model text phase 4's "
+          f"{text_digest(text) == mres['digest']}; B1 launches "
+          f"{launch_count()}; PhaseBreakdown.attach_guard -> "
+          f"{pb.to_dict()}", flush=True)
+    if rep["post_warmup_cache_misses"] != 0 or not rep["warm_marked"]:
+        fail("phase 22 (a): the guarded training captured after warm-up")
+    if f"{per_tree:.2f}" != "1.00" or fetch != 1 or trees < 1:
+        fail(f"phase 22 (a): {per_tree:.2f} host syncs per tree, "
+             f"{fetch} in the publish fetch")
+    if text_digest(text) != mres["digest"]:
+        fail("phase 22 (a): the guarded run's model text is not phase 4's")
+    # a planted recapture: the graphs dropped, the next iteration captures
+    # them again, and the guard must raise on exit
+    planted = CaptureGuard("planted", device="cuda")
+    planted.register(graphs, "iteration")
+    raised = None
+    try:
+        with planted:
+            planted.mark_warm()
+            graphs.graphs.clear()
+            bst.update()
+    except GuardViolation as e:
+        raised = str(e)
+    print(f"  (a) planted recapture (graphs dropped, one more iteration): "
+          f"GuardViolation raised {raised is not None}: {raised}",
+          flush=True)
+    if raised is None:
+        fail("phase 22 (a): the guard did not refuse a recapture")
+    obs.reset_for_tests()
+    return bst, text, launch_count()
+
+
+def _guarded_serving(text, X):
+    """Phase 22 (b): ``CaptureGuard`` around a ``ServingEngine`` of phase
+    4's model over a few hundred requests: no capture after warm-up."""
+    import tempfile
+    import numpy as np
+    from lightgbm_tpu_torch.analysis import CaptureGuard
+    from lightgbm_tpu_torch.serving import ServingEngine
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_22_"),
+                        "model.txt")
+    with open(path, "w") as fh:
+        fh.write(text)
+    eng = ServingEngine(path, params={"device": "cuda", "verbose": -1})
+    rng = np.random.default_rng(SEED + 22)
+    guard = CaptureGuard("serve", device="cuda")
+    guard.register(eng, "engine")
+    sizes = rng.integers(1, 65, GUARD_REQUESTS)
+    t0 = time.perf_counter()
+    with guard:
+        guard.mark_warm()
+        for n in sizes:
+            lo = int(rng.integers(0, X.shape[0] - 64))
+            eng.predict(X[lo:lo + int(n)])
+    secs = time.perf_counter() - t0
+    rep = guard.report()
+    print(f"  (b) CaptureGuard over ServingEngine ({eng.captures()} captures "
+          f"at warmup, buckets {eng.buckets}): {GUARD_REQUESTS} requests of "
+          f"1-64 rows in {secs:.2f} s; captures after warm "
+          f"{rep['post_warmup_cache_misses']}; host syncs flagged "
+          f"{rep['host_syncs']} ({rep['host_syncs'] / GUARD_REQUESTS:.2f} "
+          f"per request; sites {sorted(set(guard.sync_sites))})",
+          flush=True)
+    if rep["post_warmup_cache_misses"] != 0:
+        fail("phase 22 (b): the serving engine captured after warm-up")
+    eng.close()
+
+
+def _contracts_on_the_card(bst, X):
+    """Phase 22 (c): T001, T004, T006 and T010 recorded on CUDA tensors at
+    phase 4's shape: one tree's waves, one eager iteration's parts and the
+    forest walk, with B1's passes counted on the card."""
+    import torch
+    from lightgbm_tpu_torch.analysis.contracts import (CONTRACTS,
+                                                       TracedProgram,
+                                                       evaluate)
+    from lightgbm_tpu_torch.analysis.contracts import entries as E
+    from lightgbm_tpu_torch.ops.cuda_histogram import launch_count
+    gbdt = bst._gbdt
+    progs = {}
+    t0 = time.perf_counter()
+    before = launch_count()
+    trace = E.record_waves(gbdt._grower, *E._tree_inputs(gbdt))
+    torch.cuda.synchronize()
+    passes = launch_count() - before
+    wave = TracedProgram("grower.wave", "card", trace,
+                         kernel_launches=passes, expected_launches=trace.waves)
+    progs["T001"] = progs["T004"] = wave
+    before = launch_count()
+    it_trace = E.record_iteration(gbdt)
+    torch.cuda.synchronize()
+    progs["T006"] = TracedProgram(
+        "boosting.iteration", "card", it_trace,
+        kernel_launches=launch_count() - before,
+        expected_launches=it_trace.waves)
+    progs["T010"] = TracedProgram(
+        "predict.forest_walk", "card",
+        E.record_walk(bst, X[:65_536], device="cuda"))
+    secs = time.perf_counter() - t0
+    sorts = [(r.numel, r.site) for r in trace.ops if r.name == "sort"]
+    bad = {}
+    for cid in CARD_CONTRACTS:
+        c = CONTRACTS[cid]
+        p = progs[cid]
+        bad[cid] = evaluate(c, c.targets[0], p)
+    print(f"  (c) recorded on the card in {secs:.2f} s: one tree's "
+          f"{trace.waves} waves ({len(trace.ops)} aten operations on "
+          f"{sorted({d for r in trace.ops for d in r.devices})}, host "
+          f"transfers {len(trace.host_transfers())}, sorts {sorts}), B1 "
+          f"passes counted on the card {passes} = waves {trace.waves} "
+          f"{passes == trace.waves}; one iteration's parts "
+          f"{len(it_trace.ops)} operations, host transfers "
+          f"{len(it_trace.host_transfers())}, B1 passes "
+          f"{progs['T006'].kernel_launches} for {it_trace.waves} waves; the "
+          f"forest walk {len(progs['T010'].trace.ops)} operations",
+          flush=True)
+    for cid, findings in bad.items():
+        print(f"  (c) {cid} {CONTRACTS[cid].title}: "
+              f"{'clean' if not findings else findings}", flush=True)
+    if any(bad.values()):
+        fail(f"phase 22 (c): contracts broken on the card: "
+             f"{ {k: v for k, v in bad.items() if v} }")
+    if passes != trace.waves or trace.waves < 1:
+        fail(f"phase 22 (c): {passes} B1 passes for {trace.waves} waves")
+    return passes + progs["T006"].kernel_launches
+
+
+def guard_phase(mres):
+    """Phase 22: the capture guard and the op-trace tier on the card."""
+    import torch
+    t0 = time.perf_counter()
+    _, X, _ = mres["data"]
+    bst, text, launches = _guarded_training(mres)
+    _guarded_serving(text, X)
+    launches += _contracts_on_the_card(bst, X)
+    del bst
+    torch.cuda.empty_cache()
+    print(f"  histogram kernel launches in phase 22: {launches}; phase 22 "
+          f"took {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(launches=launches)
+
+
+PHASES = tuple(range(1, 23))
 
 
 def main():
@@ -4953,8 +5318,8 @@ def main():
     dev = torch.device("cuda", 0)
     want = set(PHASES) if not args.phases else \
         {int(p) for p in args.phases.split(",")}
-    # phases 5-7 and 12-17 run on phase 4's data and booster
-    if want & {5, 6, 7, 12, 13, 14, 15, 16, 17, 18, 19, 20}:
+    # phases 5-7, 12-20 and 22 run on phase 4's data and booster
+    if want & {5, 6, 7, 12, 13, 14, 15, 16, 17, 18, 19, 20, 22}:
         want.add(4)
 
     t_start = time.perf_counter()
@@ -5122,6 +5487,25 @@ def main():
         ores = observability_phase(mres, bres if 13 in want else None,
                                    kres)
 
+    wres = none
+    if 21 in want:
+        elapsed(t_start)
+        print(f"phase 21: wide bins on the card ({WIDE_ROWS} x {WIDE_F}, "
+              f"exact-arithmetic L2 labels, {WIDE_ROUNDS} rounds at max_bin "
+              f"{' and '.join(map(str, WIDE_MAX_BINS))}; card vs the CPU "
+              f"port)", flush=True)
+        wres = wide_bins_phase()
+
+    gdres = none
+    if 22 in want:
+        elapsed(t_start)
+        print(f"phase 22: the capture guard and the op-trace tier on the card "
+              f"(phase 4's data: (a) {GUARD_ROUNDS} captured rounds guarded, "
+              f"a planted recapture; (b) ServingEngine, {GUARD_REQUESTS} "
+              f"requests; (c) {', '.join(CARD_CONTRACTS)} recorded on CUDA "
+              f"tensors)", flush=True)
+        gdres = guard_phase(mres)
+
     elapsed(t_start)
     if want != set(PHASES):
         print(f"partial run of phases {sorted(want)}: no result lines",
@@ -5136,7 +5520,8 @@ def main():
           f"{bres['launches']}, phase 14 {vres['launches']}, phase 15 "
           f"{nres['launches']}, phase 16 {fres['launches']}, phase 17 "
           f"{tres['launches']}, phase 18 {pres['launches']}, phase 19 "
-          f"{rbres['launches']}, phase 20 {ores['launches']}", flush=True)
+          f"{rbres['launches']}, phase 20 {ores['launches']}, phase 21 "
+          f"{wres['launches']}, phase 22 {gdres['launches']}", flush=True)
 
     full = kres["full"]
     kernels = {"kernels": [{
@@ -5148,7 +5533,8 @@ def main():
         + rres["launches"] + xres["launches"] + eres["launches"]
         + lres["launches"] + bres["launches"] + vres["launches"]
         + nres["launches"] + fres["launches"] + tres["launches"]
-        + pres["launches"] + rbres["launches"] + ores["launches"],
+        + pres["launches"] + rbres["launches"] + ores["launches"]
+        + wres["launches"] + gdres["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kres.values()),
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
@@ -5167,7 +5553,8 @@ def main():
             "13": bres["launches"], "14": vres["launches"],
             "15": nres["launches"], "16": fres["launches"],
             "17": tres["launches"], "18": pres["launches"],
-            "19": rbres["launches"], "20": ores["launches"]},
+            "19": rbres["launches"], "20": ores["launches"],
+            "21": wres["launches"], "22": gdres["launches"]},
     }]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

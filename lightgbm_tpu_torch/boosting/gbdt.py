@@ -97,15 +97,18 @@ from ..grower import (BundleDecode, GrowerSpec, StreamedGrower, TreeArrays,
                       TreeGrower, waves_for_tree)
 from ..metrics import Metric, _PointwiseRegressionMetric, create_metrics
 from ..objectives import create_objective
-from ..ops.cuda_histogram import feature_groups, histogram_cost_report
+from ..ops.cuda_histogram import histogram_cost_report
+from ..ops.histogram import device_code_dtype
 from ..ops.linear import (fit_linear_leaves, linear_cost_report,
                           linear_leaf_scores)
 from ..ops.predict import leaves_from_binned
+from ..robustness import allowed_host_sync
 from ..robustness.numeric import (FLAG_NAMES, NonFiniteError, clip_nonfinite,
                                   nonfinite_flag)
 from ..parallel.comm import make_parallel_context
 from ..tree import Tree, tree_from_device_arrays
 from .. import observability as obs
+from ..analysis.contracts.registry import trace_entry
 from ..observability import costs as obs_costs
 from ..utils import prng
 from ..utils.log import Log
@@ -144,13 +147,18 @@ class ValidSet(MetadataDuckTyping):
         self.weight_dev: Optional[torch.Tensor] = None
 
 
-def _codes_tensor(codes: np.ndarray, device) -> torch.Tensor:
+def _codes_tensor(codes: np.ndarray, device, num_bins: int) -> torch.Tensor:
+    """Host codes on ``device`` in :func:`ops.histogram.device_code_dtype`
+    for features of at most ``num_bins`` bins: ``uint16`` codes are viewed
+    as ``int16`` (PyTorch gathers ``int16`` but not ``uint16``), or widened
+    to ``int32`` where a feature has more than 32,768 bins, so that a code
+    of ``2**15`` or more keeps its value (ROADMAP B1c)."""
     codes = np.ascontiguousarray(codes)
     if codes.dtype == np.uint16:
-        # PyTorch gathers int16 but not uint16. On the card every code is
-        # below the kernel's bin limit (checked in GBDT.__init__), far below
-        # 2**15; on the CPU the plain version refuses a code of 2**15 or more.
-        codes = codes.view(np.int16)
+        if device_code_dtype(num_bins) == torch.int32:
+            codes = codes.astype(np.int32)
+        else:
+            codes = codes.view(np.int16)
     return torch.as_tensor(codes, device=device)
 
 
@@ -246,14 +254,6 @@ class GBDT:
         self.comm = self.pctx.make_comm(
             F_pad, N, num_bundles=self._num_bundles_padded,
             bundle_col=None if self.bundle is None else self.bundle.col)
-        if dev.type == "cuda":
-            try:            # the histogram kernel's shared-memory limit
-                feature_groups(F if codes is None else codes.shape[1],
-                               self.spec.hist_bins
-                               or self.spec.num_bins_padded)
-            except ValueError as e:
-                Log.fatal("max_bin=%d: %s; not ported to lightgbm_tpu_torch "
-                          "yet (ROADMAP B1)", config.max_bin, e)
         # ---- residency (gbdt.py:358-382 there), before any placement ----
         self.residency = self._resolve_residency(config, train_set, codes)
         if self.residency == "stream" and config.tpu_row_compact:
@@ -279,7 +279,8 @@ class GBDT:
             self.Xb = None
         else:
             self.Xb = self._ingest_device(train_set) if codes is None \
-                else _codes_tensor(codes, dev)
+                else _codes_tensor(codes, dev, self.spec.hist_bins
+                                   or self.spec.num_bins_padded)
         del codes
         self._setup_linear(config, train_set)
         self.label = self._rows_tensor(md.label)
@@ -309,7 +310,18 @@ class GBDT:
         for m in self.train_metrics:
             m.init(md, N)
         self.valid_sets: List[ValidSet] = []
+        # a query's rows may lie in several ranks' blocks: the labels and
+        # weights of the world's rows, placed once here (never inside a
+        # captured part)
         self._world_label = self._world_weight = None
+        if self._row_sharded and self.objective is not None \
+                and not self.objective.pointwise:
+            self._world_label = torch.as_tensor(
+                self._row_layout(np.asarray(md.label, np.float32)),
+                device=self.device)
+            if md.weight is not None:
+                self._world_weight = torch.as_tensor(self._row_layout(
+                    np.asarray(md.weight, np.float32)), device=self.device)
 
         # ---- initial scores (boost_from_average, gbdt.cpp:357-377) ------
         self.init_score_value = 0.0
@@ -892,8 +904,9 @@ class GBDT:
         metrics = create_metrics(self.config, self._objective_name())
         for m in metrics:
             m.init(metadata, nv)
-        vs = ValidSet(name, _codes_tensor(binned, self.device), metadata,
-                      metrics, nv)
+        vs = ValidSet(name, _codes_tensor(binned, self.device,
+                                          self.spec.num_bins_padded),
+                      metadata, metrics, nv)
         if self.linear_tree:
             if raw is None:
                 Log.fatal("linear_tree=true: valid set %r needs its raw "
@@ -917,17 +930,7 @@ class GBDT:
             Log.fatal("objective=none needs custom gradients: pass fobj to "
                       "train() or Booster.update()")
         if self._row_sharded and not self.objective.pointwise:
-            # a query's rows may lie in several ranks' blocks: the
-            # gradients of the world's rows, then this rank's block
-            if self._world_label is None:
-                md = self._meta_global
-                self._world_label = torch.as_tensor(
-                    self._row_layout(np.asarray(md.label, np.float32)),
-                    device=self.device)
-                self._world_weight = None if md.weight is None else \
-                    torch.as_tensor(self._row_layout(
-                        np.asarray(md.weight, np.float32)),
-                        device=self.device)
+            # the gradients of the world's rows, then this rank's block
             g, h = self.objective.gradients(self._gather_rows(score),
                                             self._world_label,
                                             self._world_weight)
@@ -1100,6 +1103,7 @@ class GBDT:
         their values before it."""
         return self.nan_policy in ("raise", "skip_iter")
 
+    @trace_entry("boosting.part_start")
     def _part_start(self, it: int) -> None:
         """Gradients and row sampling; the bagging mask is kept in
         ``bag_mask``, the masked models' inputs in ``_g`` / ``_h``. Under
@@ -1125,6 +1129,7 @@ class GBDT:
         if mask is not self.bag_mask:
             self.bag_mask.copy_(mask)
 
+    @trace_entry("boosting.part_tree")
     def _part_tree(self, k: int) -> None:
         """Model ``k``'s tree prologue."""
         ii = self._in_i
@@ -1132,6 +1137,7 @@ class GBDT:
         mask = self.bag_mask
         self._grower.begin(self._g[k] * mask, self._h[k] * mask, mask, fmask)
 
+    @trace_entry("boosting.part_tree_end")
     def _part_tree_end(self, k: int) -> None:
         """Model ``k``'s tree epilogue: (linear fit,) shrinkage, the train
         score by the grower's leaf ids, every valid score by the leaf ids
@@ -1194,6 +1200,8 @@ class GBDT:
             tr._replace(leaf_value=lv)).leaf_value) | self._nf[2]
         return torch.stack([self._nf[0], self._nf[1], leaf]).long()
 
+    @allowed_host_sync("the nan_policy flag fetch: one read of the "
+                       "iteration's non-finite flags, after its trees")
     def _eager_iteration(self, it: int) -> Optional[List[int]]:
         """One iteration eagerly: the parts, and the wave loop reading
         ``done`` after each wave. Returns the iteration's non-finite flags
@@ -1559,6 +1567,8 @@ class GBDT:
 
     # ------------------------------------------------------ checkpoint
 
+    @allowed_host_sync("checkpoint_state's fetch of the per-row state, "
+                       "once per checkpoint")
     def _world_rows_host(self, t: torch.Tensor) -> np.ndarray:
         """A ``[..., num_rows]`` per-row tensor as the world's padded layout
         ``[..., num_data_padded]`` on the host (an all-gather of the ranks'
@@ -1709,6 +1719,8 @@ class GBDT:
         # rebuilt at the next iteration, which runs eagerly and captures
         self._grower = None
 
+    @allowed_host_sync("at an eval boundary: the last iterations' leaf "
+                       "counts, read beside the metrics")
     def _check_no_splits(self) -> bool:
         """Reference gbdt.cpp:465-471: pop the trailing iterations whose
         trees could not split and report whether training should stop. The
@@ -1738,6 +1750,7 @@ class GBDT:
         with TIMERS("metric_eval"), obs.span("eval", only=only):
             return self._eval_all(force_training, only)
 
+    @allowed_host_sync("the metric values, one fetch per eval boundary")
     def _eval_all(self, force_training: bool = False,
                   only: Optional[str] = None
                   ) -> List[Tuple[str, str, float, bool]]:
@@ -1804,6 +1817,8 @@ class GBDT:
 
     # ------------------------------------------------------------- telemetry
 
+    @allowed_host_sync("publish_telemetry's leaf-count fetch, once per "
+                       "run")
     def publish_telemetry(self) -> None:
         """This booster's per-run training facts into the telemetry
         subsystem (gbdt.py:2305-2345 there; ``engine.train`` calls it once,
@@ -1949,6 +1964,7 @@ class _IterationGraphs:
         # its cost report; read from the allocator's stats, no device sync
         self.pool_bytes = 0
         self.replays = 0
+        self.captures = 0             # graphs captured (analysis.guards)
         self.syncs = 0
         self.trees = 0
         self.waves_run = 0            # wave replays, no-op waves included
@@ -1986,8 +2002,10 @@ class _IterationGraphs:
         self.instantiate_s += time.perf_counter() - t1
         self.pool_bytes += max(0, torch.cuda.memory_stats(dev).get(
             "reserved_bytes.all.current", 0) - reserved0)
+        self.captures += 1
         return g
 
+    @allowed_host_sync("the captured iteration's one flag read per tree")
     def _read_flags(self, flags: torch.Tensor) -> List[int]:
         """The grower's flags (and under ``nan_policy`` the iteration's
         non-finite flags) on the host: the tree's one sync."""

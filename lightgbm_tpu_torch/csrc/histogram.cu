@@ -89,7 +89,21 @@
 //      n_active (min(grid, ceil(n_active / min_rows)) blocks of equal runs),
 //      and the blocks past the end exit at once. The sums are order-free,
 //      so any partition of the positions gives the same bits.
-//   8. Launches are counted on the card: finalize_kernel adds one to a
+//   8. Wide bins (ROADMAP B1c): a feature whose [B] sub-histogram does not
+//      fit one block's shared memory (B above 11,520: max_bin up to the
+//      JAX package's 65,535) is cut into bin tiles of at most that width.
+//      The grid's y axis walks (feature group, bin tile) pairs; a block
+//      adds only the codes inside its tile into its shared sub-histogram
+//      and flushes it into the same [S, F, B] integer accumulators at the
+//      tile's offset, so finalize_kernel is unchanged and the sums stay
+//      the integers of one untiled pass (bit-equal to the plain version,
+//      independent of row order and grouping). Such a feature's codes are
+//      read once per tile: right first, fast later. Codes of 2^15 or more
+//      (a feature of more than 32,768 bins) come as int32 (a third CodeT),
+//      so that every torch op on the codes keeps their unsigned value.
+//      Features at or below the limit keep the untiled launch exactly
+//      (kTiled false: one tile of all B bins).
+//   9. Launches are counted on the card: finalize_kernel adds one to a
 //      device counter per pass, so a pass replayed from a CUDA graph is
 //      counted where it runs and a capture, which runs nothing, counts
 //      nothing.
@@ -126,7 +140,9 @@ struct SubHist {
   unsigned int* h_lo;
   unsigned int* h_hi;
   unsigned int* c;
-  int num_bins;
+  int num_bins;      // bins of the block's tile (all B bins untiled)
+  int bin0;          // the tile's first bin
+  int total_bins;    // B, every code's bound
 
   __device__ __forceinline__ static void add64(unsigned int* lo,
                                                unsigned int* hi, int i,
@@ -138,12 +154,21 @@ struct SubHist {
     if (up != 0u) atomicAdd(&hi[i], up);
   }
 
-  // adds one (feature, code) of a row; false for a code out of range
+  // adds one (feature, code) of a row; false for a code out of range.
+  // kTiled: a code of another tile is skipped (it is that tile's block's)
+  template <bool kTiled>
   __device__ __forceinline__ bool add(int f, unsigned int code,
                                       unsigned long long qg,
                                       unsigned long long qh,
                                       bool counted) const {
-    if (code >= static_cast<unsigned int>(num_bins)) return false;
+    if (kTiled) {
+      code -= static_cast<unsigned int>(bin0);   // wraps below the tile
+      if (code >= static_cast<unsigned int>(num_bins))
+        return code + static_cast<unsigned int>(bin0) <
+               static_cast<unsigned int>(total_bins);
+    } else if (code >= static_cast<unsigned int>(num_bins)) {
+      return false;
+    }
     const int i = f * num_bins + static_cast<int>(code);
     add64(g_lo, g_hi, i, qg);
     add64(h_lo, h_hi, i, qh);
@@ -163,7 +188,7 @@ struct SubHist {
 // may hold bytes of the neighbouring rows, which are not added, and an
 // aligned word that holds a byte of the tensor lies inside its allocation,
 // whose size the allocator rounds up to a multiple of 4 or more.
-template <typename CodeT, bool kAligned>
+template <typename CodeT, bool kAligned, bool kTiled>
 __device__ __forceinline__ void add_rows(
     const SubHist& sub, const CodeT* __restrict__ codes, long long num_rows,
     int num_features, int f0, int fg,
@@ -172,7 +197,8 @@ __device__ __forceinline__ void add_rows(
     long long base, long long p0, long long p1, double scale_g,
     double scale_h, bool& bad) {
   constexpr int kPerWord = 4 / sizeof(CodeT);
-  constexpr unsigned int kMask = (1u << (8 * sizeof(CodeT))) - 1u;
+  constexpr unsigned int kMask =
+      static_cast<unsigned int>((1ull << (8 * sizeof(CodeT))) - 1ull);
   const int nwords = (fg + kPerWord - 1) / kPerWord;  // words of codes
   for (long long q = p0 + threadIdx.x; q < p1; q += blockDim.x) {
     const long long row = perm[q + base];
@@ -207,8 +233,9 @@ __device__ __forceinline__ void add_rows(
         for (int j = 0; j < kPerWord; ++j) {
           const int f = (w0 + k) * kPerWord + j;
           if (f < fg &&
-              !sub.add(f, (w >> (8 * sizeof(CodeT) * j)) & kMask, qg, qh,
-                       counted))
+              !sub.add<kTiled>(
+                  f, (w >> (8 * sizeof(CodeT) * j)) & kMask, qg, qh,
+                  counted))
             bad = true;
         }
       }
@@ -217,10 +244,10 @@ __device__ __forceinline__ void add_rows(
 }
 
 // 1024 threads and one block an SM: __launch_bounds__ allows 64 registers
-template <typename CodeT, bool kAligned>
+template <typename CodeT, bool kAligned, bool kTiled>
 __global__ void __launch_bounds__(kThreads, 1)
 hist_kernel(const CodeT* __restrict__ codes, long long num_rows,
-            int num_features, int group_features,
+            int num_features, int group_features, int tile_bins,
             const float* __restrict__ grad,
             const float* __restrict__ hess,
             const float* __restrict__ inc,
@@ -233,11 +260,19 @@ hist_kernel(const CodeT* __restrict__ codes, long long num_rows,
             unsigned long long* __restrict__ acc_h,
             unsigned int* __restrict__ acc_c) {
   extern __shared__ unsigned int smem[];
-  const int f0 = blockIdx.y * group_features;
+  // blockIdx.y walks (feature group, bin tile) pairs, tiles fastest
+  const int tiles = kTiled ? (num_bins + tile_bins - 1) / tile_bins : 1;
+  const int group = kTiled ? static_cast<int>(blockIdx.y) / tiles
+                           : static_cast<int>(blockIdx.y);
+  const int bin0 = kTiled ? (static_cast<int>(blockIdx.y) - group * tiles) *
+                                tile_bins
+                          : 0;
+  const int nb = kTiled ? min(tile_bins, num_bins - bin0) : num_bins;
+  const int f0 = group * group_features;
   const int fg = min(group_features, num_features - f0);
-  const int GB = fg * num_bins;              // words of one array
+  const int GB = fg * nb;                    // words of one array
   const SubHist sub{smem,          smem + GB,     smem + 2 * GB,
-                    smem + 3 * GB, smem + 4 * GB, num_bins};
+                    smem + 3 * GB, smem + 4 * GB, nb, bin0, num_bins};
   __shared__ long long s_cum[kMaxSlots];    // inclusive prefix of slot_counts
   __shared__ long long s_base[kMaxSlots];   // perm index - position, per slot
   __shared__ long long s_n;                 // n_active
@@ -280,13 +315,14 @@ hist_kernel(const CodeT* __restrict__ codes, long long num_rows,
     }
     const long long seg_end = min(end, s_cum[s]);
     if (seg_end <= p) continue;          // an empty slot
-    add_rows<CodeT, kAligned>(sub, codes, num_rows, num_features, f0, fg,
-                              grad, hess, inc, perm, s_base[s], p, seg_end,
-                              scale_g, scale_h, bad);
+    add_rows<CodeT, kAligned, kTiled>(sub, codes, num_rows, num_features,
+                                      f0, fg, grad, hess, inc, perm,
+                                      s_base[s], p, seg_end, scale_g,
+                                      scale_h, bad);
     __syncthreads();
     for (int i = threadIdx.x; i < GB; i += blockDim.x) {
-      const int f = i / num_bins;
-      const int b = i - f * num_bins;
+      const int f = i / nb;
+      const int b = i - f * nb;
       const unsigned long long g =
           (static_cast<unsigned long long>(sub.g_hi[i]) << 32) | sub.g_lo[i];
       const unsigned long long h =
@@ -294,7 +330,8 @@ hist_kernel(const CodeT* __restrict__ codes, long long num_rows,
       const unsigned int c = sub.c[i];
       sub.g_lo[i] = sub.g_hi[i] = sub.h_lo[i] = sub.h_hi[i] = sub.c[i] = 0u;
       const long long o =
-          (static_cast<long long>(s) * num_features + f0 + f) * num_bins + b;
+          (static_cast<long long>(s) * num_features + f0 + f) * num_bins +
+          bin0 + b;
       if (g != 0ull) atomicAdd(&acc_g[o], g);
       if (h != 0ull) atomicAdd(&acc_h[o], h);
       if (c != 0u) atomicAdd(&acc_c[o], c);
@@ -326,9 +363,9 @@ __global__ void finalize_kernel(const unsigned long long* __restrict__ acc_g,
   out[3 * i + 2] = static_cast<float>(acc_c[i]);
 }
 
-template <typename CodeT, bool kAligned>
+template <typename CodeT, bool kAligned, bool kTiled>
 cudaError_t launch(const void* codes, long long num_rows, int num_features,
-                   int group_features, const float* grad,
+                   int group_features, int tile_bins, const float* grad,
                    const float* hess, const float* inc, const int32_t* perm,
                    const int32_t* slot_counts, const int32_t* slot_starts,
                    const long long* n_active, long long min_rows,
@@ -345,15 +382,15 @@ cudaError_t launch(const void* codes, long long num_rows, int num_features,
   if (err != cudaSuccess) return err;
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (smem > opted_in[device]) {
-    err = cudaFuncSetAttribute(hist_kernel<CodeT, kAligned>,
+    err = cudaFuncSetAttribute(hist_kernel<CodeT, kAligned, kTiled>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     opted_in[device] = smem;
   }
-  hist_kernel<CodeT, kAligned><<<grid, kThreads, smem, stream>>>(
+  hist_kernel<CodeT, kAligned, kTiled><<<grid, kThreads, smem, stream>>>(
       static_cast<const CodeT*>(codes), num_rows, num_features,
-      group_features, grad, hess, inc, perm, slot_counts,
+      group_features, tile_bins, grad, hess, inc, perm, slot_counts,
       slot_starts, n_active, min_rows, num_slots, num_bins, scales,
       acc_g, acc_h, acc_c);
   return cudaGetLastError();
@@ -413,19 +450,24 @@ int gbdt_hist_acc_zero(void* scratch, int num_slots, int num_features,
 // grid_blocks), the most blocks any pass of the shape uses; hist_kernel
 // spreads the pass's own n_active over min(blocks_x, ceil(n_active /
 // min_rows)) blocks of equal runs, and the rest exit. code_bytes is 1
-// (uint8 codes) or 2 (uint16 codes, which may be stored as int16: every
-// code the kernel accepts is below 2^15).
+// (uint8 codes), 2 (uint16 codes stored as int16: every code below 2^15)
+// or 4 (int32 codes, for features of more than 32,768 bins). tile_bins
+// cuts each feature's bins into tiles of that width (ceil(num_bins /
+// tile_bins) tiles on the grid's y axis beside the feature groups);
+// tile_bins == num_bins is the untiled launch.
 int gbdt_hist_acc_add(const void* codes, int code_bytes, long long num_rows,
                       int num_features, const float* grad, const float* hess,
                       const float* inc, const int32_t* perm,
                       const int32_t* slot_counts, const int32_t* slot_starts,
                       const long long* n_active, int num_slots, int num_bins,
-                      int group_features, int blocks_x, long long min_rows,
-                      const double* scales, void* scratch, void* stream_ptr) {
-  if ((code_bytes != 1 && code_bytes != 2) || num_slots < 1 ||
-      num_slots > kMaxSlots || group_features < 1 ||
-      group_features > num_features || num_bins < 1 || blocks_x < 0 ||
-      min_rows < 1 || scales == nullptr)
+                      int group_features, int tile_bins, int blocks_x,
+                      long long min_rows, const double* scales,
+                      void* scratch, void* stream_ptr) {
+  if ((code_bytes != 1 && code_bytes != 2 && code_bytes != 4) ||
+      num_slots < 1 || num_slots > kMaxSlots || group_features < 1 ||
+      group_features > num_features || num_bins < 1 || tile_bins < 1 ||
+      tile_bins > num_bins || (tile_bins < num_bins && group_features != 1) ||
+      blocks_x < 0 || min_rows < 1 || scales == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (blocks_x == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -435,19 +477,32 @@ int gbdt_hist_acc_add(const void* codes, int code_bytes, long long num_rows,
   unsigned long long* acc_h = acc_g + n;
   unsigned int* acc_c = reinterpret_cast<unsigned int*>(acc_h + n);
   const int groups = (num_features + group_features - 1) / group_features;
+  const int tiles = (num_bins + tile_bins - 1) / tile_bins;
   const dim3 grid(static_cast<unsigned int>(blocks_x),
-                  static_cast<unsigned int>(groups));
-  const long long smem = gbdt_hist_smem_bytes(group_features, num_bins);
+                  static_cast<unsigned int>(groups * tiles));
+  const long long smem = gbdt_hist_smem_bytes(group_features, tile_bins);
   // whole 32-bit words per row and per group start
   const bool aligned =
       reinterpret_cast<uintptr_t>(codes) % 4 == 0 &&
       (static_cast<long long>(num_features) * code_bytes) % 4 == 0 &&
       (static_cast<long long>(group_features) * code_bytes) % 4 == 0;
-  auto* fn = code_bytes == 1
-                 ? (aligned ? launch<uint8_t, true> : launch<uint8_t, false>)
-                 : (aligned ? launch<uint16_t, true>
-                            : launch<uint16_t, false>);
+  decltype(&launch<uint8_t, true, false>) fn;
+  if (code_bytes == 4) {                 // int32 codes: always whole words
+    if (!aligned) return static_cast<int>(cudaErrorMisalignedAddress);
+    fn = tiles == 1 ? launch<uint32_t, true, false>
+                    : launch<uint32_t, true, true>;
+  } else if (tiles > 1) {                // B > 256: uint16 codes only
+    if (code_bytes != 2) return static_cast<int>(cudaErrorInvalidValue);
+    fn = aligned ? launch<uint16_t, true, true>
+                 : launch<uint16_t, false, true>;
+  } else if (code_bytes == 1) {
+    fn = aligned ? launch<uint8_t, true, false> : launch<uint8_t, false, false>;
+  } else {
+    fn = aligned ? launch<uint16_t, true, false>
+                 : launch<uint16_t, false, false>;
+  }
   return static_cast<int>(fn(codes, num_rows, num_features, group_features,
+                             tile_bins,
                              grad, hess, inc, perm, slot_counts, slot_starts,
                              n_active, min_rows, num_slots, num_bins, scales,
                              acc_g, acc_h, acc_c, grid, smem, stream));
@@ -488,16 +543,18 @@ int gbdt_hist_build(const void* codes, int code_bytes, long long num_rows,
                     const float* inc, const int32_t* perm,
                     const int32_t* slot_counts, const int32_t* slot_starts,
                     const long long* n_active, int num_slots, int num_bins,
-                    int group_features, int blocks_x, long long min_rows,
-                    const double* scales, void* scratch, float* out,
-                    unsigned long long* launches, void* stream_ptr) {
+                    int group_features, int tile_bins, int blocks_x,
+                    long long min_rows, const double* scales, void* scratch,
+                    float* out, unsigned long long* launches,
+                    void* stream_ptr) {
   int err = gbdt_hist_acc_zero(scratch, num_slots, num_features, num_bins,
                                stream_ptr);
   if (err != 0) return err;
   err = gbdt_hist_acc_add(codes, code_bytes, num_rows, num_features, grad,
                           hess, inc, perm, slot_counts, slot_starts,
                           n_active, num_slots, num_bins, group_features,
-                          blocks_x, min_rows, scales, scratch, stream_ptr);
+                          tile_bins, blocks_x, min_rows, scales, scratch,
+                          stream_ptr);
   if (err != 0) return err;
   return gbdt_hist_acc_finalize(scratch, num_slots, num_features, num_bins,
                                 scales, out, launches, stream_ptr);

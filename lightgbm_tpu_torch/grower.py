@@ -75,7 +75,9 @@ import torch
 from torch.profiler import record_function
 
 from .ops.cuda_histogram import HistogramAccumulator, build_histograms_cuda
-from .ops.histogram import table_lookup, unpack_codes
+from .analysis.contracts.registry import trace_entry
+from .ops.histogram import device_code_dtype, table_lookup, unpack_codes
+from .robustness import allowed_host_sync
 from .ops.split_finder import SplitCandidates, leaf_output
 
 NEG_INF = float("-inf")
@@ -314,8 +316,10 @@ def _apply_wave_splits(state: GrowState, new_hist: torch.Tensor,
     depth_ok = ((spec.max_depth <= 0) | (state.leaf_depth < spec.max_depth))
     gains = torch.where(active & depth_ok & torch.isfinite(cand.gain),
                         cand.gain, NEG_INF)
-    # lax.top_k order: descending gain, lowest leaf index first on a tie
-    top_gain, top_leaf = torch.sort(gains, descending=True, stable=True)
+    # lax.top_k order: descending gain, lowest leaf index first on a tie;
+    # a sort of the [L+1] leaf gains, not of the rows
+    top_gain, top_leaf = torch.sort(  # torch-lint: disable=R007
+        gains, descending=True, stable=True)
     top_gain, top_leaf = top_gain[:S], top_leaf[:S]
     budget = L - nl
     cap = min(spec.wave_size, S) if spec.wave_size > 0 else S
@@ -636,6 +640,7 @@ class TreeGrower:
         st.flags.copy_(self.flags0)
         st.perm.copy_(self.row_iota)
 
+    @trace_entry("grower.wave")
     def wave(self) -> None:
         """One wave (steps 1-8 of the module docstring). Reads nothing on
         the host; after ``done`` it applies no split and leaves every real
@@ -720,6 +725,7 @@ class TreeGrower:
         tr.right_child[M].fill_(-L - 1)
         return tr, self.state.leaf_id
 
+    @allowed_host_sync("the eager wave loop's one flag read per wave")
     def run_waves(self) -> int:
         """The eager loop: waves until the host reads ``done`` (one read
         per wave); returns the waves the tree needed."""
@@ -737,6 +743,7 @@ class TreeGrower:
         return self.finish()
 
 
+@trace_entry("grower.stream_legs")
 class StreamedGrower(TreeGrower):
     """:class:`TreeGrower` over host-resident code shards
     (``tpu_residency=stream``; port of ``lightgbm_tpu/grower.py:894-1240``).
@@ -782,9 +789,14 @@ class StreamedGrower(TreeGrower):
                     partition=False)
         self.acc = HistogramAccumulator(spec.hist_slots, store.num_cols,
                                         self.B_hist, dev)
+        # u4 / u6 shards unpack into a uint8 buffer; u16 shards of features
+        # past 32,768 bins widen into an int32 one (ROADMAP B1c)
+        wide = device_code_dtype(self.B_hist) == torch.int32
         self.unpack_buf = torch.empty(
-            (store.shard_rows, store.num_cols), dtype=torch.uint8,
-            device=dev) if store.code_mode in ("u4", "u6") else None
+            (store.shard_rows, store.num_cols),
+            dtype=torch.int32 if wide else torch.uint8,
+            device=dev) if store.code_mode in ("u4", "u6") or (
+                wide and store.code_mode == "u16") else None
         self._table = self.table0
         self._map_mask = None
         self._route_next = False       # the next pass routes by _table
@@ -848,6 +860,7 @@ class StreamedGrower(TreeGrower):
         st.flags.copy_(torch.stack([nl + n_apply, done.long(),
                                     st.flags[2] + live.long()]))
 
+    @allowed_host_sync("the streamed wave's one flag read per wave")
     def run_waves(self) -> int:
         """Waves until ``done``, one host read of the flags per wave;
         notes whether the last wave split, for ``finish``."""

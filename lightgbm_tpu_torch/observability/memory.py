@@ -124,8 +124,9 @@ def device_memory(device=None) -> Dict:
             out[key] = int(stats[name])
     try:
         out["bytes_limit"] = int(torch.cuda.mem_get_info(dev)[1])
-    except Exception:                                        # noqa: BLE001
-        pass
+    except Exception as e:                                   # noqa: BLE001
+        from ..utils.log import Log
+        Log.debug("device_memory: no bytes_limit (%s)", e)
     out["peak_bytes"] = out.get("peak_bytes_in_use",
                                 out.get("bytes_in_use"))
     out["capacity_bytes"] = out.get("bytes_limit")

@@ -15,10 +15,12 @@ process-wide registry as ``phase.<name>.*`` gauges, so a live
     pb.attach_guard(report)        # {"host_syncs": .., "post_warmup_cache_misses": ..}
     json["phase_timings"]["headline"] = pb.to_dict()
 
-``attach_guard`` takes a report dict as it is. The port's counterpart of
-the JAX package's ``RecompileGuard`` (captures after warm-up, syncs that
-``torch.cuda.set_sync_debug_mode`` flags) is not written yet (ROADMAP
-A19); until it is, a caller builds the dict itself.
+``attach_guard`` takes ``analysis.guards.CaptureGuard.report()`` as it is:
+the port's counterpart of the JAX package's ``RecompileGuard`` counts CUDA
+graph captures after warm-up as its cache misses
+(``post_warmup_cache_misses``) and the host syncs that
+``torch.cuda.set_sync_debug_mode`` flags (the op-trace recorder's host
+transfers on the CPU), under the JAX report's keys.
 """
 from __future__ import annotations
 
@@ -56,7 +58,8 @@ class PhaseBreakdown:
             self.steady_iters += iters
 
     def attach_guard(self, report: Dict) -> None:
-        """Fold in a guard report (host_syncs / post-warm-up misses)."""
+        """Fold in a guard report (``CaptureGuard.report()``: host_syncs /
+        post-warm-up captures as misses)."""
         self.guard_report = report or {}
 
     def to_dict(self) -> Dict:

@@ -38,11 +38,20 @@ once per host shard (``hist_kernel`` over the shard's code buffer, its rows'
 g / h / counts read at the shard's row offset, positions derived from its
 leaf ids on the card), ``finalize`` once per wave (counted as one pass).
 
-Codes: ``uint8``, or ``int16`` holding ``uint16`` codes (``max_bin`` above
+Codes: ``uint8``; ``int16`` holding ``uint16`` codes (``max_bin`` above
 255; the dataset stores ``uint16`` on the host as the JAX package does, and
 the booster views it as ``int16`` on the card, where PyTorch indexes
-``int16`` but not ``uint16``). Every code the kernel takes is below
-:data:`MAX_BINS`, far below ``2**15``, so both readings agree.
+``int16`` but not ``uint16``), which reads every code below ``2**15``
+unchanged; or ``int32`` where a feature has more than 32,768 bins, so that
+codes of ``2**15`` and more keep their unsigned value
+(:func:`ops.histogram.device_code_dtype`).
+
+Wide bins (ROADMAP B1c): a feature whose ``[B]`` sub-histogram does not fit
+one block's shared memory (``B`` above :data:`MAX_BINS`) is histogrammed in
+bin tiles of at most ``MAX_BINS`` bins (:func:`bin_tiles`), each tile a
+block of its own on the grid's y axis, flushed into the same integer
+accumulators at the tile's offset; a pass with such a feature runs one
+feature per block. The sums are the untiled pass's integers.
 
 Malformed input (a bin code at or above ``num_bins_padded``, a slot at or
 above ``num_slots``, ``n_active`` past the compacted segments) makes the
@@ -79,8 +88,11 @@ SMEM_PER_SM = 233472
 THREADS_PER_SM = 2048
 BLOCK_THREADS = 1024               # kThreads of the source
 BYTES_PER_BIN = 20                 # 64-bit g and h, 32-bit count (SubHist)
-# the largest padded bin count whose histogram of one feature fits a block
+# the largest padded bin count whose histogram of one feature fits a block:
+# wider features are cut into bin tiles of at most this many bins
 MAX_BINS = SMEM_BLOCK_LIMIT // BYTES_PER_BIN // 8 * 8
+# the code dtypes the kernel reads (``CodeT`` of the source)
+CODE_DTYPES = (torch.uint8, torch.int16, torch.int32)
 # the fewest positions a block takes: its fixed cost is zeroing and
 # flushing its sub-histogram
 MIN_ROWS_PER_BLOCK = 2048
@@ -146,12 +158,13 @@ def _library():
         lib = ctypes.CDLL(path)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.gbdt_hist_build.argtypes = [
-            p, i, ll, i, p, p, p, p, p, p, p, i, i, i, i, ll, p, p, p, p, p]
+            p, i, ll, i, p, p, p, p, p, p, p, i, i, i, i, i, ll, p, p, p, p,
+            p]
         lib.gbdt_hist_build.restype = i
         lib.gbdt_hist_acc_zero.argtypes = [p, i, i, i, p]
         lib.gbdt_hist_acc_zero.restype = i
         lib.gbdt_hist_acc_add.argtypes = [
-            p, i, ll, i, p, p, p, p, p, p, p, i, i, i, i, ll, p, p, p]
+            p, i, ll, i, p, p, p, p, p, p, p, i, i, i, i, i, ll, p, p, p]
         lib.gbdt_hist_acc_add.restype = i
         lib.gbdt_hist_acc_finalize.argtypes = [p, i, i, i, p, p, p, p]
         lib.gbdt_hist_acc_finalize.restype = i
@@ -168,22 +181,35 @@ def _library():
     return _lib
 
 
+def bin_tiles(num_bins: int) -> Tuple[int, int]:
+    """``(tile_bins, tiles)``: the bin tiling of one feature's ``[B]``
+    sub-histogram. ``(B, 1)`` where it fits a block's shared memory (``B <=
+    MAX_BINS``); beyond, the fewest tiles of at most :data:`MAX_BINS` bins,
+    of equal width rounded up to 8 (ROADMAP B1c)."""
+    B = int(num_bins)
+    if B <= MAX_BINS:
+        return B, 1
+    tiles = -(-B // MAX_BINS)
+    per_tile = -(-B // tiles)
+    tile = -(-per_tile // 8) * 8
+    return tile, -(-B // tile)
+
+
 def feature_groups(num_features: int, num_bins: int,
                    code_bytes: int = 1) -> Tuple[int, int]:
     """``(group_features, groups)``: the fewest balanced feature groups
     whose ``[group_features, B]`` sub-histogram fits a block's shared
     memory, a group whole 32-bit words of codes where that costs no group.
-    Raises ``ValueError`` when one feature does not fit."""
-    per_feature = num_bins * BYTES_PER_BIN
+    Where one feature does not fit (``B > MAX_BINS``), one feature per
+    group, its bins cut into :func:`bin_tiles`."""
+    tile, tiles = bin_tiles(num_bins)
+    if tiles > 1:
+        return 1, int(num_features)
+    per_feature = tile * BYTES_PER_BIN
     fg_max = SMEM_BLOCK_LIMIT // per_feature
-    if fg_max < 1:
-        raise ValueError(
-            f"num_bins_padded={num_bins}: one feature's histogram needs "
-            f"{per_feature} bytes of shared memory, above the "
-            f"{SMEM_BLOCK_LIMIT} a block may use (at most {MAX_BINS} bins)")
     groups = -(-num_features // fg_max)
     fg = -(-num_features // groups)
-    per_word = 4 // code_bytes
+    per_word = max(1, 4 // code_bytes)
     if groups > 1 and -(-fg // per_word) * per_word <= fg_max:
         fg = -(-fg // per_word) * per_word
     return fg, -(-num_features // fg)
@@ -191,7 +217,7 @@ def feature_groups(num_features: int, num_bins: int,
 
 def grid_blocks(n_active: int, num_features: int, num_bins: int,
                 code_bytes: int, num_sms: int) -> int:
-    """``min(ceil(k * num_sms / groups), ceil(n_active /
+    """``min(ceil(k * num_sms / (groups * tiles)), ceil(n_active /
     MIN_ROWS_PER_BLOCK))``, ``k`` the blocks an SM holds at this shared
     memory size: the x extent of the grid the wrapper launches for
     ``n_active = N`` (the worst case of the shape). ``hist_kernel`` gives
@@ -199,10 +225,11 @@ def grid_blocks(n_active: int, num_features: int, num_bins: int,
     ceil(n_active / MIN_ROWS_PER_BLOCK))`` blocks, in equal runs, and the
     rest exit."""
     fg, groups = feature_groups(num_features, num_bins, code_bytes)
-    smem = fg * num_bins * BYTES_PER_BIN
+    tile, tiles = bin_tiles(num_bins)
+    smem = fg * tile * BYTES_PER_BIN
     per_sm = max(1, min(THREADS_PER_SM // BLOCK_THREADS,
                         SMEM_PER_SM // (smem + 2048)))
-    cap = max(1, -(-per_sm * num_sms // groups))
+    cap = max(1, -(-per_sm * num_sms // (groups * tiles)))
     return min(cap, -(-int(n_active) // MIN_ROWS_PER_BLOCK))
 
 
@@ -321,7 +348,7 @@ def _check(name: str, t: torch.Tensor, dtypes, shape=None) -> None:
 
 
 def build_histograms_cuda(
-    X: torch.Tensor,            # [N, F] uint8 codes, or uint16 ones as int16
+    X: torch.Tensor,            # [N, F] uint8, int16 (uint16) or int32 codes
     grad: torch.Tensor,         # [N] f32
     hess: torch.Tensor,         # [N] f32
     included: torch.Tensor,     # [N] f32 0/1
@@ -338,7 +365,8 @@ def build_histograms_cuda(
 ) -> Optional[torch.Tensor]:
     """``[S, F, B, 3]`` f32 (sum_g, sum_h, count) — same signature and
     result as ``ops.histogram.build_histograms``, which it runs for CPU
-    tensors. Bin codes must be below ``num_bins_padded``. The call makes
+    tensors (on the positions the card would derive, when no partition
+    is given). Bin codes must be below ``num_bins_padded``. The call makes
     no host read and no host-to-device copy, and may be captured in a CUDA
     graph once a pass has run on the device outside a capture.
 
@@ -348,6 +376,12 @@ def build_histograms_cuda(
     ranks before one conversion (``acc.finalize``, which counts the
     pass)."""
     if X.device.type == "cpu":
+        if row_idx is None:
+            # the positions the card derives below: both devices run the
+            # same operations around the kernel (analysis/contracts)
+            row_idx, slot_counts, n_active = pass_positions(
+                leaf_id, slot_of_leaf, int(num_slots))
+            slot_starts = None
         if acc is not None:
             _add_cpu(acc, X, grad, hess, included, leaf_id, slot_of_leaf,
                      row_idx, n_active, slot_counts, slot_starts, scales)
@@ -360,7 +394,7 @@ def build_histograms_cuda(
     N, F = X.shape
     S, B = int(num_slots), int(num_bins_padded)
     dev = X.device
-    _check("X", X, (torch.uint8, torch.int16))
+    _check("X", X, CODE_DTYPES)
     for name, t in (("grad", grad), ("hess", hess), ("included", included)):
         _check(name, t, (torch.float32,), (N,))
     _check("leaf_id", leaf_id, (torch.int32,), (N,))
@@ -387,6 +421,7 @@ def build_histograms_cuda(
     _check("scales", scales, (torch.float64,), (2,))
     cb = X.element_size()
     fg, _ = feature_groups(F, B, cb)
+    tile, _ = bin_tiles(B)
     blocks = grid_blocks(N, F, B, cb, _sm_count(dev))
     if acc is not None:
         if (acc.S, acc.F, acc.B) != (S, F, B) or acc.device != dev:
@@ -401,7 +436,7 @@ def build_histograms_cuda(
                 X.data_ptr(), cb, N, F, grad.data_ptr(), hess.data_ptr(),
                 included.data_ptr(), row_idx.data_ptr(),
                 slot_counts.data_ptr(), p(slot_starts), p(n_active), S, B,
-                fg, blocks, MIN_ROWS_PER_BLOCK, scales.data_ptr(),
+                fg, tile, blocks, MIN_ROWS_PER_BLOCK, scales.data_ptr(),
                 acc.buf.data_ptr(), acc._stream())
         if err != 0:
             raise RuntimeError(f"histogram kernel launch failed: CUDA error "
@@ -421,7 +456,7 @@ def build_histograms_cuda(
         err = lib.gbdt_hist_build(
             ptr(X), cb, N, F, ptr(grad), ptr(hess), ptr(included),
             ptr(row_idx), ptr(slot_counts), ptr(slot_starts), ptr(n_active),
-            S, B, fg, blocks, MIN_ROWS_PER_BLOCK, ptr(scales),
+            S, B, fg, tile, blocks, MIN_ROWS_PER_BLOCK, ptr(scales),
             ptr(scratch), ptr(out), ptr(launches), stream)
     if err != 0:
         raise RuntimeError(f"histogram kernel launch failed: CUDA error {err}")
@@ -512,12 +547,17 @@ class HistogramAccumulator:
                              f"F={self.F}")
         sl = slice(int(row0), r1)
         if X.device.type == "cpu":
+            # the shard's positions as the card derives them (below)
+            perm, counts, n_active = pass_positions(leaf_id[sl],
+                                                    slot_of_leaf, self.S)
             build_histograms(X[:n], grad[sl], hess[sl], included[sl],
                              leaf_id[sl], slot_of_leaf, self.S, self.B,
-                             scales=scales, acc=self.buf, raw_output=True)
+                             row_idx=perm, n_active=n_active,
+                             slot_counts=counts, scales=scales,
+                             acc=self.buf, raw_output=True)
             return
         N = grad.shape[0]
-        _check("X", X, (torch.uint8, torch.int16))
+        _check("X", X, CODE_DTYPES)
         for name, t in (("grad", grad), ("hess", hess),
                         ("included", included)):
             _check(name, t, (torch.float32,), (N,))
@@ -531,6 +571,7 @@ class HistogramAccumulator:
                                                 self.S)
         cb = X.element_size()
         fg, _ = feature_groups(self.F, self.B, cb)
+        tile, _ = bin_tiles(self.B)
         blocks = grid_blocks(n, self.F, self.B, cb, _sm_count(X.device))
         off = int(row0) * 4                      # f32 rows before the shard
         with torch.cuda.device(self.device):
@@ -538,7 +579,7 @@ class HistogramAccumulator:
                 X.data_ptr(), cb, n, self.F, grad.data_ptr() + off,
                 hess.data_ptr() + off, included.data_ptr() + off,
                 perm.data_ptr(), counts.data_ptr(), None,
-                n_active.data_ptr(), self.S, self.B, fg, blocks,
+                n_active.data_ptr(), self.S, self.B, fg, tile, blocks,
                 MIN_ROWS_PER_BLOCK, scales.data_ptr(), self.buf.data_ptr(),
                 self._stream())
         if err != 0:

@@ -40,6 +40,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..robustness import allowed_host_sync
+
 # bound on |sum of quantised values| over every row of a pass: 2**62 keeps
 # int64 accumulation clear of overflow with a factor two to spare
 _FIXED_POINT_BITS = 62
@@ -73,17 +75,36 @@ def code_bytes_total(F: int, code_mode: str) -> int:
             "u6": ((F + 3) // 4) * 3}[code_mode]
 
 
+# the widest bin count whose uint16 codes read the same as int16
+INT16_CODE_BINS = 1 << 15
+
+
+def device_code_dtype(num_bins: int, code_itemsize: int = 2) -> torch.dtype:
+    """The dtype codes of features of at most ``num_bins`` bins take on the
+    device: ``uint8`` for one-byte codes; ``int16`` holding ``uint16``
+    codes below ``2**15`` (PyTorch indexes ``int16`` but not ``uint16``);
+    ``int32`` where a feature has more than 32,768 bins, so that codes of
+    ``2**15`` and more keep their unsigned value (ROADMAP B1c)."""
+    if code_itemsize == 1:
+        return torch.uint8
+    return torch.int16 if int(num_bins) <= INT16_CODE_BINS else torch.int32
+
+
 def unpack_codes(xb: torch.Tensor, F: int, code_mode: str,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[R, code_bytes_total(F)]`` uint8 packed rows -> ``[R, F]`` codes
     in the dtype the grower reads: ``uint8``, or ``int16`` holding
     ``uint16`` codes. ``u8`` and ``u16`` are views of ``xb`` (no copy);
     ``u4`` and ``u6`` are written into ``out`` (``[R, F]`` uint8, e.g. a
-    buffer allocated once) when given."""
+    buffer allocated once) when given. ``u16`` with an ``int32`` ``out``
+    widens the codes into it, keeping codes of ``2**15`` and more
+    (:func:`device_code_dtype`)."""
     R = xb.shape[0]
     if code_mode == "u8":
         return xb
     if code_mode == "u16":
+        if out is not None and out.dtype == torch.int32:
+            return out.copy_(xb.view(torch.int16)).bitwise_and_(0xFFFF)
         return xb.view(torch.int16)
     if code_mode == "u4":
         codes = torch.stack([xb & 15, xb >> 4], dim=-1).reshape(R, -1)
@@ -183,6 +204,7 @@ def root_sums(grad: torch.Tensor, hess: torch.Tensor, included: torch.Tensor
             included.double().sum().float())
 
 
+@allowed_host_sync("the plain version: it runs for CPU tensors only")
 def pass_rows(leaf_id: torch.Tensor, slot_of_leaf: torch.Tensor,
               row_idx: Optional[torch.Tensor],
               n_active: Optional[torch.Tensor],
@@ -240,8 +262,9 @@ def pass_positions(leaf_id: torch.Tensor, slot_of_leaf: torch.Tensor,
             counts[:num_slots + 1].sum())
 
 
+@allowed_host_sync("the plain version: it runs for CPU tensors only")
 def build_histograms(
-    X: torch.Tensor,            # [N, F] uint8 codes, or uint16 ones as int16
+    X: torch.Tensor,            # [N, F] uint8, int16 (uint16) or int32 codes
     grad: torch.Tensor,         # [N] f32
     hess: torch.Tensor,         # [N] f32
     included: torch.Tensor,     # [N] f32 0/1: count channel mask
@@ -257,6 +280,7 @@ def build_histograms(
     scales: Optional[torch.Tensor] = None,   # [2] f64 per-tree (g, h)
     acc: Optional[torch.Tensor] = None,      # [S, F, B, 3] i64 carried sums
     raw_output: bool = False,
+    tile_bins: Optional[int] = None,         # the kernel's bin tiles
 ) -> torch.Tensor:
     """Plain version of the histogram kernel: ``[S, F, B, 3]`` f32.
 
@@ -266,8 +290,12 @@ def build_histograms(
     docstring), so the kernel must agree with it bit for bit. With ``acc``
     the pass adds into that carried accumulator, in place (one shard's leg
     of a streamed pass); ``raw_output`` returns the accumulator instead of
-    the f32 histogram. It reads ``n_active`` on the host: it runs for CPU
-    tensors only."""
+    the f32 histogram. ``tile_bins`` adds the bins tile by tile, as the
+    kernel does past its shared-memory limit (``ops/cuda_histogram.py``
+    :func:`bin_tiles`): each tile takes only its own codes and adds at its
+    offset; the integer sums equal the untiled pass's. Codes are
+    ``uint8``, ``int16`` (``uint16`` codes below ``2**15``) or ``int32``.
+    It reads ``n_active`` on the host: it runs for CPU tensors only."""
     N, F = X.shape
     S, B = num_slots, num_bins_padded
     if scales is None:
@@ -295,8 +323,16 @@ def build_histograms(
     qh = torch.round(hess[rows].double() * sh).long()
     qc = (included[rows] != 0).long()
     flat_acc = acc.view(-1)
-    for c, q in enumerate((qg, qh, qc)):
-        flat_acc.index_add_(0, flat * 3 + c, q.repeat_interleave(F))
+    weights = [q.repeat_interleave(F) for q in (qg, qh, qc)]
+    tile = B if tile_bins is None else int(tile_bins)
+    flat_codes = codes.reshape(-1)
+    for b0 in range(0, B, tile):
+        # one bin tile: its own codes, added at their offset in [S, F, B]
+        mine = ((flat_codes >= b0) & (flat_codes < b0 + tile)).nonzero() \
+            .flatten() if tile < B else None
+        at = flat if mine is None else flat[mine]
+        for c, q in enumerate(weights):
+            flat_acc.index_add_(0, at * 3 + c, q if mine is None else q[mine])
     if raw_output:
         return acc
     return finalize_histograms(acc, scales)
@@ -308,6 +344,6 @@ def finalize_histograms(acc: torch.Tensor, scales: torch.Tensor
     fixed-point sums times ``1 / scale`` in f64, rounded once to f32, as
     the kernel's ``finalize_kernel`` does (the JAX package's
     ``finalize_histograms``, ops/histogram.py:461 there)."""
-    g = (acc[..., 0].double() * (1.0 / scales[0])).float()
-    h = (acc[..., 1].double() * (1.0 / scales[1])).float()
-    return torch.stack([g, h, acc[..., 2].float()], dim=-1)
+    return torch.stack([(acc[..., 0].double() * (1.0 / scales[0])).float(),
+                        (acc[..., 1].double() * (1.0 / scales[1])).float(),
+                        acc[..., 2].float()], dim=-1)

@@ -58,6 +58,7 @@ import torch
 
 from ..binning import BIN_CATEGORICAL, BIN_NUMERICAL, MISSING_NAN, BinMapper
 from ..utils.log import Log
+from .histogram import device_code_dtype
 
 # f32 represents every integer in [-2^24, 2^24] exactly — categories at or
 # beyond this would alias under the f32 raw-value transport
@@ -221,10 +222,11 @@ class DeviceIngestor:
                  n_rows: int, out_dtype, device):
         tables = build_ingest_tables(mappers, num_cols)
         self.n_rows = int(n_rows)
-        # the residency dtype: uint8, or uint16 codes held as int16
-        # (boosting/gbdt._codes_tensor)
-        self.code_dtype = torch.uint8 if np.dtype(out_dtype) == np.uint8 \
-            else torch.int16
+        # the residency dtype: uint8, uint16 codes held as int16, or int32
+        # past 32,768 bins (boosting/gbdt._codes_tensor)
+        self.code_dtype = device_code_dtype(
+            max((m.num_bin for m in mappers), default=1),
+            np.dtype(out_dtype).itemsize)
         self.device = torch.device(device)
         dev = self.device
         C = max(int(num_cols), 1)
@@ -485,7 +487,8 @@ def device_ingest(raw: np.ndarray, mappers: Sequence[BinMapper],
     """Bin ``raw`` on ``device`` into the residency layout.
 
     Returns ``(codes, report)``: ``codes`` is the ``[n_rows_padded,
-    num_cols]`` tensor (``uint8``, or ``uint16`` codes as ``int16``)
+    num_cols]`` tensor (``uint8``, ``uint16`` codes as ``int16``, or
+    ``int32`` past 32,768 bins)
     bit-identical to host binning with zero row and column padding, and
     ``report`` the JAX package's keys (throughput, chunks, stalls, H2D
     bytes, ``compiles``). A caller-given ``ingestor`` of the same shape

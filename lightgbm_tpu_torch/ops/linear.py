@@ -46,6 +46,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..analysis.contracts.registry import trace_entry
+
 # rows of one chunk of the moment accumulation: its one-hot operand is
 # MOMENT_CHUNK_ROWS x (L+1) f64 (512 MB at 255 leaves)
 MOMENT_CHUNK_ROWS = 1 << 18
@@ -195,6 +197,7 @@ def solve_leaf_models(XTHX, XTg, leaf_feat, nfeat, has_cat, cnt,
     return leaf_const, leaf_coeff, leaf_feat_out, fittable & ~ok
 
 
+@trace_entry("linear.fit")
 def fit_linear_leaves(tree, Xraw, Xmiss, leaf_id, g, h, included, is_cat, *,
                       max_features: int, linear_lambda: float):
     """The whole fit (linear.py:236-261 there): path features, moments,

@@ -34,6 +34,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..analysis.contracts.registry import trace_entry
 from ..binning import K_ZERO_RANGE
 from ..grower import decode_bundled_bin
 from ..utils.log import Log
@@ -306,6 +307,7 @@ def _max_depth(left: np.ndarray, right: np.ndarray,
     return depth
 
 
+@trace_entry("predict.forest_walk")
 def forest_walk_leaves(split_feature, thr_rank, decision, left, right,
                        root_is_leaf, zero_rank, codes, is_nan, is_zero,
                        depth: int) -> torch.Tensor:

@@ -65,6 +65,7 @@ from ..ops.split_finder import (PerFeatureBest, SplitCandidates,
                                 per_feature_best_bundled,
                                 per_feature_best_numerical, reduce_features,
                                 unpack_bundled_hist)
+from ..robustness import allowed_host_sync
 from ..utils.log import Log
 
 
@@ -175,6 +176,8 @@ class Collectives:
         self.calls += 1
         self.bytes += t.numel() * t.element_size()
 
+    @allowed_host_sync("gloo takes host tensors: a CUDA tensor's "
+                       "collective is staged through the host")
     def _staged(self, fn, out: torch.Tensor, inp: torch.Tensor) -> None:
         """Run ``fn(out, inp)`` (``inp`` may be ``out``) on host copies of
         CUDA tensors and copy the result back: the one place a collective
@@ -289,6 +292,8 @@ def _block_slice(t: torch.Tensor, i: int, b: int) -> torch.Tensor:
     return t[i * b:(i + 1) * b]
 
 
+@allowed_host_sync("set-up: the block's categorical features, once per "
+                   "learner")
 def _local_cat_idx(cat_idx: Optional[torch.Tensor], lo: int, b: int
                    ) -> Optional[torch.Tensor]:
     """The categorical features of the block ``[lo, lo + b)``, as block

@@ -27,8 +27,33 @@ chaos harness. Ports of ``lightgbm_tpu/robustness/*`` on
 - ``chaos``       — deterministic fault injection: store delays, drops and
                     corruption on the torch ``Store`` API, killers, shard
                     bit flips, hang injection, poisoned gradients.
+
+``allowed_host_sync(reason)`` marks a function as an audited host-sync
+point (torch-lint rules R002 and R011 skip it).
 """
 from __future__ import annotations
+
+
+def allowed_host_sync(reason: str):
+    """Mark a function as an *intentional*, annotated host-sync point (the
+    port's copy of ``lightgbm_tpu/robustness/__init__.py``'s).
+
+    torch-lint rule R002 flags implicit host syncs (``.item()``,
+    ``.tolist()``, ``.cpu()``, ``int(t)``) in hot-path modules and R011 in
+    the serving dispatch; a function carrying this decorator is an audited
+    sync point (the captured iteration's flag read per tree, the
+    checkpoint fetch, the ``nan_policy`` flags) and is skipped — the
+    annotation records *why* the sync is the contract, next to the code.
+    """
+    if not isinstance(reason, str) or not reason.strip():
+        raise ValueError("allowed_host_sync requires a non-empty reason")
+
+    def deco(fn):
+        fn.__host_sync_reason__ = reason
+        return fn
+
+    return deco
+
 
 # the exports resolve lazily, so that `python -m
 # lightgbm_tpu_torch.robustness.<module>` runs a module this package has not
@@ -46,7 +71,7 @@ _EXPORTS = {
     "HangWatchdog": "watchdog", "EXIT_HANG": "watchdog",
     "EXIT_COMM_LOST": "watchdog",
 }
-__all__ = sorted(_EXPORTS)
+__all__ = sorted(_EXPORTS) + ["allowed_host_sync"]
 
 
 def __getattr__(name):

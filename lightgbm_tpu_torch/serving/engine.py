@@ -70,6 +70,7 @@ import torch
 from .. import observability as obs
 from ..config import Config, resolve_device
 from ..ops import predict as _predict
+from ..robustness import allowed_host_sync
 from ..utils.log import Log
 from .resilience import (CircuitBreaker, DeadlineExceededError,
                          DeviceDispatchError, ReloadError, ServingClosedError)
@@ -179,6 +180,8 @@ class _ModelState:
         self.pool = torch.cuda.graph_pool_handle() if on_card else None
         self.stream = torch.cuda.Stream(device) if on_card else None
 
+    @allowed_host_sync("warm-up: a bucket's eager walk completes before "
+                       "its capture")
     def prepare(self, k: int, B: int) -> None:
         """Prepare the walk of class ``k`` at bucket ``B``: on the card,
         one eager walk on the bucket's buffers (it loads every kernel the
@@ -209,6 +212,7 @@ class _ModelState:
         self.capture_s[(k, B)] = obs.clock() - t0
         obs.inc("serve.bucket_captures")
 
+    @allowed_host_sync("the dispatch's one result wait")
     def walk_bucket(self, k: int, B: int, codes: np.ndarray,
                     is_nan: np.ndarray, is_zero: np.ndarray) -> np.ndarray:
         """Leaf indices ``[n, T]`` int32 of ``n <= B`` encoded rows. Under

@@ -33,7 +33,7 @@ import jax.numpy as jnp
 from lightgbm_tpu.ops import pallas_histogram as ph
 from lightgbm_tpu.ops.histogram import build_histograms as jax_hist
 from lightgbm_tpu_torch.interop import to_torch
-from lightgbm_tpu_torch.ops.cuda_histogram import (MAX_BINS,
+from lightgbm_tpu_torch.ops.cuda_histogram import (MAX_BINS, bin_tiles,
                                                    MIN_ROWS_PER_BLOCK,
                                                    SMEM_BLOCK_LIMIT,
                                                    build_histograms_cuda,
@@ -379,8 +379,11 @@ def test_feature_groups_fit_shared_memory():
     assert feature_groups(100, 256, 1) == (36, 3)
     assert feature_groups(28, MAX_BINS, 2) == (1, 28)
     assert MAX_BINS == 11_520
-    with pytest.raises(ValueError, match="shared memory"):
-        feature_groups(28, MAX_BINS + 8, 2)
+    # past the limit one feature per group, its bins cut into tiles of at
+    # most MAX_BINS (ROADMAP B1c): no refusal
+    assert feature_groups(28, MAX_BINS + 8, 2) == (1, 28)
+    assert bin_tiles(MAX_BINS) == (MAX_BINS, 1)
+    assert bin_tiles(MAX_BINS + 8) == (5768, 2)
 
 
 def test_wrapper_runs_plain_version_on_cpu_without_counting():
