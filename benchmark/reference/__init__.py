@@ -1,0 +1,2 @@
+"""Plain references the benchmark judges the program by: plain PyTorch
+and NumPy, importing nothing of the program."""
