@@ -19,6 +19,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from . import observability as obs
 from .config import Config, resolve_device
 from .dataset import ConstructedDataset, Metadata, construct_dataset
 from .tree import Tree
@@ -150,8 +151,17 @@ class Dataset:
         self._metadata: Optional[Metadata] = None
 
     def construct(self, config: Optional[Config] = None) -> "Dataset":
+        """Bin the data (``construct_dataset``; a valid set with the
+        training set's mappers) in a ``construct`` span holding
+        ``construct.find_bins``, ``construct.defer`` and
+        ``construct.bin``. The codes reach the device with the booster
+        (``construct.place``)."""
         if self._constructed is not None or self._binned_aligned is not None:
             return self
+        with obs.span("construct", reference=self.reference is not None):
+            return self._construct(config)
+
+    def _construct(self, config: Optional[Config]) -> "Dataset":
         if self._binary_path is not None:
             # host codes from the file: no ingest
             self._constructed = ConstructedDataset.load_binary(
@@ -170,7 +180,9 @@ class Dataset:
         if self.reference is not None:
             ref = self.reference
             ref.construct(config)
-            self._binned_aligned = ref.constructed.bin_raw(self.raw_data)
+            with obs.span("construct.bin", rows=self.raw_data.shape[0]):
+                self._binned_aligned = ref.constructed.bin_raw(
+                    self.raw_data)
             meta = Metadata(self.raw_data.shape[0])
             if self.label is not None:
                 meta.set_label(self.label)
@@ -729,9 +741,44 @@ class Booster:
             num_iteration = self.best_iteration if self.best_iteration > 0 \
                 else len(self.trees) // K
         use_trees = self.trees[: num_iteration * K]
+        N = X.shape[0]
         if pred_leaf:
+            route = "leaf"
+        elif pred_contrib:
+            route = "contrib"
+        else:
+            early_stop = bool(kwargs.get("pred_early_stop",
+                                         self.config.pred_early_stop))
+            if early_stop:
+                from .objectives import OBJECTIVE_ALIASES
+                obj = OBJECTIVE_ALIASES.get(self.config.objective,
+                                            self.config.objective)
+                if obj not in ("binary", "multiclass", "multiclassova"):
+                    # reference prediction_early_stop.cpp: binary/multiclass
+                    # only
+                    Log.fatal("Early stopping prediction is only supported "
+                              "for binary and multiclass objectives")
+            if early_stop and not raw_score and len(use_trees):
+                route = "early_stop"
+            elif N * max(len(use_trees), 1) >= DEVICE_PREDICT_MIN_WORK \
+                    and not kwargs.get("force_host_predict", False):
+                route = "device"
+            else:
+                route = "host"
+        with obs.span("predict", rows=N, trees=len(use_trees), route=route):
+            return self._predict_rows(X, use_trees, K, route, raw_score,
+                                      kwargs)
+
+    def _predict_rows(self, X: np.ndarray, use_trees, K: int, route: str,
+                      raw_score: bool, kwargs) -> np.ndarray:
+        """``predict``'s work on an f64 ``[N, F]`` matrix by ``route``:
+        leaf indices, TreeSHAP contributions, the host early stop, the
+        device walk (``ops/predict.forest_predict_raw``) or the host
+        trees; then the output conversion in a ``predict.convert``
+        span."""
+        if route == "leaf":
             return np.stack([t.predict_leaf(X) for t in use_trees], axis=1)
-        if pred_contrib:
+        if route == "contrib":
             if any(t.is_linear for t in use_trees):
                 # TreeSHAP attributes constant leaf outputs only
                 # (lightgbm_tpu/basic.py:721-727)
@@ -748,17 +795,7 @@ class Booster:
             return out[0] if K == 1 else np.concatenate(list(out), axis=1)
         N = X.shape[0]
         raw = np.zeros((K, N), dtype=np.float64)
-        early_stop = bool(kwargs.get("pred_early_stop",
-                                     self.config.pred_early_stop))
-        if early_stop:
-            from .objectives import OBJECTIVE_ALIASES
-            obj = OBJECTIVE_ALIASES.get(self.config.objective,
-                                        self.config.objective)
-            if obj not in ("binary", "multiclass", "multiclassova"):
-                # reference prediction_early_stop.cpp: binary/multiclass only
-                Log.fatal("Early stopping prediction is only supported for "
-                          "binary and multiclass objectives")
-        if early_stop and not raw_score and len(use_trees):
+        if route == "early_stop":
             # the reference's per-row margin early stop, on the host in
             # tree order (lightgbm_tpu/basic.py:742-775): a row leaves once
             # its margin (binary 2|raw|, multiclass top-1 minus top-2)
@@ -782,8 +819,7 @@ class Booster:
                         part = np.sort(raw[:, rows], axis=0)
                         margin = part[-1] - part[-2]
                     active[rows] = margin < margin_thr
-        elif N * max(len(use_trees), 1) >= DEVICE_PREDICT_MIN_WORK \
-                and not kwargs.get("force_host_predict", False):
+        elif route == "device":
             # a forest with a categorical split takes the host route in
             # forest_predict_raw, said once
             from .ops.predict import forest_predict_raw
@@ -801,7 +837,8 @@ class Booster:
             # average_output_)
             raw /= max(len(use_trees) // K, 1)
         elif not raw_score:
-            raw = self._convert_output(raw)
+            with obs.span("predict.convert"):
+                raw = self._convert_output(raw)
         return raw[0] if K == 1 else raw.T
 
     def _stacked_forests(self, use_trees, K: int):

@@ -278,9 +278,13 @@ class GBDT:
             self._setup_stream(config, codes)
             self.Xb = None
         else:
-            self.Xb = self._ingest_device(train_set) if codes is None \
-                else _codes_tensor(codes, dev, self.spec.hist_bins
-                                   or self.spec.num_bins_padded)
+            # the dataset's placement: codes copied to the device, or raw
+            # rows binned there (construct's own spans end on the host)
+            with obs.span("construct.place", rows=N,
+                          ingest=codes is None):
+                self.Xb = self._ingest_device(train_set) if codes is None \
+                    else _codes_tensor(codes, dev, self.spec.hist_bins
+                                       or self.spec.num_bins_padded)
         del codes
         self._setup_linear(config, train_set)
         self.label = self._rows_tensor(md.label)
@@ -904,9 +908,9 @@ class GBDT:
         metrics = create_metrics(self.config, self._objective_name())
         for m in metrics:
             m.init(metadata, nv)
-        vs = ValidSet(name, _codes_tensor(binned, self.device,
-                                          self.spec.num_bins_padded),
-                      metadata, metrics, nv)
+        with obs.span("construct.place", rows=nv, valid=name):
+            Xb = _codes_tensor(binned, self.device, self.spec.num_bins_padded)
+        vs = ValidSet(name, Xb, metadata, metrics, nv)
         if self.linear_tree:
             if raw is None:
                 Log.fatal("linear_tree=true: valid set %r needs its raw "
@@ -1240,8 +1244,9 @@ class GBDT:
     def _run_batch(self, n: int, shrinkage: Optional[float] = None) -> None:
         """``n`` iterations back to back (``n <= tree_batch``): replays of
         the captured parts where the path is captured and an eager
-        iteration has run, else eager iterations. The trees are the same
-        either way; they are pushed after the batch."""
+        iteration has run, else eager iterations, each in an ``iteration``
+        span. The trees are the same either way; they are pushed after the
+        batch."""
         self._prepare()
         K = self.num_models
         its = list(range(self.iter_, self.iter_ + n))
@@ -1249,15 +1254,16 @@ class GBDT:
             its, self._step_shrinkage() if shrinkage is None else shrinkage)
         flags = []
         for j, it in enumerate(its):
-            if j == n - 1:
-                self._record_undo()
-            self._in_i.copy_(tab_i[j])
-            self._in_f.copy_(tab_f[j])
-            graphs = self._graphs_for_batch()
-            if graphs is None:
-                flags.append(self._eager_iteration(it))
-            else:
-                flags.append(graphs.iteration(it))
+            with obs.span("iteration", iteration=it):
+                if j == n - 1:
+                    self._record_undo()
+                self._in_i.copy_(tab_i[j])
+                self._in_f.copy_(tab_f[j])
+                graphs = self._graphs_for_batch()
+                if graphs is None:
+                    flags.append(self._eager_iteration(it))
+                else:
+                    flags.append(graphs.iteration(it))
         # the batch's trees: one copy of the stacked buffers, sliced lazily
         frozen = TreeArrays(*[None if f is None else f[:n * K].clone()
                               for f in self._stack])
@@ -1308,9 +1314,9 @@ class GBDT:
         back to back, else ``n`` eager iterations, with the same trees.
         Eval and callbacks are the caller's, on batch boundaries.
 
-        Telemetry (gbdt.py:1760-1770 there): a batch of ``m > 1`` is one
-        ``tree_batch`` span with ``m`` derived ``iteration`` slices,
-        recorded after it closes; host work at the batch boundary only."""
+        Telemetry: a batch of ``m`` is one ``tree_batch`` span holding the
+        ``m`` ``iteration`` spans ``_run_batch`` records, where the JAX
+        package slices its fused batch evenly (gbdt.py:1760-1770 there)."""
         if self.tree_batch <= 1:      # DART and GOSS keep their own step
             for _ in range(n):
                 self.train_one_iter()
@@ -1320,11 +1326,8 @@ class GBDT:
             if m == 1:
                 self.train_one_iter()
             else:
-                base_iter = self.iter_
                 with TIMERS("train_step"), obs.span("tree_batch", k=m):
                     self._run_batch(m)
-                obs.get_tracer().subdivide_last(
-                    "tree_batch", "iteration", m, base_iteration=base_iter)
                 self._publish_step_cost(m)
             n -= m
 
@@ -1332,8 +1335,7 @@ class GBDT:
         """One boosting iteration: gradients -> sampling -> grow -> shrink
         -> score updates; one ``tree_batch`` span holding one ``iteration``
         span (gbdt.py:1568-1569 there)."""
-        with TIMERS("train_step"), obs.span("tree_batch", k=1), \
-                obs.span("iteration", iteration=self.iter_):
+        with TIMERS("train_step"), obs.span("tree_batch", k=1):
             self._run_batch(1)
         self._publish_step_cost(1)
 
@@ -1347,8 +1349,7 @@ class GBDT:
             Log.fatal("custom objectives are not supported with "
                       "is_pre_partition (host gradients need the full score "
                       "vector on every process)")
-        with obs.span("tree_batch", k=1, custom_fobj=True), \
-                obs.span("iteration", iteration=self.iter_):
+        with obs.span("tree_batch", k=1, custom_fobj=True):
             preds = self._world_scores().cpu().numpy().reshape(-1)
             grad, hess = fobj(preds, self.train_set)
             self._custom_gh = tuple(
@@ -1758,7 +1759,9 @@ class GBDT:
         or ``force_training``) and every valid set; ``only`` names one
         dataset. The pointwise family reduces on the device in f32 and
         fetches one scalar per metric (all in one transfer); AUC and the
-        other metrics fetch the converted scores and run on the host."""
+        other metrics fetch the converted scores and run on the host. Each
+        fetch runs in an ``eval.fetch`` span, each host metric in an
+        ``eval.metric`` span."""
         out: List[list] = []
         pending: List[Tuple[int, torch.Tensor]] = []
 
@@ -1776,8 +1779,11 @@ class GBDT:
                     pending.append((len(out) - 1, val))
                 else:
                     if conv_host is None:
-                        conv_host = fetch_conv()
-                    for name, value, hib in m.eval(conv_host):
+                        with obs.span("eval.fetch"):
+                            conv_host = fetch_conv()
+                    with obs.span("eval.metric", metric=m.name):
+                        vals = m.eval(conv_host)
+                    for name, value, hib in vals:
                         out.append([dname, name, value, hib, None])
 
         train_eval = (self.config.is_training_metric or force_training) \
@@ -1785,9 +1791,12 @@ class GBDT:
         if train_eval and self._row_sharded:
             # the world's scores on every rank, every metric on the host in
             # f64, so that every rank takes the same decisions
-            conv = self._convert(self._world_scores()).cpu().numpy()
+            with obs.span("eval.fetch"):
+                conv = self._convert(self._world_scores()).cpu().numpy()
             for m in self.train_metrics:
-                for name, value, hib in m.eval(conv):
+                with obs.span("eval.metric", metric=m.name):
+                    vals = m.eval(conv)
+                for name, value, hib in vals:
                     out.append(["training", name, value, hib, None])
         elif train_eval:
             # the JAX package weighs the training rows by its padding mask
@@ -1810,7 +1819,8 @@ class GBDT:
                          vs.weight_dev,
                          lambda vs=vs: self._convert(vs.score).cpu().numpy())
         if pending:
-            fetched = torch.stack([v for _, v in pending]).cpu().tolist()
+            with obs.span("eval.fetch"):
+                fetched = torch.stack([v for _, v in pending]).cpu().tolist()
             for (i, _), raw in zip(pending, fetched):
                 out[i][2] = out[i][4].transform(float(raw))
         return [(d, n, v, h) for (d, n, v, h, _m) in out]
@@ -1826,8 +1836,12 @@ class GBDT:
         span recording on, ONE batched fetch of the new iterations' leaf
         counts derives each tree's wave count (``grower.waves_for_tree``)
         into the ``wave`` children of the recorded ``iteration`` spans and
-        the ``tree.waves`` / ``tree.leaves`` histograms."""
+        the ``tree.waves`` / ``tree.leaves`` histograms. The captured
+        iteration's part times still pending and its replay counts go to
+        the registry (``_IterationGraphs.publish``)."""
         reg = obs.get_registry()
+        if self._graphs is not None:
+            self._graphs.publish()
         base = min(self._telemetry_iters_base, len(self.models))
         n_new = len(self.models) - base
         self._telemetry_iters_base = len(self.models)
@@ -1944,7 +1958,16 @@ class _IterationGraphs:
     last tree needed, then the host reads the grower's ``flags`` (leaves,
     done, waves) through a pinned buffer, its one sync per tree, and
     replays more while the tree is not done. A wave after ``done`` applies
-    nothing, so no wave count is assumed for correctness."""
+    nothing, so no wave count is assumed for correctness.
+
+    While spans are recorded (``observability.enabled()``), each replayed
+    iteration's parts are timed on the device by ``_PartClock``: ``start``
+    (gradients and sampling), per tree its ``prologue``, its rounds of
+    ``waves`` and its ``epilogue``. The flag reads run in
+    ``iteration.flags`` spans."""
+
+    # the counts ``publish`` mirrors into the registry
+    MIRRORED = ("waves_run", "waves_needed", "trees")
 
     def __init__(self, gbdt: "GBDT"):
         self.gbdt = gbdt
@@ -1953,6 +1976,8 @@ class _IterationGraphs:
         self.guess = list(gbdt._waves_seen)
         self.flags_host = None
         self.ready = None
+        self.clock = _PartClock()
+        self._timing = False          # the current iteration is timed
         # the scores the graphs bind to
         self.score = gbdt.score.clone()
         self.valid_scores = [vs.score.clone() for vs in gbdt.valid_sets]
@@ -1969,6 +1994,7 @@ class _IterationGraphs:
         self.trees = 0
         self.waves_run = 0            # wave replays, no-op waves included
         self.waves_needed = 0         # waves the trees needed
+        self._published = dict.fromkeys(self.MIRRORED, 0)
 
     def bind(self) -> None:
         """Point the booster at the graphs' buffers, copying in whatever
@@ -2008,16 +2034,22 @@ class _IterationGraphs:
     @allowed_host_sync("the captured iteration's one flag read per tree")
     def _read_flags(self, flags: torch.Tensor) -> List[int]:
         """The grower's flags (and under ``nan_policy`` the iteration's
-        non-finite flags) on the host: the tree's one sync."""
-        if self.flags_host is None or \
-                self.flags_host.numel() != flags.numel():
-            self.flags_host = torch.empty(flags.numel(), dtype=torch.int64,
-                                          pin_memory=True)
-            self.ready = torch.cuda.Event()
-        self.flags_host.copy_(flags, non_blocking=True)
-        self.ready.record()
-        self.ready.synchronize()
-        return self.flags_host.tolist()
+        non-finite flags) on the host: the tree's one sync. Its ``ready``
+        event closes the round of waves on the part clock, which reads its
+        pending times behind the wait."""
+        with obs.span("iteration.flags"):
+            if self.flags_host is None or \
+                    self.flags_host.numel() != flags.numel():
+                self.flags_host = torch.empty(flags.numel(),
+                                              dtype=torch.int64,
+                                              pin_memory=True)
+                self.ready = torch.cuda.Event(enable_timing=True)
+            self.flags_host.copy_(flags, non_blocking=True)
+            self.ready.record()
+            self._mark("waves", event=self.ready)
+            self.ready.synchronize()
+            self.clock.drain()
+            return self.flags_host.tolist()
 
     def _replay(self, key, fn) -> None:
         g = self.graphs.get(key)
@@ -2030,21 +2062,40 @@ class _IterationGraphs:
         """Replay one iteration; returns its non-finite flags under
         ``nan_policy`` (read with the last tree's flags), else None."""
         gb = self.gbdt
+        K = gb.num_models
         # a graph keeps what its capture saw: the variant of ``it``, ``k``
-        self._replay(("start", gb._draws_bag(it)),
-                     functools.partial(gb._part_start, it))
+        start = ("start", gb._draws_bag(it))
+        # timed only where every part replays without a capture, whose
+        # host seconds would land in its segment
+        self._timing = obs.enabled() and gb.device.type == "cuda" and \
+            start in self.graphs and "wave" in self.graphs and \
+            all(("tree", k) in self.graphs and ("end", k) in self.graphs
+                for k in range(K))
+        self._mark(None)
+        self._replay(start, functools.partial(gb._part_start, it))
+        self._mark("start")
         nan_flags = None
-        for k in range(gb.num_models):
+        for k in range(K):
             self._replay(("tree", k), functools.partial(gb._part_tree, k))
+            self._mark("prologue")
             nan_flags = self._waves(k)
+            self._mark(None)                  # past the flag read's wait
             self._replay(("end", k), functools.partial(gb._part_tree_end, k))
+            self._mark("epilogue", end=k == K - 1)
         return nan_flags
+
+    def _mark(self, part: Optional[str], end: bool = False,
+              event=None) -> None:
+        """The part clock's mark after a replay, in a timed iteration."""
+        if self._timing:
+            self.clock.mark(part, end, event)
 
     def _waves(self, k: int) -> Optional[List[int]]:
         gb = self.gbdt
         flags = gb._grower.state.flags
         n = self.guess[k]
         while True:
+            self._mark(None)                  # the round's start
             for _ in range(n):
                 self._replay("wave", gb._grower.wave)
             self.waves_run += n
@@ -2060,6 +2111,73 @@ class _IterationGraphs:
         self.waves_needed += waves
         self.trees += 1
         return [int(f) for f in vals[3:]] if gb._guarded else None
+
+    def publish(self) -> None:
+        """At a run's end: the part times still pending, and this
+        booster's new replay counts as the ``iteration.waves_run`` /
+        ``.waves_needed`` / ``.trees`` counters, which outlive it."""
+        self.clock.finish()
+        reg = obs.get_registry()
+        for name in self.MIRRORED:
+            now = getattr(self, name)
+            reg.counter(f"iteration.{name}").inc(now - self._published[name])
+            self._published[name] = now
+
+
+class _PartClock:
+    """Device milliseconds of the captured iteration's parts, from timing
+    events recorded on the stream between the replays, never inside a
+    graph. Each mark closes the segment from the mark before it: a part's
+    segment adds to that part, a ``None`` one (the host's time past a flag
+    read, the next iteration's inputs) to nothing. Events are read only
+    where the host has already waited past them: after a flag read
+    (``drain``) and after the run (``finish``), so timing adds no host
+    sync to the iteration. An iteration's ``end`` mark publishes it as one
+    observation of each ``iteration.device_ms.<part>`` histogram and one
+    ``iteration.timed``. The clock's own events return to a small pool; a
+    mark may instead adopt an event its caller recorded (the flag read's
+    ``ready``)."""
+
+    PARTS = ("start", "prologue", "waves", "epilogue")
+
+    def __init__(self):
+        self._free: List[torch.cuda.Event] = []
+        # (part or None, event, end, pooled), oldest first
+        self._chain: List[tuple] = []
+        self._iter = dict.fromkeys(self.PARTS, 0.0)
+
+    def mark(self, part: Optional[str] = None, end: bool = False,
+             event=None) -> None:
+        pooled = event is None
+        if pooled:
+            event = self._free.pop() if self._free \
+                else torch.cuda.Event(enable_timing=True)
+            event.record()
+        self._chain.append((part, event, end, pooled))
+
+    def drain(self) -> None:
+        """Add every segment of the chain, whose marks the host has waited
+        past. The mark after a drain is a ``None`` one, so no segment
+        spans a drain."""
+        chain = self._chain
+        for (_, a, _, _), (part, b, end, _) in zip(chain, chain[1:]):
+            if part is not None:
+                self._iter[part] += a.elapsed_time(b)
+            if end:
+                reg = obs.get_registry()
+                for p, ms in self._iter.items():
+                    reg.histogram(f"iteration.device_ms.{p}").observe(ms)
+                reg.counter("iteration.timed").inc()
+                self._iter = dict.fromkeys(self.PARTS, 0.0)
+        self._free.extend(ev for _, ev, _, pooled in chain if pooled)
+        self._chain = []
+
+    @allowed_host_sync("the part clock's last event, once per run")
+    def finish(self) -> None:
+        """Read what is still pending: the last iteration's epilogue."""
+        if self._chain:
+            self._chain[-1][1].synchronize()
+            self.drain()
 
 
 def create_boosting(config: Config, train_set: ConstructedDataset) -> GBDT:

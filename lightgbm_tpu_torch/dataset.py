@@ -41,6 +41,7 @@ import numpy as np
 from .binning import (BIN_CATEGORICAL, BIN_NUMERICAL, MISSING_NAN,
                       MISSING_NONE, MISSING_ZERO, BinMapper,
                       sample_for_binning)
+from . import observability as obs
 from .config import Config
 from .utils.log import Log
 
@@ -461,7 +462,8 @@ def construct_dataset(
         return mapper
 
     active = [j for j in range(num_total_features) if j not in ignore_set]
-    mappers_by_idx = _find_bins(active, _find_one, config)
+    with obs.span("construct.find_bins", features=len(active)):
+        mappers_by_idx = _find_bins(active, _find_one, config)
     features = [FeatureInfo(j, mappers_by_idx[j]) for j in active
                 if not mappers_by_idx[j].is_trivial]
     if not features:
@@ -470,15 +472,19 @@ def construct_dataset(
     dtype = (np.uint8 if all(f.mapper.num_bin <= 256 for f in features)
              else np.uint16)
 
-    deferred = _maybe_defer(data, features, config, dtype, num_data, sparse)
+    # whether the rows are binned on the device (a scan of them all)
+    with obs.span("construct.defer"):
+        deferred = _maybe_defer(data, features, config, dtype, num_data,
+                                sparse)
     if deferred is not None:
         X_binned = None
     else:
         binner = bin_sparse_host if sparse else bin_dense_host
-        X_binned = binner(
-            data, [f.mapper for f in features],
-            np.array([f.real_index for f in features], np.int64), num_data,
-            dtype)
+        with obs.span("construct.bin", rows=num_data):
+            X_binned = binner(
+                data, [f.mapper for f in features],
+                np.array([f.real_index for f in features], np.int64),
+                num_data, dtype)
 
     metadata = Metadata(num_data)
     if label is not None:

@@ -62,7 +62,9 @@ tree's consumers read. Each wave's steps 2, 3-6, 7 and 8 run under
 ``torch.profiler.record_function`` ranges (``wave.histogram``,
 ``wave.split``, ``wave.route``, ``wave.partition``), which cost nothing
 measurable without an active profiler and give ``chip_smoke.py`` its
-per-step breakdown. Tie-breaks follow the JAX package exactly: ``lax.top_k`` at
+per-step breakdown of eager waves only: inside a CUDA graph a range fires
+at capture, never at a replay. The captured iteration's parts are timed
+by ``boosting/gbdt._PartClock`` between the replays. Tie-breaks follow the JAX package exactly: ``lax.top_k`` at
 grower.py:390 prefers the lowest leaf index among equal gains, which a
 stable descending sort reproduces (``torch.topk`` promises no tie order).
 """

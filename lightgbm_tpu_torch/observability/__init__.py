@@ -3,9 +3,19 @@
 One subsystem for the runtime signals of training and serving:
 
 - ``SpanTracer`` (tracer.py)      — nested host spans (``train`` ->
-  ``tree_batch`` -> ``iteration`` -> derived ``wave``, plus ``eval`` and
-  ``checkpoint``), recorded at batch boundaries only, so that a captured
-  iteration is never touched: no span opens inside a captured part.
+  ``tree_batch`` -> ``iteration`` -> ``iteration.flags`` and derived
+  ``wave``; ``eval`` -> ``eval.fetch`` / ``eval.metric``; ``construct``
+  -> ``construct.find_bins`` / ``.defer`` / ``.bin``;
+  ``construct.place``; ``predict`` -> ``predict.encode`` / ``.upload``
+  / ``.walk`` / ``.fetch`` / ``.convert``; ``checkpoint``), opened at
+  host boundaries between the replays of a captured iteration, never
+  inside a captured part. Each is also a ``torch.profiler`` range while
+  a profiler records, and its ``ts`` is on the profiler's clock. While
+  spans are recorded the captured iteration's parts are timed on the
+  device with CUDA events (``boosting/gbdt._PartClock``): the
+  ``iteration.device_ms.*`` histograms and the ``iteration.timed``
+  counter. The span tree, the shared clock and these counters, with
+  their overhead: docs/Observability-torch.md.
 - ``MetricsRegistry`` (metrics.py) — process-wide counters, gauges,
   histograms and quantile summaries: the booster's kernel route and
   shape, ``trees.trained`` / ``rows.routed``, ``tree.waves`` /
@@ -31,7 +41,8 @@ One subsystem for the runtime signals of training and serving:
 The module singletons are process-wide on purpose: a training run, a
 serving engine and a bench read the same registry. With no telemetry
 directory configured the tracer is disabled — ``span()`` returns a shared
-no-op and the registry costs one dict lookup and an int add per event.
+no-op unless a profiler records, and the registry costs one dict lookup
+and an int add per event.
 Nothing here imports ``torch`` at import time.
 """
 from __future__ import annotations

@@ -1,24 +1,35 @@
 """Host-side span tracer: nested wall-clock spans at dispatch boundaries.
 
-A copy of ``lightgbm_tpu/observability/tracer.py`` (pinned to it by
-``tests/test_torch_serving.py``). Spans are recorded only at host
-boundaries (``serve.warmup`` and the like): entering and leaving one costs
-two ``time.perf_counter()`` calls and one list append, and no device
-tensor is touched. Work inside a CUDA graph has no host boundary; its
-timing comes from ``torch.profiler`` or CUDA events.
+Started from ``lightgbm_tpu/observability/tracer.py``
+(``tests/test_torch_serving.py`` pins the records both make). Spans are
+recorded only at host boundaries (``serve.warmup``, ``predict.encode`` and
+the like): entering and leaving one costs two ``time.perf_counter_ns()``
+calls and one list append, and no device tensor is touched. Work inside a
+CUDA graph has no host boundary; its timing comes from CUDA events
+(``boosting/gbdt._PartClock``) or ``torch.profiler``.
 
-When disabled (the default), ``span()`` returns a shared no-op context
-manager: a hot loop pays one attribute check per span and nothing else.
+While a ``torch.profiler`` records, every span also opens a profiler range
+of its name, whether or not the tracer is enabled, so that the profiler's
+trace (and the benchmark's idle-gap labels) names the host work of each
+span. The profiler's state is read through ``sys.modules``: this module
+imports no torch. A span's ``ts`` is on the profiler's clock, unix-epoch
+microseconds (a kineto event's ``start_ns() / 1000``); durations come
+from ``perf_counter``, with the offset to the epoch fixed at ``reset()``.
+
+When neither the tracer nor a profiler is on (the default), ``span()``
+returns a shared no-op context manager: a hot loop pays two flag checks
+per span and nothing else.
 
 Events use the Chrome trace-event schema directly (``ph: "X"`` complete
 events, microsecond timestamps), so the JSONL stream and the Perfetto
-export are the same records. ``subdivide_last`` and ``derive_children``
-slice a recorded span into equal ``"derived": true`` children, for
-callers whose inner steps run on the device without a host boundary.
+export are the same records. ``derive_children`` slices a recorded span
+into equal ``"derived": true`` children, for callers whose inner steps run
+on the device without a host boundary.
 """
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import time
 from typing import Dict, List, Optional
@@ -38,20 +49,36 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
-class _Span:
-    __slots__ = ("_tracer", "name", "args", "_t0")
+def _recording_profiler():
+    """``torch.autograd.profiler`` while a ``torch.profiler`` records, else
+    None. Its ``_is_profiler_enabled`` is a plain module flag; a process
+    that never imported torch has no profiler to feed."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is not None and prof._is_profiler_enabled:
+        return prof
+    return None
 
-    def __init__(self, tracer: "SpanTracer", name: str, args: Dict):
+
+class _Span:
+    __slots__ = ("_tracer", "name", "args", "_t0", "_range")
+
+    def __init__(self, tracer: "SpanTracer", name: str, args: Dict,
+                 prof=None):
         self._tracer = tracer
         self.name = name
         self.args = args
+        self._range = None if prof is None else prof.record_function(name)
 
     def __enter__(self):
+        if self._range is not None:
+            self._range.__enter__()
         self._t0 = self._tracer._now_us()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         self._tracer._finish(self, self._t0, exc_type)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         return False
 
 
@@ -64,19 +91,22 @@ class SpanTracer:
         self.dropped = 0
         self._events: List[Dict] = []
         self._lock = threading.Lock()
-        self._epoch = time.perf_counter()
-        self._epoch_unix = time.time()
+        self._offset_ns = time.time_ns() - time.perf_counter_ns()
 
     # --------------------------------------------------------------- recording
 
     def _now_us(self) -> int:
-        return int((time.perf_counter() - self._epoch) * 1e6)
+        """Unix-epoch microseconds, the profiler's clock, advanced by
+        ``perf_counter``."""
+        return (time.perf_counter_ns() + self._offset_ns) // 1000
 
     def span(self, name: str, **args):
-        """Context manager recording one complete ("X") span on exit."""
+        """Context manager recording one complete ("X") span on exit, and
+        a profiler range of ``name`` while a ``torch.profiler`` records."""
+        prof = _recording_profiler()
         if not self.enabled:
-            return _NULL_SPAN
-        return _Span(self, name, args)
+            return _NULL_SPAN if prof is None else prof.record_function(name)
+        return _Span(self, name, args, prof)
 
     def _finish(self, span: _Span, t0: int, exc_type) -> None:
         args = span.args
@@ -103,23 +133,6 @@ class SpanTracer:
             self._events.append(ev)
 
     # ------------------------------------------------------- derived children
-
-    def subdivide_last(self, parent_name: str, child_name: str, n: int,
-                       base_iteration: int = 0) -> None:
-        """Slice the most recent ``parent_name`` span into ``n`` equal
-        ``child_name`` children (the fused-batch iteration attribution: the
-        scan body is one dispatch, so per-iteration timing inside it is an
-        even split by construction — marked ``derived``)."""
-        if not self.enabled or n <= 0:
-            return
-        with self._lock:
-            parent = next((e for e in reversed(self._events)
-                           if e["name"] == parent_name and e["ph"] == "X"),
-                          None)
-        if parent is None:
-            return
-        self._slice(parent, child_name, n,
-                    [{"iteration": base_iteration + i} for i in range(n)])
 
     def derive_children(self, parent_name: str, child_name: str,
                         counts: List[int]) -> None:
@@ -170,12 +183,12 @@ class SpanTracer:
             return list(self._events[cursor:]), len(self._events)
 
     def epoch_unix(self) -> float:
-        """Wall-clock time of ``ts == 0`` (for correlating JSONL streams)."""
-        return self._epoch_unix
+        """Wall-clock time of ``ts == 0``: the unix epoch itself, since
+        ``ts`` is on the profiler's clock."""
+        return 0.0
 
     def reset(self) -> None:
         with self._lock:
             self._events.clear()
             self.dropped = 0
-            self._epoch = time.perf_counter()
-            self._epoch_unix = time.time()
+            self._offset_ns = time.time_ns() - time.perf_counter_ns()

@@ -34,6 +34,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import observability as obs
 from ..analysis.contracts.registry import trace_entry
 from ..binning import K_ZERO_RANGE
 from ..grower import decode_bundled_bin
@@ -424,7 +425,10 @@ def forest_predict_raw(trees, X: np.ndarray, num_features: int, device,
     host once, for its result. Pass a prebuilt ``forest`` (the booster's
     cache) to stack and upload it once across calls. A forest holding a
     categorical split is predicted by the host ``Tree.predict``, as in the
-    JAX package (predict.py:423-440)."""
+    JAX package (predict.py:423-440). Each chunk runs in four spans:
+    ``predict.encode`` (the host rank encode), ``predict.upload`` (its
+    copies), ``predict.walk`` (the walk and the sum, enqueued) and
+    ``predict.fetch`` (the wait for its result)."""
     if forest is None:
         forest = StackedForest(trees, num_features)
     if forest.has_categorical:
@@ -448,24 +452,27 @@ def forest_predict_raw(trees, X: np.ndarray, num_features: int, device,
             forest_cost_report(forest, chunk.shape[0],
                                "cuda" if torch.device(device).type == "cuda"
                                else "plain")
-        codes, is_nan, is_zero = forest.encode_rows(chunk)
+        with obs.span("predict.encode", rows=chunk.shape[0]):
+            codes, is_nan, is_zero = forest.encode_rows(chunk)
         # uploads that do not wait for the card: the chunk's one host read
         # is its result
-        leaves = forest_walk_leaves(
-            *dev, *(torch.from_numpy(a).to(device, non_blocking=True)
-                    for a in (codes, is_nan, is_zero)), forest.max_depth)
-        if forest.has_linear:
-            # the epilogue reads raw f32 values, NaN set to 0 beside the
-            # missing plane (predict.py:470-477 there)
-            raw32 = chunk.astype(np.float32)
-            raw_nan = np.isnan(raw32)
-            np.nan_to_num(raw32, copy=False, nan=0.0)
-            outs = forest_walk_linear(
-                leaves, *lin, *(torch.from_numpy(a).to(device,
-                                                      non_blocking=True)
-                                for a in (raw32, raw_nan)))
-            out[lo:lo + chunk_rows] = outs.sum(dim=1).cpu().numpy()
-        else:
-            out[lo:lo + chunk_rows] = leaf_value[t_iota, leaves].sum(
-                dim=1).cpu().numpy()
+        with obs.span("predict.upload"):
+            inputs = [torch.from_numpy(a).to(device, non_blocking=True)
+                      for a in (codes, is_nan, is_zero)]
+        with obs.span("predict.walk"):
+            leaves = forest_walk_leaves(*dev, *inputs, forest.max_depth)
+            if forest.has_linear:
+                # the epilogue reads raw f32 values, NaN set to 0 beside
+                # the missing plane (predict.py:470-477 there)
+                raw32 = chunk.astype(np.float32)
+                raw_nan = np.isnan(raw32)
+                np.nan_to_num(raw32, copy=False, nan=0.0)
+                sums = forest_walk_linear(
+                    leaves, *lin, *(torch.from_numpy(a).to(
+                        device, non_blocking=True)
+                        for a in (raw32, raw_nan))).sum(dim=1)
+            else:
+                sums = leaf_value[t_iota, leaves].sum(dim=1)
+        with obs.span("predict.fetch"):
+            out[lo:lo + chunk_rows] = sums.cpu().numpy()
     return out

@@ -205,23 +205,204 @@ def test_tracer_disabled_is_a_noop():
     with t.span("a", k=1):
         pass
     t.event("e")
-    t.subdivide_last("a", "b", 3)
     t.derive_children("a", "b", [1])
     assert t.events() == []
 
 
 def test_tracer_subdivide_and_derive():
+    """``derive_children`` slices each parent into its count of derived
+    children, inside the parent, once per parent."""
     t = SpanTracer()
     t.enabled = True
-    with t.span("tree_batch", k=4):
+    for it in range(8, 12):
+        with t.span("iteration", iteration=it):
+            pass
+    t.derive_children("iteration", "wave", [2, 1, 1, 3])
+    waves = [e for e in t.events() if e["name"] == "wave"]
+    assert [e["args"]["wave"] for e in waves] == [0, 1, 0, 0, 0, 1, 2]
+    assert all(e["args"]["derived"] for e in waves)
+    parents = [e for e in t.events() if e["name"] == "iteration"]
+    assert all(p["ts"] <= w["ts"] <= p["ts"] + p["dur"]
+               for p, w in zip([parents[0]] * 2 + parents[1:3]
+                               + [parents[3]] * 3, waves))
+    t.derive_children("iteration", "wave", [2, 1, 1, 3])
+    assert len([e for e in t.events() if e["name"] == "wave"]) == 7
+
+
+@pytest.mark.parametrize("tracer_on", [True, False])
+def test_span_is_a_profiler_range_on_the_profilers_clock(tracer_on):
+    """While a torch.profiler records, a span opens a range of its name,
+    with the tracer off too; the tracer's ``ts`` is the range's start on
+    the same clock (unix-epoch microseconds)."""
+    from torch.profiler import ProfilerActivity, profile
+    t = SpanTracer()
+    t.enabled = tracer_on
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        # a process's first range pays a one-time set-up of about a
+        # millisecond between the range's start and the tracer's
+        with t.span("unit.first"):
+            pass
+        with t.span("unit.span", k=1):
+            torch.zeros(4).add_(1)
+    ranges = [ev for ev in prof.profiler.kineto_results.events()
+              if ev.name() == "unit.span"]
+    assert len(ranges) == 1
+    if tracer_on:
+        rec = t.events()[-1]
+        assert rec["name"] == "unit.span"
+        assert abs(rec["ts"] - ranges[0].start_ns() / 1e3) < 1e3
+        assert abs(rec["dur"] - ranges[0].duration_ns() / 1e3) < 1e3
+    else:
+        assert t.events() == []
+
+
+def test_span_is_the_shared_noop_without_tracer_or_profiler():
+    from lightgbm_tpu_torch.observability.tracer import _NULL_SPAN
+    t = SpanTracer()
+    assert t.span("a", k=1) is _NULL_SPAN
+    assert obs.span("a") is _NULL_SPAN or obs.enabled()
+
+
+def _contains(outer, inner):
+    return (outer["ts"] <= inner["ts"] and inner["ts"] + inner["dur"]
+            <= outer["ts"] + outer["dur"] + 1)
+
+
+def test_predict_records_a_span_set_per_chunk(clean_registry):
+    """``Booster.predict`` on the device route (the CPU here) records
+    ``predict`` holding, per chunk of 65,536 rows, one encode / upload /
+    walk / fetch, and one ``predict.convert``."""
+    from lightgbm_tpu_torch.basic import DEVICE_PREDICT_MIN_WORK
+    bst = _train(dict(PARAMS), 16)
+    rows = 70_000
+    assert rows * bst.num_trees() >= DEVICE_PREDICT_MIN_WORK
+    X = np.random.RandomState(3).rand(rows, 5)
+    obs.configure(enabled=True)
+    out = bst.predict(X)
+    np.testing.assert_array_equal(out, bst.predict(X,
+                                                   force_host_predict=True))
+    ev = [e for e in obs.get_tracer().events() if e["ph"] == "X"]
+    top = [e for e in ev if e["name"] == "predict"]
+    assert [e["args"] for e in top] == [
+        {"rows": rows, "trees": 16, "route": "device"},
+        {"rows": rows, "trees": 16, "route": "host"}]
+    call = top[0]
+    inner = [e for e in ev if _contains(call, e) and e is not call]
+    names = [e["name"] for e in inner]
+    assert names == ["predict.encode", "predict.upload", "predict.walk",
+                     "predict.fetch"] * 2 + ["predict.convert"]
+    assert [e["args"]["rows"] for e in inner
+            if e["name"] == "predict.encode"] == [65_536, rows - 65_536]
+
+
+@pytest.fixture(scope="module")
+def batch_of_four(tmp_path_factory):
+    obs.reset_for_tests()
+    try:
+        obs.configure(enabled=True)
+        X, y = _data()
+        lgt.train(dict(PARAMS, tree_batch=4), lgt.Dataset(X, label=y),
+                  num_boost_round=4)
+        return [e for e in obs.get_tracer().events() if e["ph"] == "X"]
+    finally:
+        obs.reset_for_tests()
+
+
+def test_construct_records_find_bins_inside_it(batch_of_four):
+    (construct,) = [e for e in batch_of_four if e["name"] == "construct"]
+    (find,) = [e for e in batch_of_four
+               if e["name"] == "construct.find_bins"]
+    (binning,) = [e for e in batch_of_four if e["name"] == "construct.bin"]
+    assert _contains(construct, find) and _contains(construct, binning)
+    assert find["args"] == {"features": 5}
+    (place,) = [e for e in batch_of_four if e["name"] == "construct.place"]
+    assert place["ts"] >= construct["ts"] + construct["dur"]
+
+
+def test_batch_records_real_iteration_spans(batch_of_four):
+    (batch,) = [e for e in batch_of_four if e["name"] == "tree_batch"]
+    iters = [e for e in batch_of_four if e["name"] == "iteration"]
+    assert batch["args"]["k"] == 4
+    # real spans: no "derived" mark (publish marks the waves derived)
+    assert [e["args"] for e in iters] == [
+        {"iteration": i, "waves_derived": True} for i in range(4)]
+    assert all(_contains(batch, e) for e in iters)
+    assert all(e["cat"] == "lightgbm_tpu" for e in iters)
+    starts = [e["ts"] for e in iters]
+    assert starts == sorted(starts)
+    assert all(a["ts"] + a["dur"] <= b["ts"] + 1
+               for a, b in zip(iters, iters[1:]))
+
+
+class _FakeEvent:
+    """A CUDA timing event on a hand-set clock (``now``, ms)."""
+    now = 0.0
+    made = 0
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        _FakeEvent.made += 1
+        self.t = None
+
+    def record(self):
+        self.t = _FakeEvent.now
+
+    def synchronize(self):
         pass
-    t.subdivide_last("tree_batch", "iteration", 4, base_iteration=8)
-    iters = [e for e in t.events() if e["name"] == "iteration"]
-    assert [e["args"]["iteration"] for e in iters] == [8, 9, 10, 11]
-    t.derive_children("iteration", "wave", [2, 1, 1, 3])
-    assert len([e for e in t.events() if e["name"] == "wave"]) == 7
-    t.derive_children("iteration", "wave", [2, 1, 1, 3])
-    assert len([e for e in t.events() if e["name"] == "wave"]) == 7
+
+    def elapsed_time(self, end):
+        return end.t - self.t
+
+
+def test_part_clock_times_segments_between_marks(clean_registry,
+                                                 monkeypatch):
+    """The captured iteration's clock: each mark closes the segment from
+    the previous one into its part; ``None`` segments (the host's time
+    past a flag read) count nowhere; the flag read's own event is adopted
+    and never pooled; an iteration is published at its ``end`` mark, and
+    an untimed one, which only drains, adds nothing; events are reused."""
+    from lightgbm_tpu_torch.boosting.gbdt import _PartClock
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    _FakeEvent.made = 0
+    clock = _PartClock()
+    ready = _FakeEvent(enable_timing=True)
+
+    def at(t, part=None, end=False):
+        _FakeEvent.now = t
+        clock.mark(part, end)
+
+    def flag_read(t):
+        _FakeEvent.now = t
+        ready.record()
+        clock.mark("waves", event=ready)
+        clock.drain()
+
+    for base, timed in ((0.0, True), (100.0, True), (200.0, False),
+                        (300.0, True)):
+        if not timed:
+            clock.drain()                               # its flag read
+            continue
+        at(base)                                        # before start
+        at(base + 1, "start")
+        at(base + 3, "prologue")
+        at(base + 4)                                    # round 1
+        flag_read(base + 10)
+        at(base + 12)                                   # round 2
+        flag_read(base + 15)
+        at(base + 17)                                   # past the wait
+        at(base + 18, "epilogue", True)
+    clock.finish()
+    snap = obs.get_registry().snapshot()
+    assert snap["counters"]["iteration.timed"] == 3
+    hist = snap["histograms"]
+    for part, ms in (("start", 1), ("prologue", 2), ("waves", 9),
+                     ("epilogue", 1)):
+        assert hist[f"iteration.device_ms.{part}"]["count"] == 3
+        assert hist[f"iteration.device_ms.{part}"]["sum"] == 3 * ms
+    # the most in flight between two flag reads: an iteration's two last
+    # marks and the next one's four before its read; ``ready`` is apart
+    assert _FakeEvent.made == 1 + 6
+    assert ready not in clock._free
 
 
 def test_chrome_trace_write_is_valid_and_atomic(tmp_path):
@@ -442,12 +623,24 @@ def port_recording(tmp_path_factory):
 
 
 def test_train_spans_match_jax(jax_recording, port_recording):
-    spans = port_recording["spans"]
+    """The spans of the JAX package's names match it; the port's own
+    (``construct*``, ``eval.*``) are held apart."""
+    spans = {k: v for k, v in port_recording["spans"].items()
+             if k in jax_recording["spans"]}
     assert spans == jax_recording["spans"]
     assert spans["train"] == 1 and spans["tree_batch"] == 3
     assert spans["iteration"] == PARITY_ROUNDS and spans["eval"] == 3
     assert spans["wave"] == sum(
         [3] * PARITY_ROUNDS)             # waves_for_tree(7, 2, 6)
+    own = {k: v for k, v in port_recording["spans"].items()
+           if k not in jax_recording["spans"]}
+    # two constructs (train, valid), one mapper finding and ingest
+    # decision, both binned and placed; binary_logloss reduces on the
+    # device: one fetch an eval
+    assert own == {"construct": 2,
+                   "construct.find_bins": 1, "construct.defer": 1,
+                   "construct.bin": 2, "construct.place": 2,
+                   "eval.fetch": 3}
 
 
 def test_train_counters_and_histograms_match_jax(jax_recording,

@@ -191,7 +191,6 @@ def test_copied_host_modules_match_the_jax_package():
         tr.enabled = True
         with tr.span("p", k=1):
             pass
-        tr.subdivide_last("p", "c", 3)
         tr.event("e", x=2)
         got = [(e["name"], e["ph"], e["args"]) for e in tr.events()]
         if make is SpanTracer:
