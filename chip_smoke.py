@@ -325,6 +325,18 @@ Phases (any failure exits non-zero and prints no result line):
    rows, no host transfer, f64 only at its allowlisted sites, and exactly
    one B1 pass per wave by ``launch_count()``.
 
+23. the rank-encode kernel (``csrc/encode.cu``) at the ``higgs.score``
+   cell's shape: the benchmark's generator and forest at ``SEED`` (500,000
+   raw HIGGS-shaped rows, the 500-tree, 255-leaf forest of quantile
+   thresholds), its first 65,536-row chunk with +-inf, -0.0 and ties at
+   grid values planted: the kernel's codes and masks and its plain
+   version's bit-equal to the host's ``_encode_loop`` and masks, two
+   launches identical; device ms of the kernel beside its bound, the plain
+   version and one ``torch.searchsorted`` (timed only); the same on a grid
+   of 2,000 thresholds a feature, too large for shared memory; then one
+   500,000-row ``Booster.predict``: 8 kernel launches and every row counted
+   in ``predict.encode.rows_cuda``.
+
 ``--phases 3,11`` runs only the listed phases (and those they need: 5-7,
 12-20 and 22 add phase 4); such a partial run prints no result lines and
 exits 4.
@@ -2756,6 +2768,7 @@ def _bucket_table(eng, pool):
     dispatch, and the replayed leaves against the eager walk on the same
     device inputs (bit-equal required)."""
     import torch
+    from lightgbm_tpu_torch.ops.cuda_encode import encode_rows
     from lightgbm_tpu_torch.ops.predict import forest_walk_leaves
     from lightgbm_tpu_torch.serving.engine import accumulate_leaves
     m = eng.model_snapshot()
@@ -2812,11 +2825,13 @@ def _b6_breakdown(text, X, dev):
     """B6: ``Booster.predict`` of 2M rows x 10 trees (phase 4's model), its
     time once with the stacking and again from the booster's cache, the
     host reads per chunk (``set_sync_debug_mode``), and the same chunks
-    split into host encode, H2D, walk (device ms) and leaf sum plus D2H."""
+    split into the raw rows' H2D, the encode kernel and the walk (device
+    ms) and leaf sum plus D2H."""
     import warnings
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.cuda_encode import encode_rows
     from lightgbm_tpu_torch.ops.predict import forest_walk_leaves
     bst = lgt.Booster(params={"device": dev.type}, model_str=text)
     t0 = time.perf_counter()
@@ -2847,29 +2862,29 @@ def _b6_breakdown(text, X, dev):
     forest = bst._stacked_forests(bst.trees, 1)[0]
     walk_args = forest.to(dev)
     lv = forest.leaf_tables(dev)[0]
+    grids = forest.encode_tables(dev)
     t_iota = torch.arange(forest.num_trees, device=dev)[None, :]
     enc = h2d = walk = tail = 0.0
     for lo in range(0, X.shape[0], chunk):
-        c = np.asarray(X[lo:lo + chunk], np.float64)
-        a = time.perf_counter()
-        arrs = forest.encode_rows(c)
+        c = np.ascontiguousarray(X[lo:lo + chunk], np.float64)
         b = time.perf_counter()
-        ins = [torch.from_numpy(v).to(dev, non_blocking=True)
-               for v in arrs]
+        raw = torch.from_numpy(c).to(dev, non_blocking=True)
         torch.cuda.synchronize()
         d = time.perf_counter()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(3))
         e0.record()
-        leaves = forest_walk_leaves(*walk_args, *ins, forest.max_depth)
+        ins = encode_rows(raw, *grids, forest.encode_steps)
         e1.record()
+        leaves = forest_walk_leaves(*walk_args, *ins, forest.max_depth)
+        e2.record()
         torch.cuda.synchronize()
         e = time.perf_counter()
         lv[t_iota, leaves].sum(dim=1).cpu().numpy()
         f = time.perf_counter()
-        enc += b - a
+        enc += e0.elapsed_time(e1)
         h2d += d - b
-        walk += e0.elapsed_time(e1)
+        walk += e1.elapsed_time(e2)
         tail += f - e
     same = bool(np.array_equal(first, again))
     print(f"  B6, Booster.predict of {X.shape[0]} rows x {len(bst.trees)} "
@@ -2878,8 +2893,10 @@ def _b6_breakdown(text, X, dev):
           f"(the per-level walk: 3,046.5 ms, PERF.md); {n_chunks} chunks, "
           f"host reads per chunk "
           f"{reads / n_chunks:.2f}; walk depth {forest.max_depth}; split: "
-          f"host encode {enc * 1e3:.1f} ms, H2D {h2d * 1e3:.1f} ms, walk "
-          f"{walk:.1f} ms device, leaf sum + D2H {tail * 1e3:.1f} ms; the "
+          f"H2D of the raw rows {h2d * 1e3:.1f} ms, encode {enc:.2f} ms by "
+          f"events around the call (its host enqueue included; phase 23 "
+          f"times the kernel), walk {walk:.1f} ms device, leaf sum + D2H "
+          f"{tail * 1e3:.1f} ms; the "
           f"two calls equal {same}; synchronizing calls by line {where}"
           f"{'; outside the port: ' + repr(sorted(others)) if others else ''}",
           flush=True)
@@ -5291,7 +5308,149 @@ def guard_phase(mres):
     return dict(launches=launches)
 
 
-PHASES = tuple(range(1, 23))
+ENCODE_CHUNK = 1 << 16             # forest_predict_raw's chunk of rows
+ENCODE_WIDE = 2_000                # thresholds a feature, the L2 case
+
+
+def _encode_equal(got, want):
+    """Whether two (codes, is_nan, is_zero) triples are bit-equal."""
+    import numpy as np
+    return all(np.array_equal(np.asarray(a), np.asarray(b))
+               for a, b in zip(got, want))
+
+
+def _encode_case(label, raw, grids, offsets, steps, want):
+    """The kernel and its plain version on ``raw`` against the host's
+    ``want``, both launches of the kernel bit-equal; device ms of the
+    kernel, the plain version and one ``torch.searchsorted`` over the
+    grids padded with +inf, and the bound (each element's 8 bytes read
+    and 6 written once)."""
+    import torch
+    from lightgbm_tpu_torch.ops import cuda_encode
+    n, F = raw.shape
+    first = [t.cpu() for t in cuda_encode.encode_rows(raw, grids, offsets,
+                                                      steps)]
+    second = [t.cpu() for t in cuda_encode.encode_rows(raw, grids, offsets,
+                                                       steps)]
+    plain = [t.cpu() for t in cuda_encode.encode_rows_plain(
+        raw, grids, offsets, steps)]
+    ok = _encode_equal(first, want) and _encode_equal(plain, want) \
+        and _encode_equal(first, second)
+    ms = cuda_time_ms(lambda: cuda_encode.encode_rows(raw, grids, offsets,
+                                                      steps), 50)
+    plain_ms = cuda_time_ms(lambda: cuda_encode.encode_rows_plain(
+        raw, grids, offsets, steps), 5)
+    sizes = (offsets[1:] - offsets[:-1]).tolist()
+    width = max(max(sizes), 1)
+    padded = torch.full((F, width), float("inf"), dtype=torch.float64,
+                        device=raw.device)
+    for f, (a, k) in enumerate(zip(offsets[:-1].tolist(), sizes)):
+        padded[f, :k] = grids[a:a + k]
+    cols = raw.t().contiguous()
+    lib_ms = cuda_time_ms(lambda: torch.searchsorted(padded, cols), 20)
+    bound_ms = n * F * (8 + 4 + 1 + 1) / HBM_BYTES_PER_S * 1e3
+    shared = cuda_encode.uses_shared_memory(grids.shape[0])
+    print(f"  {label}: {n} x {F}, {grids.shape[0]} thresholds "
+          f"({grids.shape[0] * 8} bytes, searched in "
+          f"{'shared memory' if shared else 'device memory (L2)'}); kernel "
+          f"and plain version bit-equal to the host encode, two launches "
+          f"identical: {ok}; kernel {ms:.4f} ms (bound {bound_ms:.4f} ms, "
+          f"{bound_ms / ms * 100:.1f}%), plain {plain_ms:.3f} ms, "
+          f"torch.searchsorted {lib_ms:.4f} ms", flush=True)
+    if not ok:
+        fail(f"phase 23 {label}: the encode kernel differs from the host "
+             f"encode")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, rows=n, num_features=F,
+                thresholds=int(grids.shape[0]), shared=shared)
+
+
+def encode_phase(dev):
+    """Phase 23: the rank-encode kernel (``csrc/encode.cu``) at the
+    ``higgs.score`` cell's shape, from the benchmark's own generator and
+    forest at ``SEED``: 500,000 HIGGS-shaped raw rows and the 500-tree,
+    255-leaf forest whose thresholds are quantiles of them."""
+    import numpy as np
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import observability as obs
+    from lightgbm_tpu_torch.ops import cuda_encode
+    from benchmark.harness import data as datagen
+    from benchmark.harness import forest as forestgen
+    from benchmark.harness import manifest
+    path, secs, log = cuda_encode.build_library(verbose=True)
+    print(f"  built {os.path.relpath(path, HERE)} in {secs:.2f} s",
+          flush=True)
+    for line in log.splitlines():
+        entry = re.search(r"entry function '(\w+)'", line)
+        if entry:
+            print(f"  ptxas: {entry.group(1)}", flush=True)
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas:   {line.split(':', 1)[-1].strip()}", flush=True)
+    cfg = manifest.config("higgs")
+    rows = int(manifest.traffic("score")["batch_rows"])
+    gen = datagen.generator(SEED, dev)
+    pool = datagen.rows(cfg["data"], rows, gen, dev)[0]
+    text, _ = forestgen.make(cfg["forest"], cfg["data"]["nan_columns"],
+                             pool, gen, rows)
+    X = np.ascontiguousarray(pool.double().cpu().numpy())
+    del pool
+    bst = lgt.Booster(params={"device": dev.type, "verbose": -1},
+                      model_str=text)
+    forest = bst._stacked_forests(bst.trees, 1)[0]
+    grids, offsets = forest.encode_tables(dev)
+    # the first chunk, with +-inf, -0.0 and ties at grid values planted
+    chunk = np.array(X[:ENCODE_CHUNK])
+    chunk[0], chunk[1], chunk[2, ::2] = np.inf, -np.inf, -0.0
+    for f, g in enumerate(forest.grids):
+        if len(g):
+            chunk[3:6, f] = g[0], g[-1], g[len(g) // 2]
+    raw = torch.from_numpy(chunk).to(dev)
+    want = (forest._encode_loop(chunk), *forest.encode_rows(chunk)[1:])
+    res = {"higgs": _encode_case("higgs.score chunk", raw, grids, offsets,
+                                 forest.encode_steps, want)}
+    # a grid too large for shared memory: the device-memory search
+    rng = np.random.RandomState(SEED)
+    wide = [np.unique(rng.standard_normal(ENCODE_WIDE))
+            for _ in range(chunk.shape[1])]
+    w_off = np.concatenate(([0], np.cumsum([len(g) for g in wide])))
+    w_codes = np.stack([np.searchsorted(g, chunk[:, f], side="left")
+                        for f, g in enumerate(wide)], axis=1)
+    res["wide"] = _encode_case(
+        "wide grid", raw, torch.from_numpy(np.concatenate(wide)).to(dev),
+        torch.from_numpy(w_off.astype(np.int64)).to(dev),
+        int(max(len(g) for g in wide)).bit_length(),
+        (w_codes.astype(np.int32), *want[1:]))
+    # one 500,000-row Booster.predict: a launch per chunk, every row on
+    # the kernel
+    bst.predict(X)
+    obs.reset_for_tests()
+    cuda_encode.reset_launch_count()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst.predict(X)
+    call_s = time.perf_counter() - t0
+    launches = cuda_encode.launch_count()
+    counters = obs.snapshot()["counters"]
+    chunks = -(-rows // ENCODE_CHUNK)
+    print(f"  Booster.predict of {rows} rows x {len(bst.trees)} trees: "
+          f"{call_s * 1e3:.1f} ms, {rows / call_s:.0f} rows/s; encode "
+          f"kernel launches {launches} for {chunks} chunks; "
+          f"predict.encode.rows_cuda "
+          f"{counters.get('predict.encode.rows_cuda', 0)}, rows_plain "
+          f"{counters.get('predict.encode.rows_plain', 0)}", flush=True)
+    if launches != chunks or \
+            counters.get("predict.encode.rows_cuda", 0) != rows:
+        fail(f"phase 23: {launches} encode launches and "
+             f"{counters.get('predict.encode.rows_cuda', 0)} rows on the "
+             f"kernel for {chunks} chunks of {rows} rows")
+    del bst, raw
+    torch.cuda.empty_cache()
+    res["higgs"].update(launches=launches, call_s=call_s)
+    return res
+
+
+PHASES = tuple(range(1, 24))
 
 
 def main():
@@ -5506,6 +5665,15 @@ def main():
               f"tensors)", flush=True)
         gdres = guard_phase(mres)
 
+    encres = None
+    if 23 in want:
+        elapsed(t_start)
+        print(f"phase 23: the rank-encode kernel at the higgs.score shape "
+              f"({ENCODE_CHUNK}-row chunks x 28 of the cell's 500-tree "
+              f"forest; a grid past shared memory; one 500,000-row "
+              f"Booster.predict)", flush=True)
+        encres = encode_phase(dev)
+
     elapsed(t_start)
     if want != set(PHASES):
         print(f"partial run of phases {sorted(want)}: no result lines",
@@ -5555,6 +5723,15 @@ def main():
             "17": tres["launches"], "18": pres["launches"],
             "19": rbres["launches"], "20": ores["launches"],
             "21": wres["launches"], "22": gdres["launches"]},
+    }, {
+        "name": "rank encode", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/encode.cu",
+        "replaces": "none (the host encode, lightgbm_tpu_torch/ops/"
+                    "predict.py StackedForest.encode_rows)",
+        "launches": encres["higgs"]["launches"],
+        **{k: encres["higgs"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "library_ms")},
+        "cases": encres,
     }]}
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

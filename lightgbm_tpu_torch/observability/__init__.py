@@ -6,7 +6,7 @@ One subsystem for the runtime signals of training and serving:
   ``tree_batch`` -> ``iteration`` -> ``iteration.flags`` and derived
   ``wave``; ``eval`` -> ``eval.fetch`` / ``eval.metric``; ``construct``
   -> ``construct.find_bins`` / ``.defer`` / ``.bin``;
-  ``construct.place``; ``predict`` -> ``predict.encode`` / ``.upload``
+  ``construct.place``; ``predict`` -> ``predict.upload`` / ``.encode``
   / ``.walk`` / ``.fetch`` / ``.convert``; ``checkpoint``), opened at
   host boundaries between the replays of a captured iteration, never
   inside a captured part. Each is also a ``torch.profiler`` range while

@@ -118,29 +118,31 @@ def find_nvcc() -> str:
     for c in cands:
         if os.path.isfile(c) and os.access(c, os.X_OK):
             return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the histogram kernel "
-                       "is built from csrc/histogram.cu at first use")
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the kernels are "
+                       "built from csrc/ at first use")
 
 
-def library_path() -> str:
-    """Build output path, keyed by the source and flags, so an edited
-    source is rebuilt and never loaded stale."""
-    h = hashlib.sha256(open(SOURCE, "rb").read())
+def library_path(source: str = SOURCE, stem: str = "libgbdt_hist") -> str:
+    """Build output path of ``source``, keyed by the source and flags, so
+    an edited source is rebuilt and never loaded stale."""
+    h = hashlib.sha256(open(source, "rb").read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libgbdt_hist_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build_library(verbose: bool = False) -> Tuple[str, float, str]:
-    """Compile ``csrc/histogram.cu`` if its library is missing. Returns
+def build_library(verbose: bool = False, source: str = SOURCE,
+                  stem: str = "libgbdt_hist") -> Tuple[str, float, str]:
+    """Compile ``source`` (``csrc/histogram.cu``; ``ops/cuda_encode.py``
+    builds ``csrc/encode.cu`` here too) if its library is missing. Returns
     ``(path, seconds, compiler output)``; ``verbose`` adds ``-Xptxas -v``
     (registers, shared memory and spills per kernel) to the output."""
-    path = library_path()
+    path = library_path(source, stem)
     if os.path.exists(path):
         return path, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
     cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, SOURCE]
+           "-o", tmp, source]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

@@ -270,7 +270,7 @@ def _contains(outer, inner):
 
 def test_predict_records_a_span_set_per_chunk(clean_registry):
     """``Booster.predict`` on the device route (the CPU here) records
-    ``predict`` holding, per chunk of 65,536 rows, one encode / upload /
+    ``predict`` holding, per chunk of 65,536 rows, one upload / encode /
     walk / fetch, and one ``predict.convert``."""
     from lightgbm_tpu_torch.basic import DEVICE_PREDICT_MIN_WORK
     bst = _train(dict(PARAMS), 16)
@@ -289,7 +289,7 @@ def test_predict_records_a_span_set_per_chunk(clean_registry):
     call = top[0]
     inner = [e for e in ev if _contains(call, e) and e is not call]
     names = [e["name"] for e in inner]
-    assert names == ["predict.encode", "predict.upload", "predict.walk",
+    assert names == ["predict.upload", "predict.encode", "predict.walk",
                      "predict.fetch"] * 2 + ["predict.convert"]
     assert [e["args"]["rows"] for e in inner
             if e["name"] == "predict.encode"] == [65_536, rows - 65_536]
