@@ -604,15 +604,21 @@ class GBDT:
         and when bundling, put the ``BundleDecode`` tables on the device and
         set ``spec.hist_bins``. Returns the host code matrix to train on, or
         None when the dataset's binning is deferred and stays so (the
-        codes are then binned on the device)."""
-        from ..efb import (build_code_feat, materialize_bundles,
-                           plan_bundles, sample_row_indices)
+        codes are then binned on the device).
+
+        Planning, materialisation and the upload run in a
+        ``construct.plan_bundles`` span (``features``, ``bundles``: the
+        columns the booster trains on). A bundled booster sets the gauges
+        ``efb.features``, ``efb.bundles``, ``efb.hist_bins``,
+        ``efb.code_bytes`` (bytes a bundled code takes) and
+        ``efb.bundled_features`` (features sharing a column); a plan that
+        nothing bundles, or that the rule declines, counts
+        ``efb.unbundled``."""
         self.bundle: Optional[BundleDecode] = None
         self.efb_plan = None          # the kept plan, its codes dropped
         self.efb_wins = None          # whether a plan won the rule
-        F, N = train_set.num_features, train_set.num_data
-        deferred = train_set.deferred
-        unbundled = None if deferred else train_set.X_binned
+        F = train_set.num_features
+        unbundled = None if train_set.deferred else train_set.X_binned
         if config.enable_bundle == "false" or F < 2:
             return unbundled
         if self.pctx.strategy == "voting" and meta["is_categorical"].any():
@@ -622,6 +628,31 @@ class GBDT:
             Log.warning("tree_learner=voting with categorical features "
                         "trains unbundled (enable_bundle ignored)")
             return unbundled
+        with obs.span("construct.plan_bundles", features=F) as span:
+            codes = self._bundle(config, train_set, meta)
+            cols = F if self.bundle is None else self.efb_plan.num_groups
+            obs.annotate(span, bundles=cols)
+        reg = obs.get_registry()
+        if self.bundle is None:
+            reg.counter("efb.unbundled").inc()
+            return unbundled
+        plan = self.efb_plan
+        reg.gauge("efb.features").set(F)
+        reg.gauge("efb.bundles").set(plan.num_groups)
+        reg.gauge("efb.hist_bins").set(self.spec.hist_bins)
+        reg.gauge("efb.code_bytes").set(codes.dtype.itemsize)
+        reg.gauge("efb.bundled_features").set(
+            sum(len(g) for g in plan.groups if len(g) > 1))
+        return codes
+
+    def _bundle(self, config: Config, train_set: ConstructedDataset,
+                meta) -> Optional[np.ndarray]:
+        """:meth:`_plan_bundles`'s plan and decision: the bundled host codes
+        (``self.bundle`` set), or None where the booster trains
+        unbundled."""
+        from ..efb import (build_code_feat, materialize_bundles,
+                           plan_bundles, sample_row_indices)
+        F, N = train_set.num_features, train_set.num_data
         nb = meta["num_bins"].astype(np.int64)
         db = meta["default_bin"].astype(np.int64)
         if self._block_counts is not None:
@@ -635,7 +666,7 @@ class GBDT:
             plan = plan_bundles(train_set.X_binned, nb, db, config,
                                 sample=np.concatenate(parts, axis=0),
                                 num_data=self.num_data)
-        elif deferred:
+        elif train_set.deferred:
             # plan from a host-binned row sample (the plan is a function of
             # the sample, and bin_rows bins the rows sample_rows would take)
             plan = plan_bundles(None, nb, db, config,
@@ -645,7 +676,7 @@ class GBDT:
         else:
             plan = plan_bundles(train_set.X_binned, nb, db, config)
         if plan is None:
-            return unbundled
+            return None
         Bpad = self.spec.num_bins_padded
         Bb_pad = max(8, _round_up(plan.max_bundle_bins, 8))
         G = plan.num_groups
@@ -662,7 +693,7 @@ class GBDT:
                       F * Bpad)
         self.efb_wins = wins
         if not (wins or config.enable_bundle == "true"):
-            return unbundled
+            return None
         if plan.X_bundled is None:
             # the plan won under deferral: bundling needs the host codes
             # after all (device ingest serves the unbundled layout only)

@@ -480,7 +480,8 @@ def construct_dataset(
         X_binned = None
     else:
         binner = bin_sparse_host if sparse else bin_dense_host
-        with obs.span("construct.bin", rows=num_data):
+        with obs.span("construct.bin", rows=num_data,
+                      **sparse_span_args(data)):
             X_binned = binner(
                 data, [f.mapper for f in features],
                 np.array([f.real_index for f in features], np.int64),
@@ -499,6 +500,14 @@ def construct_dataset(
         ds.X_raw = extract_raw_slice(
             data, [f.real_index for f in features], num_data)
     return ds
+
+
+def sparse_span_args(data) -> Dict:
+    """The ``construct.bin`` span's attributes of ``scipy.sparse`` input:
+    ``sparse`` and the stored values (``stored``); none for dense."""
+    if not hasattr(data, "tocsc"):
+        return {}
+    return {"sparse": True, "stored": int(data.nnz)}
 
 
 def bin_dense_host(data: np.ndarray, mappers, real_indices: np.ndarray,

@@ -53,7 +53,7 @@ from typing import Dict, Optional
 
 from .metrics import MetricsRegistry
 from .phases import PhaseBreakdown  # noqa: F401  (public: phase timing)
-from .tracer import SpanTracer
+from .tracer import SpanTracer, _Span
 
 ENV_TELEMETRY_DIR = "LGBM_TPU_TELEMETRY_DIR"
 
@@ -117,6 +117,14 @@ def span(name: str, **args):
     """``with observability.span("serve.warmup", buckets=13): ...`` — no-op
     when telemetry is disabled."""
     return _tracer.span(name, **args)
+
+
+def annotate(span_handle, **args) -> None:
+    """Add ``args`` to a span while it is open (``with span(...) as sp:
+    annotate(sp, bundles=G)``), for what is known only inside it; a no-op
+    where the span is not recorded."""
+    if isinstance(span_handle, _Span):
+        span_handle.args.update(args)
 
 
 def event(name: str, **args) -> None:

@@ -635,12 +635,13 @@ def test_train_spans_match_jax(jax_recording, port_recording):
     own = {k: v for k, v in port_recording["spans"].items()
            if k not in jax_recording["spans"]}
     # two constructs (train, valid), one mapper finding and ingest
-    # decision, both binned and placed; binary_logloss reduces on the
-    # device: one fetch an eval
+    # decision, both binned and placed; the booster's EFB plan (which
+    # bundles nothing here); binary_logloss reduces on the device: one
+    # fetch an eval
     assert own == {"construct": 2,
                    "construct.find_bins": 1, "construct.defer": 1,
-                   "construct.bin": 2, "construct.place": 2,
-                   "eval.fetch": 3}
+                   "construct.bin": 2, "construct.plan_bundles": 1,
+                   "construct.place": 2, "eval.fetch": 3}
 
 
 def test_train_counters_and_histograms_match_jax(jax_recording,
