@@ -413,7 +413,8 @@ def elapsed(t_start):
 
 
 def kernel_name(mangled):
-    """A readable name for a kernel of csrc/histogram.cu in ptxas output."""
+    """A readable name for a kernel in ptxas output (csrc/histogram.cu's
+    templates spelled out, any other name as it is)."""
     m = re.search(r"hist_kernelI([htj])Lb([01])ELb([01])E", mangled)
     if m:
         code = {"h": "uint8", "t": "uint16", "j": "int32"}[m.group(1)]
@@ -421,6 +422,23 @@ def kernel_name(mangled):
                 f"{'aligned' if m.group(2) == '1' else 'unaligned'} rows, "
                 f"{'bin tiles' if m.group(3) == '1' else 'untiled'}>")
     return "finalize_kernel" if "finalize_kernel" in mangled else mangled
+
+
+def build_kernel(wrapper, prefix=""):
+    """Build a kernel wrapper's source through ``ops/native.py`` with
+    ``-Xptxas -v``; print the build seconds (0.00 where the library was
+    there already) and each kernel's registers, shared memory and spills."""
+    from lightgbm_tpu_torch.ops import native
+    path, secs, log = native.build_cuda(wrapper.SOURCE, wrapper.STEM,
+                                        verbose=True)
+    print(f"  {prefix}built {os.path.relpath(path, HERE)} in {secs:.2f} s",
+          flush=True)
+    for line in log.splitlines():
+        entry = re.search(r"entry function '(\w+)'", line)
+        if entry:
+            print(f"  ptxas: {kernel_name(entry.group(1))}", flush=True)
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas:   {line.split(':', 1)[-1].strip()}", flush=True)
 
 
 def card_line():
@@ -640,15 +658,7 @@ def lambdarank_case(dev):
     from benchmark.harness import data as datagen
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from _lambdarank_reference import pair_loop_f64
-    path, secs, log = cuda_lambdarank.build_library(verbose=True)
-    print(f"  lambdarank: built {os.path.relpath(path, HERE)} in {secs:.2f} s",
-          flush=True)
-    for line in log.splitlines():
-        entry = re.search(r"entry function '(\w+)'", line)
-        if entry:
-            print(f"  ptxas: {entry.group(1)}", flush=True)
-        elif "registers" in line or "spill" in line:
-            print(f"  ptxas:   {line.split(':', 1)[-1].strip()}", flush=True)
+    build_kernel(cuda_lambdarank, "lambdarank: ")
     sizes = datagen.query_sizes(RANK_CELL_ROWS, RANK_CELL_QUERIES, 120, 0.6,
                                 8, torch.Generator().manual_seed(SEED))
     rng = np.random.RandomState(SEED)
@@ -5512,15 +5522,7 @@ def encode_phase(dev):
     from benchmark.harness import data as datagen
     from benchmark.harness import forest as forestgen
     from benchmark.harness import manifest
-    path, secs, log = cuda_encode.build_library(verbose=True)
-    print(f"  built {os.path.relpath(path, HERE)} in {secs:.2f} s",
-          flush=True)
-    for line in log.splitlines():
-        entry = re.search(r"entry function '(\w+)'", line)
-        if entry:
-            print(f"  ptxas: {entry.group(1)}", flush=True)
-        elif "registers" in line or "spill" in line:
-            print(f"  ptxas:   {line.split(':', 1)[-1].strip()}", flush=True)
+    build_kernel(cuda_encode)
     cfg = manifest.config("higgs")
     rows = int(manifest.traffic("score")["batch_rows"])
     gen = datagen.generator(SEED, dev)
@@ -5623,14 +5625,7 @@ def main():
 
     print("phase 2: build", flush=True)
     from lightgbm_tpu_torch.ops import cuda_histogram
-    path, secs, log = cuda_histogram.build_library(verbose=True)
-    print(f"  built {os.path.relpath(path, HERE)} in {secs:.2f} s", flush=True)
-    for line in log.splitlines():
-        entry = re.search(r"entry function '(\w+)'", line)
-        if entry:
-            print(f"  ptxas: {kernel_name(entry.group(1))}", flush=True)
-        elif "registers" in line or "spill" in line:
-            print(f"  ptxas:   {line.split(':', 1)[-1].strip()}", flush=True)
+    build_kernel(cuda_histogram)
 
     none = dict(launches=0)
     kres, mres, sres, cres, gres, rres = {}, None, None, none, None, None

@@ -2,8 +2,9 @@
 
 The JAX package's R004 held Pallas block shapes to the TPU's tiling,
 which its compiler checks only on the hardware. The port's kernels are
-CUDA C++ with a plain C interface, loaded with ``ctypes``
-(``ops/cuda_histogram.py``), and there the silent failure is the binding:
+CUDA C++ with a plain C interface, loaded with ``ctypes`` (``ops/native.py``;
+each wrapper binds its entries in its ``declare(lib)``), and there the
+silent failure is the binding:
 ``lib.<fn>.argtypes = [...]`` that disagrees with the ``extern "C"``
 signature in ``csrc/*.cu`` passes a pointer as a 32-bit int, or shifts
 every argument after a missing one, and the kernel reads garbage with no

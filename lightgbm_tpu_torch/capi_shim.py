@@ -3,10 +3,10 @@
 The shim exports the reference's ``LGBM_*`` symbols (c_api.h) and forwards
 each call to :mod:`lightgbm_tpu_torch.capi_impl`. It is compiled at first
 use with ``cc`` and the flags of ``python3-config --includes`` and
-``--ldflags --embed`` (those of ``capi/Makefile``) into
-``lightgbm_tpu_torch/build/lib_lightgbm_tpu_torch_<key>.so``, where the key
-hashes the source and the flags (so a library built against another
-Python installation is never reused), and serves both
+``--ldflags --embed`` (those of ``capi/Makefile``) by ``ops/native.build``
+into ``lightgbm_tpu_torch/build/lib_lightgbm_tpu_torch_<key>.so``, the key
+hashing the source and the whole compile command (so a library built
+against another Python installation is never reused), and serves both
 hosting modes: a C program linked against it (embedded: the first call
 starts an interpreter, which finds the package through ``PYTHONPATH``), or
 ``ctypes`` inside a Python process (hosted: :func:`load_shim`).
@@ -17,17 +17,16 @@ installation first, so the flags name the libpython this process runs on.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
 import sysconfig
-import time
 from typing import List, Tuple
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(HERE, "csrc", "lgbm_capi.c")
-BUILD_DIR = os.path.join(HERE, "build")
+from .ops import native
+
+SOURCE = native.source_path("lgbm_capi.c")
+STEM = "lib_lightgbm_tpu_torch"
 CFLAGS = ["-shared", "-fPIC", "-O2", "-fvisibility=hidden"]
 
 
@@ -61,42 +60,24 @@ def _compile_command(output: str, source: str = SOURCE) -> List[str]:
     return ["cc", *CFLAGS, *includes, source, "-o", output, *ldflags]
 
 
-def library_path() -> str:
-    """The shim's library for this source and this Python's flags."""
-    with open(SOURCE, "rb") as fh:
-        key = hashlib.sha256(fh.read())
-    key.update(" ".join(_compile_command("")).encode())
-    return os.path.join(BUILD_DIR,
-                        f"lib_lightgbm_tpu_torch_{key.hexdigest()[:16]}.so")
-
-
 def build_shim() -> Tuple[str, float]:
-    """Compile the shim unless its library exists. Returns ``(path,
+    """Compile the shim unless its library exists (``ops/native.build``,
+    keyed by the source and the whole compile command). Returns ``(path,
     seconds)`` (0.0 when nothing was built)."""
     include = sysconfig.get_paths()["include"]
     if not os.path.exists(os.path.join(include, "Python.h")):
         raise RuntimeError(f"Python.h is not in {include}: the C API shim "
                            f"needs the Python development headers")
-    path = library_path()
-    if os.path.exists(path):
-        return path, 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    cmd = _compile_command(tmp)
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"{cmd[0]} failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
+    path, seconds, _ = native.build(SOURCE, STEM, _compile_command(""),
+                                    _compile_command)
     return path, seconds
+
+
+def declare(lib: ctypes.CDLL) -> None:
+    """Bind what the hosted mode reads of the shim's C interface."""
+    lib.LGBM_GetLastError.restype = ctypes.c_char_p
 
 
 def load_shim() -> ctypes.CDLL:
     """The shim, built if needed, loaded into this process (hosted mode)."""
-    path, _ = build_shim()
-    lib = ctypes.CDLL(path)
-    lib.LGBM_GetLastError.restype = ctypes.c_char_p
-    return lib
-
+    return native.load(SOURCE, STEM, declare, lambda *_: build_shim())

@@ -9,12 +9,9 @@ and the zero mask ``is_nan | (|v| <= K_ZERO_RANGE)``, bit-equal to
 source note in ``csrc/encode.cu`` states the arithmetic, the bound and the
 design.
 
-Build: as B1's (``ops/cuda_histogram.build_library``), ``nvcc -gencode
-arch=compute_90a,code=sm_90a`` compiles the source into a shared library
-with a plain C interface at first use, into ``lightgbm_tpu_torch/build/``
-(listed in ``.gitignore``), keyed by a hash of the source and flags, and
-``ctypes`` loads it. Nothing is built or imported
-when this module is imported.
+Build and load: ``ops/native.py`` (library stem ``libgbdt_encode``);
+:func:`declare` binds the C entries. Nothing is built or imported when this
+module is imported.
 
 Dispatch: for tensors on the CPU, :func:`encode_rows` runs the plain
 version :func:`encode_rows_plain`; for CUDA tensors it launches the kernel
@@ -26,43 +23,29 @@ encodes are counted in the registry as ``predict.encode.rows_cuda`` and
 from __future__ import annotations
 
 import ctypes
-import os
 from typing import Tuple
 
 import torch
 
 from .. import observability as obs
 from ..binning import K_ZERO_RANGE
-from . import cuda_histogram
-from .cuda_histogram import _check
+from . import native
+from .native import check_tensor
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "encode.cu")
+SOURCE = native.source_path("encode.cu")
+STEM = "libgbdt_encode"
 
-_lib = None            # the loaded ctypes library, once built
 _launches = 0          # kernel launches since the last reset
 
 
-def build_library(verbose: bool = False) -> Tuple[str, float, str]:
-    """Compile ``csrc/encode.cu`` if its library is missing
-    (``cuda_histogram.build_library``'s nvcc, flags and build directory).
-    Returns ``(path, seconds, compiler output)``."""
-    return cuda_histogram.build_library(verbose, SOURCE, "libgbdt_encode")
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        path, _, _ = build_library()
-        lib = ctypes.CDLL(path)
-        p, i, ll, d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_double)
-        lib.gbdt_encode_rows.argtypes = [p, ll, i, p, ll, p, d, p, p, p, p]
-        lib.gbdt_encode_rows.restype = i
-        lib.gbdt_encode_max_shared_bytes.argtypes = []
-        lib.gbdt_encode_max_shared_bytes.restype = ll
-        _lib = lib
-    return _lib
+def declare(lib: ctypes.CDLL) -> None:
+    """Bind the C entries of ``csrc/encode.cu``."""
+    p, i, ll, d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_double)
+    lib.gbdt_encode_rows.argtypes = [p, ll, i, p, ll, p, d, p, p, p, p]
+    lib.gbdt_encode_rows.restype = i
+    lib.gbdt_encode_max_shared_bytes.argtypes = []
+    lib.gbdt_encode_max_shared_bytes.restype = ll
 
 
 def launch_count() -> int:
@@ -78,7 +61,8 @@ def reset_launch_count() -> None:
 def uses_shared_memory(grid_total: int) -> bool:
     """Whether the kernel searches a grid of ``grid_total`` thresholds in
     shared memory (else in device memory, through L2)."""
-    return grid_total * 8 <= _library().gbdt_encode_max_shared_bytes()
+    lib = native.load(SOURCE, STEM, declare)
+    return grid_total * 8 <= lib.gbdt_encode_max_shared_bytes()
 
 
 def encode_rows_plain(X: torch.Tensor, grids: torch.Tensor,
@@ -119,27 +103,23 @@ def encode_rows(X: torch.Tensor, grids: torch.Tensor, offsets: torch.Tensor,
     if X.device.type == "cpu":
         obs.inc("predict.encode.rows_plain", int(N))
         return encode_rows_plain(X, grids, offsets, steps)
-    _check("X", X, (torch.float64,))
-    _check("grids", grids, (torch.float64,))
-    _check("offsets", offsets, (torch.int64,), (F + 1,))
+    check_tensor("X", X, (torch.float64,))
+    check_tensor("grids", grids, (torch.float64,))
+    check_tensor("offsets", offsets, (torch.int64,), (F + 1,))
     if grids.device != X.device or offsets.device != X.device:
         raise ValueError(f"grids on {grids.device} and offsets on "
                          f"{offsets.device} must be on {X.device}")
-    lib = _library()
+    lib = native.load(SOURCE, STEM, declare)
     G = grids.shape[0]
     codes = torch.empty((N, F), dtype=torch.int32, device=X.device)
     is_nan = torch.empty((N, F), dtype=torch.bool, device=X.device)
     is_zero = torch.empty((N, F), dtype=torch.bool, device=X.device)
     if N == 0:
         return codes, is_nan, is_zero
-    with torch.cuda.device(X.device):
-        err = lib.gbdt_encode_rows(
-            X.data_ptr(), N, F, grids.data_ptr(), G, offsets.data_ptr(),
-            K_ZERO_RANGE, codes.data_ptr(),
-            is_nan.data_ptr(), is_zero.data_ptr(),
-            torch.cuda.current_stream(X.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"encode kernel launch failed: CUDA error {err}")
+    native.launch("encode kernel", lib.gbdt_encode_rows, X.device,
+                  X.data_ptr(), N, F, grids.data_ptr(), G,
+                  offsets.data_ptr(), K_ZERO_RANGE, codes.data_ptr(),
+                  is_nan.data_ptr(), is_zero.data_ptr())
     _launches += 1
     obs.inc("predict.encode.rows_cuda", int(N))
     return codes, is_nan, is_zero

@@ -16,10 +16,9 @@ nothing on the host and replays from a CUDA graph. The source note in
 ``csrc/histogram.cu`` states the arithmetic, its error bound, the bound at
 the slice's shapes and what the design does about each cost.
 
-Build: ``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles the source
-into a shared library with a plain C interface at first use, into
-``lightgbm_tpu_torch/build/`` (listed in ``.gitignore``), and ``ctypes``
-loads it. Nothing is built or imported when this module is imported.
+Build and load: ``ops/native.py`` (library stem ``libgbdt_hist``);
+:func:`declare` binds the C entries. Nothing is built or imported when this
+module is imported.
 
 Dispatch: for tensors on the CPU the wrapper runs the plain version in
 ``ops/histogram.py``; for CUDA tensors it launches the kernel or raises —
@@ -62,23 +61,17 @@ kernels. Neither drops such a row.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from . import native
+from .native import check_tensor
 from .histogram import (build_histograms, finalize_histograms,
                         histogram_scales, pass_positions)
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "histogram.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = native.source_path("histogram.cu")
+STEM = "libgbdt_hist"
 
 # Hopper's shared memory: a block may opt into 232,448 bytes; this leaves
 # 2 KB of it for the kernel's static segment tables (1 KB). An SM has
@@ -97,7 +90,6 @@ CODE_DTYPES = (torch.uint8, torch.int16, torch.int32)
 # flushing its sub-histogram
 MIN_ROWS_PER_BLOCK = 2048
 
-_lib = None            # the loaded ctypes library, once built
 _num_sms = {}          # device index -> multiprocessor count
 # device index -> [1] int64 count of the passes run there, which
 # finalize_kernel adds to; kept for the process's life, since captured
@@ -105,82 +97,29 @@ _num_sms = {}          # device index -> multiprocessor count
 _launches: Dict[int, torch.Tensor] = {}
 
 
-def find_nvcc() -> str:
-    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``PATH``, then
-    ``/usr/local/cuda/bin``; raises when there is none."""
-    cands = []
-    if os.environ.get("CUDA_HOME"):
-        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
-    on_path = shutil.which("nvcc")
-    if on_path:
-        cands.append(on_path)
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the kernels are "
-                       "built from csrc/ at first use")
-
-
-def library_path(source: str = SOURCE, stem: str = "libgbdt_hist") -> str:
-    """Build output path of ``source``, keyed by the source and flags, so
-    an edited source is rebuilt and never loaded stale."""
-    h = hashlib.sha256(open(source, "rb").read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
-
-
-def build_library(verbose: bool = False, source: str = SOURCE,
-                  stem: str = "libgbdt_hist") -> Tuple[str, float, str]:
-    """Compile ``source`` (``csrc/histogram.cu``; ``ops/cuda_encode.py``
-    builds ``csrc/encode.cu`` here too) if its library is missing. Returns
-    ``(path, seconds, compiler output)``; ``verbose`` adds ``-Xptxas -v``
-    (registers, shared memory and spills per kernel) to the output."""
-    path = library_path(source, stem)
-    if os.path.exists(path):
-        return path, 0.0, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, source]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path, seconds, proc.stdout + proc.stderr
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        path, _, _ = build_library()
-        lib = ctypes.CDLL(path)
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.gbdt_hist_build.argtypes = [
-            p, i, ll, i, p, p, p, p, p, p, p, i, i, i, i, i, ll, p, p, p, p,
-            p]
-        lib.gbdt_hist_build.restype = i
-        lib.gbdt_hist_acc_zero.argtypes = [p, i, i, i, p]
-        lib.gbdt_hist_acc_zero.restype = i
-        lib.gbdt_hist_acc_add.argtypes = [
-            p, i, ll, i, p, p, p, p, p, p, p, i, i, i, i, i, ll, p, p, p]
-        lib.gbdt_hist_acc_add.restype = i
-        lib.gbdt_hist_acc_finalize.argtypes = [p, i, i, i, p, p, p, p]
-        lib.gbdt_hist_acc_finalize.restype = i
-        lib.gbdt_hist_scratch_bytes.argtypes = [i, i, i]
-        lib.gbdt_hist_scratch_bytes.restype = ll
-        lib.gbdt_hist_max_slots.argtypes = []
-        lib.gbdt_hist_max_slots.restype = i
-        lib.gbdt_hist_threads.argtypes = []
-        lib.gbdt_hist_threads.restype = i
-        if lib.gbdt_hist_threads() != BLOCK_THREADS:
-            raise RuntimeError("csrc/histogram.cu's block size differs from "
-                               "BLOCK_THREADS")
-        _lib = lib
-    return _lib
+def declare(lib: ctypes.CDLL) -> None:
+    """Bind the C entries of ``csrc/histogram.cu``; raises where its block
+    size is not :data:`BLOCK_THREADS`."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.gbdt_hist_build.argtypes = [
+        p, i, ll, i, p, p, p, p, p, p, p, i, i, i, i, i, ll, p, p, p, p, p]
+    lib.gbdt_hist_build.restype = i
+    lib.gbdt_hist_acc_zero.argtypes = [p, i, i, i, p]
+    lib.gbdt_hist_acc_zero.restype = i
+    lib.gbdt_hist_acc_add.argtypes = [
+        p, i, ll, i, p, p, p, p, p, p, p, i, i, i, i, i, ll, p, p, p]
+    lib.gbdt_hist_acc_add.restype = i
+    lib.gbdt_hist_acc_finalize.argtypes = [p, i, i, i, p, p, p, p]
+    lib.gbdt_hist_acc_finalize.restype = i
+    lib.gbdt_hist_scratch_bytes.argtypes = [i, i, i]
+    lib.gbdt_hist_scratch_bytes.restype = ll
+    lib.gbdt_hist_max_slots.argtypes = []
+    lib.gbdt_hist_max_slots.restype = i
+    lib.gbdt_hist_threads.argtypes = []
+    lib.gbdt_hist_threads.restype = i
+    if lib.gbdt_hist_threads() != BLOCK_THREADS:
+        raise RuntimeError("csrc/histogram.cu's block size differs from "
+                           "BLOCK_THREADS")
 
 
 def bin_tiles(num_bins: int) -> Tuple[int, int]:
@@ -334,21 +273,6 @@ def reset_launch_count() -> None:
         c.zero_()
 
 
-def _check(name: str, t: torch.Tensor, dtypes, shape=None) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, "
-                        f"got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def build_histograms_cuda(
     X: torch.Tensor,            # [N, F] uint8, int16 (uint16) or int32 codes
     grad: torch.Tensor,         # [N] f32
@@ -396,31 +320,31 @@ def build_histograms_cuda(
     N, F = X.shape
     S, B = int(num_slots), int(num_bins_padded)
     dev = X.device
-    _check("X", X, CODE_DTYPES)
+    check_tensor("X", X, CODE_DTYPES)
     for name, t in (("grad", grad), ("hess", hess), ("included", included)):
-        _check(name, t, (torch.float32,), (N,))
-    _check("leaf_id", leaf_id, (torch.int32,), (N,))
-    _check("slot_of_leaf", slot_of_leaf, (torch.int32,))
-    lib = _library()
+        check_tensor(name, t, (torch.float32,), (N,))
+    check_tensor("leaf_id", leaf_id, (torch.int32,), (N,))
+    check_tensor("slot_of_leaf", slot_of_leaf, (torch.int32,))
+    lib = native.load(SOURCE, STEM, declare)
     if S > lib.gbdt_hist_max_slots():
         raise ValueError(f"num_slots={S} exceeds the kernel's "
                          f"{lib.gbdt_hist_max_slots()}")
     if row_idx is not None:
         if slot_counts is None:
             raise ValueError("a compacted pass needs slot_counts")
-        _check("row_idx", row_idx, (torch.int32,), (N,))
-        _check("slot_counts", slot_counts, (torch.int32,), (S,))
+        check_tensor("row_idx", row_idx, (torch.int32,), (N,))
+        check_tensor("slot_counts", slot_counts, (torch.int32,), (S,))
         if slot_starts is not None:
-            _check("slot_starts", slot_starts, (torch.int32,), (S,))
+            check_tensor("slot_starts", slot_starts, (torch.int32,), (S,))
     else:
         row_idx, slot_counts, n_active = pass_positions(leaf_id,
                                                         slot_of_leaf, S)
         slot_starts = None
     if n_active is not None:
-        _check("n_active", n_active, (torch.int64,), ())
+        check_tensor("n_active", n_active, (torch.int64,), ())
     if scales is None:
         scales = histogram_scales(grad, hess)
-    _check("scales", scales, (torch.float64,), (2,))
+    check_tensor("scales", scales, (torch.float64,), (2,))
     cb = X.element_size()
     fg, _ = feature_groups(F, B, cb)
     tile, _ = bin_tiles(B)
@@ -430,39 +354,29 @@ def build_histograms_cuda(
             raise ValueError(f"accumulator of shape {(acc.S, acc.F, acc.B)} "
                              f"on {acc.device} cannot take a pass of shape "
                              f"{(S, F, B)} on {dev}")
-
-        def p(t):
-            return None if t is None else t.data_ptr()
-        with torch.cuda.device(dev):
-            err = lib.gbdt_hist_acc_add(
-                X.data_ptr(), cb, N, F, grad.data_ptr(), hess.data_ptr(),
-                included.data_ptr(), row_idx.data_ptr(),
-                slot_counts.data_ptr(), p(slot_starts), p(n_active), S, B,
-                fg, tile, blocks, MIN_ROWS_PER_BLOCK, scales.data_ptr(),
-                acc.buf.data_ptr(), acc._stream())
-        if err != 0:
-            raise RuntimeError(f"histogram kernel launch failed: CUDA error "
-                               f"{err}")
+        native.launch(
+            "histogram kernel", lib.gbdt_hist_acc_add, dev, X.data_ptr(), cb,
+            N, F, grad.data_ptr(), hess.data_ptr(), included.data_ptr(),
+            row_idx.data_ptr(), slot_counts.data_ptr(), _ptr(slot_starts),
+            _ptr(n_active), S, B, fg, tile, blocks, MIN_ROWS_PER_BLOCK,
+            scales.data_ptr(), acc.buf.data_ptr())
         return None
     # the kernel's integer accumulators; the C entry zeroes them on the stream
     scratch = torch.empty(lib.gbdt_hist_scratch_bytes(S, F, B),
                           dtype=torch.uint8, device=dev)
     out = torch.empty((S, F, B, 3), dtype=torch.float32, device=dev)
-    launches = _launch_counter(dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gbdt_hist_build(
-            ptr(X), cb, N, F, ptr(grad), ptr(hess), ptr(included),
-            ptr(row_idx), ptr(slot_counts), ptr(slot_starts), ptr(n_active),
-            S, B, fg, tile, blocks, MIN_ROWS_PER_BLOCK, ptr(scales),
-            ptr(scratch), ptr(out), ptr(launches), stream)
-    if err != 0:
-        raise RuntimeError(f"histogram kernel launch failed: CUDA error {err}")
+    native.launch(
+        "histogram kernel", lib.gbdt_hist_build, dev, X.data_ptr(), cb, N, F,
+        grad.data_ptr(), hess.data_ptr(), included.data_ptr(),
+        row_idx.data_ptr(), slot_counts.data_ptr(), _ptr(slot_starts),
+        _ptr(n_active), S, B, fg, tile, blocks, MIN_ROWS_PER_BLOCK,
+        scales.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        _launch_counter(dev).data_ptr())
     return out
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _add_cpu(acc: "HistogramAccumulator", X, grad, hess, included, leaf_id,
@@ -495,16 +409,13 @@ class HistogramAccumulator:
             self.buf = torch.zeros((self.S, self.F, self.B, 3),
                                    dtype=torch.int64)
             return
-        lib = _library()
-        if self.S > lib.gbdt_hist_max_slots():
+        self.lib = native.load(SOURCE, STEM, declare)
+        if self.S > self.lib.gbdt_hist_max_slots():
             raise ValueError(f"num_slots={self.S} exceeds the kernel's "
-                             f"{lib.gbdt_hist_max_slots()}")
+                             f"{self.lib.gbdt_hist_max_slots()}")
         self.buf = torch.empty(
-            lib.gbdt_hist_scratch_bytes(self.S, self.F, self.B),
+            self.lib.gbdt_hist_scratch_bytes(self.S, self.F, self.B),
             dtype=torch.uint8, device=device)
-
-    def _stream(self) -> int:
-        return torch.cuda.current_stream(self.device).cuda_stream
 
     def sums(self):
         """The integer sums as ``[(tensor, feature axis)]`` views of the
@@ -527,12 +438,9 @@ class HistogramAccumulator:
         if self.device.type == "cpu":
             self.buf.zero_()
             return
-        with torch.cuda.device(self.device):
-            err = _library().gbdt_hist_acc_zero(
-                self.buf.data_ptr(), self.S, self.F, self.B, self._stream())
-        if err != 0:
-            raise RuntimeError(f"histogram accumulator memset failed: CUDA "
-                               f"error {err}")
+        native.launch("histogram accumulator memset",
+                      self.lib.gbdt_hist_acc_zero, self.device,
+                      self.buf.data_ptr(), self.S, self.F, self.B)
 
     def add(self, X: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             included: torch.Tensor, leaf_id: torch.Tensor,
@@ -559,13 +467,13 @@ class HistogramAccumulator:
                              acc=self.buf, raw_output=True)
             return
         N = grad.shape[0]
-        _check("X", X, CODE_DTYPES)
+        check_tensor("X", X, CODE_DTYPES)
         for name, t in (("grad", grad), ("hess", hess),
                         ("included", included)):
-            _check(name, t, (torch.float32,), (N,))
-        _check("leaf_id", leaf_id, (torch.int32,), (N,))
-        _check("slot_of_leaf", slot_of_leaf, (torch.int32,))
-        _check("scales", scales, (torch.float64,), (2,))
+            check_tensor(name, t, (torch.float32,), (N,))
+        check_tensor("leaf_id", leaf_id, (torch.int32,), (N,))
+        check_tensor("slot_of_leaf", slot_of_leaf, (torch.int32,))
+        check_tensor("scales", scales, (torch.float64,), (2,))
         if n == 0:
             return
         # the shard's pending rows, slot-grouped, as positions in the shard
@@ -576,31 +484,23 @@ class HistogramAccumulator:
         tile, _ = bin_tiles(self.B)
         blocks = grid_blocks(n, self.F, self.B, cb, _sm_count(X.device))
         off = int(row0) * 4                      # f32 rows before the shard
-        with torch.cuda.device(self.device):
-            err = _library().gbdt_hist_acc_add(
-                X.data_ptr(), cb, n, self.F, grad.data_ptr() + off,
-                hess.data_ptr() + off, included.data_ptr() + off,
-                perm.data_ptr(), counts.data_ptr(), None,
-                n_active.data_ptr(), self.S, self.B, fg, tile, blocks,
-                MIN_ROWS_PER_BLOCK, scales.data_ptr(), self.buf.data_ptr(),
-                self._stream())
-        if err != 0:
-            raise RuntimeError(f"histogram kernel launch failed: CUDA error "
-                               f"{err}")
+        native.launch(
+            "histogram kernel", self.lib.gbdt_hist_acc_add, self.device,
+            X.data_ptr(), cb, n, self.F, grad.data_ptr() + off,
+            hess.data_ptr() + off, included.data_ptr() + off,
+            perm.data_ptr(), counts.data_ptr(), None, n_active.data_ptr(),
+            self.S, self.B, fg, tile, blocks, MIN_ROWS_PER_BLOCK,
+            scales.data_ptr(), self.buf.data_ptr())
 
     def finalize(self, scales: torch.Tensor) -> torch.Tensor:
         """The wave's ``[S, F, B, 3]`` f32 histogram."""
         if self.device.type == "cpu":
             return finalize_histograms(self.buf, scales)
-        _check("scales", scales, (torch.float64,), (2,))
+        check_tensor("scales", scales, (torch.float64,), (2,))
         out = torch.empty((self.S, self.F, self.B, 3), dtype=torch.float32,
                           device=self.device)
-        with torch.cuda.device(self.device):
-            err = _library().gbdt_hist_acc_finalize(
-                self.buf.data_ptr(), self.S, self.F, self.B,
-                scales.data_ptr(), out.data_ptr(),
-                _launch_counter(self.device).data_ptr(), self._stream())
-        if err != 0:
-            raise RuntimeError(f"histogram finalize launch failed: CUDA "
-                               f"error {err}")
+        native.launch("histogram finalize", self.lib.gbdt_hist_acc_finalize,
+                      self.device, self.buf.data_ptr(), self.S, self.F,
+                      self.B, scales.data_ptr(), out.data_ptr(),
+                      _launch_counter(self.device).data_ptr())
         return out

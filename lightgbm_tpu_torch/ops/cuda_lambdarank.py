@@ -12,12 +12,9 @@ The kernel's blocks are the entries of a table built once on the host
 the longest query first. :class:`QueryPlan` holds that table and the
 query's constants on the card, placed once outside any capture.
 
-Build: as B1's (``ops/cuda_histogram.build_library``), ``nvcc -gencode
-arch=compute_90a,code=sm_90a`` compiles the source into a shared library
-with a plain C interface at first use, into ``lightgbm_tpu_torch/build/``
-(listed in ``.gitignore``), keyed by a hash of the source and flags, and
-``ctypes`` loads it. Nothing is built or imported when this module is
-imported.
+Build and load: ``ops/native.py`` (library stem ``libgbdt_lambdarank``);
+:func:`declare` binds the C entries. Nothing is built or imported when this
+module is imported.
 
 Dispatch: the objective runs its plain version for CPU tensors and calls
 :func:`lambdarank_grads` for CUDA tensors, which launches the kernel or
@@ -31,51 +28,38 @@ once; its replays count nothing.
 from __future__ import annotations
 
 import ctypes
-import os
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from .. import observability as obs
-from . import cuda_histogram
-from .cuda_histogram import _check
+from . import native
+from .native import check_tensor
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "lambdarank.cu")
+SOURCE = native.source_path("lambdarank.cu")
+STEM = "libgbdt_lambdarank"
 TILE = 128             # kTile of the source: documents a block takes
 CHUNK = 512            # kChunk of the source: documents staged at once
 
-_lib = None            # the loaded ctypes library, once built
 _launches = 0          # calls since the last reset
 
 
-def build_library(verbose: bool = False) -> Tuple[str, float, str]:
-    """Compile ``csrc/lambdarank.cu`` if its library is missing
-    (``cuda_histogram.build_library``'s nvcc, flags and build directory).
-    Returns ``(path, seconds, compiler output)``."""
-    return cuda_histogram.build_library(verbose, SOURCE, "libgbdt_lambdarank")
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        path, _, _ = build_library()
-        lib = ctypes.CDLL(path)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gbdt_lambdarank_grads.argtypes = [p, p, p, p, i, p, p, p, f, p,
-                                              p, p, p, p]
-        lib.gbdt_lambdarank_grads.restype = i
-        lib.gbdt_lambdarank_tile.argtypes = []
-        lib.gbdt_lambdarank_tile.restype = i
-        lib.gbdt_lambdarank_chunk.argtypes = []
-        lib.gbdt_lambdarank_chunk.restype = i
-        if (lib.gbdt_lambdarank_tile(), lib.gbdt_lambdarank_chunk()) != \
-                (TILE, CHUNK):
-            raise RuntimeError("csrc/lambdarank.cu's tile or chunk differs "
-                               "from TILE, CHUNK")
-        _lib = lib
-    return _lib
+def declare(lib: ctypes.CDLL) -> None:
+    """Bind the C entries of ``csrc/lambdarank.cu``; raises where its
+    tile or chunk is not :data:`TILE`, :data:`CHUNK`."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.gbdt_lambdarank_grads.argtypes = [p, p, p, p, i, p, p, p, f, p, p, p,
+                                          p, p]
+    lib.gbdt_lambdarank_grads.restype = i
+    lib.gbdt_lambdarank_tile.argtypes = []
+    lib.gbdt_lambdarank_tile.restype = i
+    lib.gbdt_lambdarank_chunk.argtypes = []
+    lib.gbdt_lambdarank_chunk.restype = i
+    if (lib.gbdt_lambdarank_tile(), lib.gbdt_lambdarank_chunk()) != \
+            (TILE, CHUNK):
+        raise RuntimeError("csrc/lambdarank.cu's tile or chunk differs "
+                           "from TILE, CHUNK")
 
 
 def launch_count() -> int:
@@ -139,28 +123,24 @@ def lambdarank_grads(s: torch.Tensor, l: torch.Tensor, plan: QueryPlan,
     raises for anything it does not take."""
     global _launches
     n = plan.num_rows
-    _check("s", s, (torch.float32,), (n,))
-    _check("l", l, (torch.float32,), (n,))
+    check_tensor("s", s, (torch.float32,), (n,))
+    check_tensor("l", l, (torch.float32,), (n,))
     if s.device != plan.device or l.device != plan.device:
         raise ValueError(f"s on {s.device} and l on {l.device} must be on "
                          f"the plan's {plan.device}")
-    lib = _library()
+    lib = native.load(SOURCE, STEM, declare)
     g = torch.empty(n, dtype=torch.float32, device=s.device)
     h = torch.empty(n, dtype=torch.float32, device=s.device)
     disc_rows = torch.empty(n, dtype=torch.float32, device=s.device)
     scaled = torch.empty(plan.num_queries, dtype=torch.uint8,
                          device=s.device)
-    with torch.cuda.device(s.device):
-        err = lib.gbdt_lambdarank_grads(
-            s.data_ptr(), l.data_ptr(), plan.qb.data_ptr(),
-            plan.tiles.data_ptr(), plan.tiles.shape[0],
-            plan.disc_table.data_ptr(), plan.inv_max_dcg.data_ptr(),
-            plan.label_gain.data_ptr(), 2.0 * sigmoid, disc_rows.data_ptr(),
-            scaled.data_ptr(), g.data_ptr(), h.data_ptr(),
-            torch.cuda.current_stream(s.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lambdarank kernel launch failed: CUDA error "
-                           f"{err}")
+    native.launch("lambdarank kernel", lib.gbdt_lambdarank_grads, s.device,
+                  s.data_ptr(), l.data_ptr(), plan.qb.data_ptr(),
+                  plan.tiles.data_ptr(), plan.tiles.shape[0],
+                  plan.disc_table.data_ptr(), plan.inv_max_dcg.data_ptr(),
+                  plan.label_gain.data_ptr(), 2.0 * sigmoid,
+                  disc_rows.data_ptr(), scaled.data_ptr(), g.data_ptr(),
+                  h.data_ptr())
     _launches += 1
     obs.inc("objective.lambdarank.queries_cuda", plan.num_queries)
     return g, h

@@ -16,8 +16,10 @@ On the CPU:
   f32 sums over at most 2,047 pairs a document: n x epsilon is 1.2e-4 at
   worst, torch's blocked sums give about log2(n) x epsilon, 7e-7);
 - CPU tensors take the plain route: ``objective.lambdarank.queries_plain``
-  counts the queries, ``.queries_cuda`` stays 0, no library is built, and
-  the kernel's wrapper raises for CPU tensors rather than falling back.
+  counts the queries, ``.queries_cuda`` stays 0, and the kernel's wrapper
+  raises for CPU tensors rather than falling back; neither this kernel's
+  nor B1's nor the rank encode's CPU route builds or loads a library
+  (``ops/native.py``) or counts a launch.
 
 On the card (marked ``card``; they skip here), at the MS-LTR shape (the
 benchmark's 18,919 query sizes over 2,270,296 rows) and on a set of odd
@@ -41,7 +43,9 @@ import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch import observability as obs
 from lightgbm_tpu_torch.dataset import Metadata
 from lightgbm_tpu_torch.objectives import create_objective
-from lightgbm_tpu_torch.ops import cuda_lambdarank
+from lightgbm_tpu_torch.ops import (cuda_encode, cuda_histogram,
+                                    cuda_lambdarank, native)
+from lightgbm_tpu_torch.ops.histogram import histogram_scales
 from _lambdarank_reference import pair_loop_f64
 
 # one intra-op thread: the test workers share the machine's cores
@@ -205,11 +209,41 @@ def test_f64_pair_loop_agrees_with_the_plain_version(kind):
     assert float(h.abs().max()) > 0
 
 
-def test_cpu_tensors_take_the_plain_route(monkeypatch):
-    def no_build(*_):
-        raise AssertionError("the CPU route built the kernel's library")
-    monkeypatch.setattr(cuda_lambdarank, "build_library", no_build)
-    lib0, launches0 = cuda_lambdarank._lib, cuda_lambdarank.launch_count()
+def _histogram_on_the_cpu():
+    """B1's CPU route, a pass and an accumulated wave: the plain version."""
+    gen = torch.Generator().manual_seed(0)
+    N, F, B = 64, 3, 8
+    X = torch.randint(0, B, (N, F), generator=gen, dtype=torch.uint8)
+    grad = torch.randn(N, generator=gen)
+    hess = torch.rand(N, generator=gen)
+    included = torch.ones(N)
+    leaf_id = torch.zeros(N, dtype=torch.int32)
+    slot_of_leaf = torch.tensor([0, -1], dtype=torch.int32)
+    out = cuda_histogram.build_histograms_cuda(
+        X, grad, hess, included, leaf_id, slot_of_leaf, 1, B)
+    assert out.shape == (1, F, B, 3) and int(out[..., 2].sum()) == N * F
+    acc = cuda_histogram.HistogramAccumulator(1, F, B, torch.device("cpu"))
+    acc.zero_()
+    scales = histogram_scales(grad, hess)
+    acc.add(X, grad, hess, included, leaf_id, slot_of_leaf, 0, N, scales)
+    assert int(acc.finalize(scales)[..., 2].sum()) == N * F
+
+
+def _encode_on_the_cpu():
+    """The rank encode's CPU route: the plain version, counted as such."""
+    X = torch.tensor([[0.3, float("nan")], [1.0, -2.0], [0.0, 5.0]],
+                     dtype=torch.float64)
+    grids = torch.tensor([0.1, 0.5, 0.9, -1.0, 2.0], dtype=torch.float64)
+    offsets = torch.tensor([0, 3, 5], dtype=torch.int64)
+    codes, is_nan, _ = cuda_encode.encode_rows(X, grids, offsets, 3)
+    assert codes.tolist() == [[1, 2], [3, 0], [0, 2]]
+    assert is_nan.tolist() == [[False, True], [False, False], [False, False]]
+    assert obs.snapshot()["counters"]["predict.encode.rows_plain"] == 3
+
+
+def _lambdarank_on_the_cpu():
+    """The objective's CPU route: the plain version, counted as such; the
+    kernel's wrapper raises for CPU tensors rather than falling back."""
     sizes, label, _ = _odd_queries()
     obj = _objective(sizes, label)
     s = torch.zeros((1, len(label)))
@@ -218,17 +252,29 @@ def test_cpu_tensors_take_the_plain_route(monkeypatch):
     counters = obs.snapshot()["counters"]
     assert counters["objective.lambdarank.queries_plain"] == 2 * len(sizes)
     assert counters.get("objective.lambdarank.queries_cuda", 0) == 0
-    assert cuda_lambdarank._lib is lib0
-    assert cuda_lambdarank.launch_count() == launches0
     assert obj._plan is None
-    # the kernel's wrapper takes CUDA tensors or raises: no fallback
     plan = cuda_lambdarank.QueryPlan(obj.query_boundaries, obj.query_tiles,
                                      obj.inv_max_dcg, obj.label_gain,
                                      torch.device("cpu"))
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_lambdarank.lambdarank_grads(s[0], torch.from_numpy(label),
                                          plan, 1.0)
-    assert cuda_lambdarank.launch_count() == launches0
+
+
+@pytest.mark.parametrize("wrapper,route", [
+    (cuda_histogram, _histogram_on_the_cpu),
+    (cuda_encode, _encode_on_the_cpu),
+    (cuda_lambdarank, _lambdarank_on_the_cpu)],
+    ids=["histogram", "encode", "lambdarank"])
+def test_cpu_tensors_take_the_plain_route(monkeypatch, wrapper, route):
+    """CPU tensors never build, load or launch a kernel's library."""
+    def no_build(*_):
+        raise AssertionError("the CPU route built or loaded a library")
+    monkeypatch.setattr(native, "build", no_build)
+    monkeypatch.setattr(native, "load", no_build)
+    launches0 = wrapper.launch_count()
+    route()
+    assert wrapper.launch_count() == launches0
 
 
 # ------------------------------------------------------------ the card

@@ -127,6 +127,40 @@ def test_r004_reads_the_ports_own_kernel_interface():
         assert [f.rule for f in hits] == ["R004"]
 
 
+
+@pytest.mark.parametrize("module,shipped,planted", [
+    ("ops/cuda_histogram.py",
+     "lib.gbdt_hist_scratch_bytes.restype = ll",
+     "lib.gbdt_hist_scratch_bytes.restype = i"),
+    ("ops/cuda_encode.py",
+     "lib.gbdt_encode_rows.argtypes = [p, ll, i, p, ll, p, d, p, p, p, p]",
+     "lib.gbdt_encode_rows.argtypes = [p, ll, i, p, ll, p, i, p, p, p, p]"),
+    ("ops/cuda_lambdarank.py",
+     "lib.gbdt_lambdarank_tile.restype = i",
+     "lib.gbdt_lambdarank_tile.restype = f"),
+    ("capi_shim.py",
+     "lib.LGBM_GetLastError.restype = ctypes.c_char_p",
+     "lib.LGBM_GetLastError.restype = ctypes.c_int")],
+    ids=["histogram", "encode", "lambdarank", "capi_shim"])
+def test_r004_checks_each_wrappers_declare(module, shipped, planted):
+    """Every wrapper binds its C entries in its own ``declare(lib)``
+    (``ops/native.load`` calls it): the shipped bindings match ``csrc/``,
+    and a binding planted wrong there fires R004."""
+    import importlib
+    import inspect
+    name = "lightgbm_tpu_torch." + module[:-3].replace("/", ".")
+    assert shipped in inspect.getsource(importlib.import_module(name).declare)
+    src = os.path.join(REPO, "lightgbm_tpu_torch", module)
+    rel = "lightgbm_tpu_torch/" + module
+    findings, _ = lint_file(src, rel=rel)
+    assert [f for f in findings if f.rule == "R004"] == []
+    text = open(src).read()
+    assert text.count(shipped) == 1
+    ctx = torch_lint._parse_source(src, rel, text.replace(shipped, planted))
+    hits = torch_lint._check_ctx(
+        ctx, [r for r in torch_rules.active_rules() if r.rule_id == "R004"])
+    assert [f.rule for f in hits] == ["R004"]
+
 def test_r001_r005_r009_reach_the_captured_parts_across_modules(tmp_path):
     """A helper in another module, called from a captured part, is
     captured code too; the same helper called from elsewhere is not."""
