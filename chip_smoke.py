@@ -180,8 +180,9 @@ Phases (any failure exits non-zero and prints no result line):
    unchanged, the candidate's own 13; device memory before, with both
    models and after); fails on any ``serve.host_fallback``,
    ``serve.breaker_trips`` or a health other than ``ready``; and splits
-   ``Booster.predict`` of 2M rows x 10 trees (phase 4's model) into host
-   encode, H2D, walk and sum, with one host read per 65,536-row chunk.
+   ``Booster.predict`` of 2M rows x 10 trees (phase 4's model) into the
+   H2D of its raw rows, the encode kernel, the walk kernel (walk and leaf
+   sum) and the D2H of the sums, with one host read per 65,536-row chunk.
 
 15. device ingest, checkpoint/resume and ``nan_policy`` at the main
    path's width (phase 4's data and parameters). (a) ``tpu_ingest=device``
@@ -335,17 +336,23 @@ Phases (any failure exits non-zero and prints no result line):
    rows, no host transfer, f64 only at its allowlisted sites, and exactly
    one B1 pass per wave by ``launch_count()``.
 
-23. the rank-encode kernel (``csrc/encode.cu``) at the ``higgs.score``
-   cell's shape: the benchmark's generator and forest at ``SEED`` (500,000
-   raw HIGGS-shaped rows, the 500-tree, 255-leaf forest of quantile
-   thresholds), its first 65,536-row chunk with +-inf, -0.0 and ties at
-   grid values planted: the kernel's codes and masks and its plain
-   version's bit-equal to the host's ``_encode_loop`` and masks, two
-   launches identical; device ms of the kernel beside its bound, the plain
+23. the rank-encode (``csrc/encode.cu``) and forest-walk
+   (``csrc/walk.cu``) kernels at the ``higgs.score`` cell's shape: the
+   benchmark's generator and forest at ``SEED`` (500,000 raw HIGGS-shaped
+   rows, the 500-tree, 255-leaf forest of quantile thresholds), its first
+   65,536-row chunk with +-inf, -0.0 and ties at grid values planted: the
+   kernel's codes and masks and its plain version's bit-equal to the
+   host's ``_encode_loop`` and masks, two launches identical; device ms
+   of the kernel beside its bound, the plain
    version and one ``torch.searchsorted`` (timed only); the same on a grid
-   of 2,000 thresholds a feature, too large for shared memory; then one
-   500,000-row ``Booster.predict``: 8 kernel launches and every row counted
-   in ``predict.encode.rows_cuda``.
+   of 2,000 thresholds a feature, too large for shared memory. The walk
+   kernel on that chunk: bit-equal to the tree-order f64 sum of the plain
+   walk's leaves, two launches identical, within ``sum_tolerance`` of the
+   plain route (``forest_walk_leaves`` and ``torch.sum``); its device ms
+   beside its bound and the plain route's (no PyTorch call computes it:
+   ``library_ms`` none). Then one 500,000-row ``Booster.predict``: 8
+   launches of each kernel and every row counted in
+   ``predict.encode.rows_cuda`` and ``predict.walk.rows_cuda``.
 
 ``--phases 3,11`` runs only the listed phases (and those they need: 5-7,
 12-20 and 22 add phase 4); such a partial run prints no result lines and
@@ -2969,14 +2976,14 @@ def _b6_breakdown(text, X, dev):
     """B6: ``Booster.predict`` of 2M rows x 10 trees (phase 4's model), its
     time once with the stacking and again from the booster's cache, the
     host reads per chunk (``set_sync_debug_mode``), and the same chunks
-    split into the raw rows' H2D, the encode kernel and the walk (device
-    ms) and leaf sum plus D2H."""
+    split into the raw rows' H2D, the encode kernel, the walk kernel
+    (walk and leaf sum, device ms) and the D2H of the sums."""
     import warnings
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops.cuda_encode import encode_rows
-    from lightgbm_tpu_torch.ops.predict import forest_walk_leaves
+    from lightgbm_tpu_torch.ops.cuda_walk import forest_walk_sums
     bst = lgt.Booster(params={"device": dev.type}, model_str=text)
     t0 = time.perf_counter()
     first = bst.predict(X)
@@ -3004,10 +3011,7 @@ def _b6_breakdown(text, X, dev):
     chunk = 1 << 16
     n_chunks = -(-X.shape[0] // chunk)
     forest = bst._stacked_forests(bst.trees, 1)[0]
-    walk_args = forest.to(dev)
-    lv = forest.leaf_tables(dev)[0]
     grids = forest.encode_tables(dev)
-    t_iota = torch.arange(forest.num_trees, device=dev)[None, :]
     enc = h2d = walk = tail = 0.0
     for lo in range(0, X.shape[0], chunk):
         c = np.ascontiguousarray(X[lo:lo + chunk], np.float64)
@@ -3020,11 +3024,11 @@ def _b6_breakdown(text, X, dev):
         e0.record()
         ins = encode_rows(raw, *grids, forest.encode_steps)
         e1.record()
-        leaves = forest_walk_leaves(*walk_args, *ins, forest.max_depth)
+        sums = forest_walk_sums(forest, *ins)
         e2.record()
         torch.cuda.synchronize()
         e = time.perf_counter()
-        lv[t_iota, leaves].sum(dim=1).cpu().numpy()
+        sums.cpu().numpy()
         f = time.perf_counter()
         enc += e0.elapsed_time(e1)
         h2d += d - b
@@ -3039,7 +3043,8 @@ def _b6_breakdown(text, X, dev):
           f"{reads / n_chunks:.2f}; walk depth {forest.max_depth}; split: "
           f"H2D of the raw rows {h2d * 1e3:.1f} ms, encode {enc:.2f} ms by "
           f"events around the call (its host enqueue included; phase 23 "
-          f"times the kernel), walk {walk:.1f} ms device, leaf sum + D2H "
+          f"times the kernel), walk and leaf sum (the walk kernel) "
+          f"{walk:.2f} ms by events around the call, D2H of the sums "
           f"{tail * 1e3:.1f} ms; the "
           f"two calls equal {same}; synchronizing calls by line {where}"
           f"{'; outside the port: ' + repr(sorted(others)) if others else ''}",
@@ -5509,20 +5514,100 @@ def _encode_case(label, raw, grids, offsets, steps, want):
                 thresholds=int(grids.shape[0]), shared=shared)
 
 
+def _leaf_depths(forest):
+    """``[T, L]``: the internal nodes on the path to each leaf of each tree
+    of a ``StackedForest`` (0 for a tree of one leaf)."""
+    import numpy as np
+    depth = np.zeros(forest.leaf_value.shape, np.int64)
+    for t in range(forest.num_trees):
+        if forest.root_is_leaf[t]:
+            continue
+        stack = [(0, 1)]
+        while stack:
+            node, d = stack.pop()
+            for child in (forest.left[t, node], forest.right[t, node]):
+                if child < 0:
+                    depth[t, ~child] = d
+                else:
+                    stack.append((int(child), d + 1))
+    return depth
+
+
+def _walk_case(forest, raw):
+    """Phase 23's forest walk: the kernel (``csrc/walk.cu``) on one chunk
+    of encoded rows, bit-equal to the tree-order f64 sum of the plain walk's
+    leaves, two launches identical, and within ``sum_tolerance`` of the
+    plain route (``forest_walk_leaves`` and ``torch.sum``); device ms of
+    the kernel and the plain route, and the bound: the codes and masks, the
+    packed records, the leaf values and the output each moved once, one
+    comparison a node on each row's path and one add a tree."""
+    import numpy as np
+    from lightgbm_tpu_torch.ops import cuda_encode, cuda_walk
+    from lightgbm_tpu_torch.ops.predict import forest_walk_leaves
+    dev = raw.device
+    n, F = raw.shape
+    ins = cuda_encode.encode_rows(raw, *forest.encode_tables(dev),
+                                  forest.encode_steps)
+    first = cuda_walk.forest_walk_sums(forest, *ins).cpu().numpy()
+    second = cuda_walk.forest_walk_sums(forest, *ins).cpu().numpy()
+    plain = cuda_walk.forest_walk_sums_plain(forest, *ins).cpu().numpy()
+    leaves = forest_walk_leaves(*forest.to(dev), *ins,
+                                forest.max_depth).cpu().numpy()
+    T = forest.num_trees
+    ref = np.zeros(n)
+    for t in range(T):
+        ref += forest.leaf_value[t, leaves[:, t]]
+    vals = forest.leaf_value[np.arange(T)[None, :], leaves]
+    gap = np.abs(first - plain)
+    tol = cuda_walk.sum_tolerance(vals)
+    ok = bool(np.array_equal(first, ref) and np.array_equal(first, second)
+              and (gap <= tol).all())
+    ms = cuda_time_ms(lambda: cuda_walk.forest_walk_sums(forest, *ins), 20)
+    plain_ms = cuda_time_ms(
+        lambda: cuda_walk.forest_walk_sums_plain(forest, *ins), 3)
+    comparisons = int(_leaf_depths(forest)[np.arange(T)[None, :],
+                                           leaves].sum())
+    nodes = forest.walk_nodes(dev)
+    nbytes = n * F * (4 + 1 + 1) + nodes.numel() * 4 \
+        + forest.leaf_value.nbytes + T + F * 4 + n * 8
+    ops = comparisons + n * T
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    group = cuda_walk.group_size(forest, dev)
+    print(f"  forest walk: {n} rows x {T} trees (depth {forest.max_depth}, "
+          f"{comparisons / (n * T):.2f} comparisons a row and tree; "
+          f"{nodes.shape[2] * 4}-byte records, {group} trees a "
+          f"shared-memory group): kernel bit-equal to the tree-order f64 "
+          f"sum of the plain walk's leaves, two launches identical, within "
+          f"sum_tolerance of the plain route (widest gap {gap.max():.3e}): "
+          f"{ok}; kernel {ms:.4f} ms (bound {bound_ms:.4f} ms: "
+          f"{nbytes / 1e6:.1f} MB, {ops / 1e6:.1f}M operations; "
+          f"{bound_ms / ms * 100:.2f}%), plain (walk + torch.sum) "
+          f"{plain_ms:.3f} ms, library_ms none", flush=True)
+    if not ok:
+        fail("phase 23 forest walk: the kernel differs from the tree-order "
+             "sum of the plain walk's leaves")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                library_ms="none", rows=n, trees=T, group=group,
+                record_bytes=nodes.shape[2] * 4, comparisons=comparisons,
+                max_gap_to_plain=float(gap.max()))
+
+
 def encode_phase(dev):
-    """Phase 23: the rank-encode kernel (``csrc/encode.cu``) at the
-    ``higgs.score`` cell's shape, from the benchmark's own generator and
-    forest at ``SEED``: 500,000 HIGGS-shaped raw rows and the 500-tree,
-    255-leaf forest whose thresholds are quantiles of them."""
+    """Phase 23: the rank-encode kernel (``csrc/encode.cu``) and the
+    forest-walk kernel (``csrc/walk.cu``) at the ``higgs.score`` cell's
+    shape, from the benchmark's own generator and forest at ``SEED``:
+    500,000 HIGGS-shaped raw rows and the 500-tree, 255-leaf forest whose
+    thresholds are quantiles of them."""
     import numpy as np
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch import observability as obs
-    from lightgbm_tpu_torch.ops import cuda_encode
+    from lightgbm_tpu_torch.ops import cuda_encode, cuda_walk
     from benchmark.harness import data as datagen
     from benchmark.harness import forest as forestgen
     from benchmark.harness import manifest
     build_kernel(cuda_encode)
+    build_kernel(cuda_walk)
     cfg = manifest.config("higgs")
     rows = int(manifest.traffic("score")["batch_rows"])
     gen = datagen.generator(SEED, dev)
@@ -5557,33 +5642,46 @@ def encode_phase(dev):
         torch.from_numpy(w_off.astype(np.int64)).to(dev),
         int(max(len(g) for g in wide)).bit_length(),
         (w_codes.astype(np.int32), *want[1:]))
-    # one 500,000-row Booster.predict: a launch per chunk, every row on
-    # the kernel
+    wres = _walk_case(forest, raw)
+    # one 500,000-row Booster.predict: a launch of each kernel per chunk,
+    # every row on both kernels
     bst.predict(X)
     obs.reset_for_tests()
     cuda_encode.reset_launch_count()
+    cuda_walk.reset_launch_count()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     bst.predict(X)
     call_s = time.perf_counter() - t0
     launches = cuda_encode.launch_count()
+    walk_launches = cuda_walk.launch_count()
     counters = obs.snapshot()["counters"]
     chunks = -(-rows // ENCODE_CHUNK)
     print(f"  Booster.predict of {rows} rows x {len(bst.trees)} trees: "
           f"{call_s * 1e3:.1f} ms, {rows / call_s:.0f} rows/s; encode "
-          f"kernel launches {launches} for {chunks} chunks; "
-          f"predict.encode.rows_cuda "
+          f"kernel launches {launches}, walk kernel launches "
+          f"{walk_launches} for {chunks} chunks; predict.encode.rows_cuda "
           f"{counters.get('predict.encode.rows_cuda', 0)}, rows_plain "
-          f"{counters.get('predict.encode.rows_plain', 0)}", flush=True)
+          f"{counters.get('predict.encode.rows_plain', 0)}; "
+          f"predict.walk.rows_cuda "
+          f"{counters.get('predict.walk.rows_cuda', 0)}, rows_plain "
+          f"{counters.get('predict.walk.rows_plain', 0)}", flush=True)
     if launches != chunks or \
             counters.get("predict.encode.rows_cuda", 0) != rows:
         fail(f"phase 23: {launches} encode launches and "
              f"{counters.get('predict.encode.rows_cuda', 0)} rows on the "
              f"kernel for {chunks} chunks of {rows} rows")
+    if walk_launches != chunks or \
+            counters.get("predict.walk.rows_cuda", 0) != rows or \
+            counters.get("predict.walk.rows_plain", 0):
+        fail(f"phase 23: {walk_launches} walk launches and "
+             f"{counters.get('predict.walk.rows_cuda', 0)} rows on the "
+             f"kernel for {chunks} chunks of {rows} rows")
     del bst, raw
     torch.cuda.empty_cache()
     res["higgs"].update(launches=launches, call_s=call_s)
-    return res
+    wres.update(launches=walk_launches, call_s=call_s)
+    return res, wres
 
 
 PHASES = tuple(range(1, 24))
@@ -5796,14 +5894,14 @@ def main():
               f"tensors)", flush=True)
         gdres = guard_phase(mres)
 
-    encres = None
+    encres = walkres = None
     if 23 in want:
         elapsed(t_start)
-        print(f"phase 23: the rank-encode kernel at the higgs.score shape "
-              f"({ENCODE_CHUNK}-row chunks x 28 of the cell's 500-tree "
-              f"forest; a grid past shared memory; one 500,000-row "
-              f"Booster.predict)", flush=True)
-        encres = encode_phase(dev)
+        print(f"phase 23: the rank-encode and forest-walk kernels at the "
+              f"higgs.score shape ({ENCODE_CHUNK}-row chunks x 28 of the "
+              f"cell's 500-tree forest; a grid past shared memory; one "
+              f"500,000-row Booster.predict)", flush=True)
+        encres, walkres = encode_phase(dev)
 
     elapsed(t_start)
     if want != set(PHASES):
@@ -5863,6 +5961,14 @@ def main():
         **{k: encres["higgs"][k] for k in ("ms", "plain_ms", "bound_ms",
                                            "library_ms")},
         "cases": encres,
+    }, {
+        "name": "forest walk (B6)", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/walk.cu",
+        "replaces": "none (XLA's while_loop walk, lightgbm_tpu/ops/"
+                    "predict.py:300-346, and the torch walk, "
+                    "lightgbm_tpu_torch/ops/predict.py forest_walk_leaves)",
+        **{k: walkres[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
+                                   "library_ms", "max_gap_to_plain")},
     }, {
         "name": "lambdarank gradients", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/lambdarank.cu",

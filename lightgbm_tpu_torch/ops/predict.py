@@ -16,17 +16,21 @@ row. ``Booster.predict`` encodes on the device (``ops/cuda_encode.py``,
 the kernel ``csrc/encode.cu``); the serving engine encodes on the host
 (``StackedForest.encode_rows``). Missing values follow NumericalDecision
 (tree.h:218-243) through per-(row, feature) NaN / zero masks. The forest
-walk runs the forest's depth in fixed steps and reads nothing on the
-host, so a batch chunk reads it once (its result) and the serving engine
-captures the walk into CUDA graphs; leaf values are summed in f64 on the
-device (``Booster.predict``) or on the host in tree order (the serving
-engine). The rank-encoded walk covers numerical splits; a forest holding a
-categorical split is predicted by the host ``Tree.predict`` instead, said
-once per process, as the JAX package does (predict.py:423-440). A forest
-of linear leaves (``forest_walk_linear``, predict.py:349-396 there) adds
-each leaf's ``const + coeff . x`` over the raw f32 values (the leaf's
-constant where a leaf feature is missing) and sums the trees in f32, as
-the JAX package does. The binned-data walk takes categorical nodes by their
+walk (``forest_walk_leaves``) runs the forest's depth in fixed steps and
+reads nothing on the host, so the serving engine captures it into CUDA
+graphs and sums the leaf values on the host in f64 in tree order.
+``Booster.predict`` walks and sums in one hand-written kernel on the card
+(``ops/cuda_walk.py``, the kernel ``csrc/walk.cu``: each row walks every
+tree to its leaf and adds the leaf values in f64 in tree order; for CPU
+tensors its plain version, that walk and a ``torch.sum``), so a batch
+chunk reads the host once, for its result. The rank-encoded walk covers
+numerical splits; a forest holding a categorical split is predicted by the
+host ``Tree.predict`` instead, said once per process, as the JAX package
+does (predict.py:423-440). A forest of linear leaves walks with
+``forest_walk_leaves`` and adds each leaf's ``const + coeff . x``
+(``forest_walk_linear``, predict.py:349-396 there) over the raw f32 values
+(the leaf's constant where a leaf feature is missing), summing the trees
+in f32, as the JAX package does. The binned-data walk takes categorical nodes by their
 left-set masks, and bundled (EFB) codes through ``decode_bundled_bin``.
 """
 from __future__ import annotations
@@ -42,6 +46,7 @@ from ..binning import K_ZERO_RANGE
 from ..grower import decode_bundled_bin
 from ..utils.log import Log
 from .cuda_encode import encode_rows
+from .cuda_walk import forest_walk_sums, pack_nodes
 
 # the host route for categorical forests is said once per process
 _CATEGORICAL_HOST_ROUTE = {"logged": False}
@@ -281,6 +286,22 @@ class StackedForest:
         device encode's inputs (uploaded once per device and kept)."""
         return self._on(device)[2]
 
+    def walk_nodes(self, device):
+        """The walk kernel's packed node records ``[T, M, W]`` int32
+        (``ops/cuda_walk.pack_nodes``) on ``device``: packed on the host and
+        uploaded once per device and kept."""
+        key = (str(device), "walk_nodes")
+        got = self._device_tensors.get(key)
+        if got is None:
+            if int(self.grid_sizes.max(initial=0)) >= 1 << 29:
+                raise ValueError("a feature's threshold grid past 2**29: "
+                                 "its rank codes do not fit the walk "
+                                 "kernel's row words")
+            got = self._device_tensors[key] = torch.as_tensor(pack_nodes(
+                self.split_feature, self.thr_rank, self.decision, self.left,
+                self.right, self.max_leaves, len(self.grids)), device=device)
+        return got
+
     def _on(self, device):
         key = str(device)
         got = self._device_tensors.get(key)
@@ -436,8 +457,10 @@ def forest_predict_raw(trees, X: np.ndarray, num_features: int, device,
     Rows go to the device in chunks of raw f64 values, are rank-encoded
     there (``ops/cuda_encode.encode_rows``: the kernel on the card, its
     plain version on the CPU), walked, and their leaf values summed over
-    trees in f64 there (a linear forest: its leaf outputs in f32, as the
-    JAX package's walk); each chunk reads the host once, for its result.
+    trees in f64 there (``ops/cuda_walk.forest_walk_sums``, likewise; a
+    linear forest: ``forest_walk_leaves``, then its leaf outputs summed in
+    f32, as the JAX package's walk); each chunk reads the host once, for
+    its result.
     Pass a prebuilt ``forest`` (the booster's cache) to stack and upload it
     once across calls. A forest holding a categorical split is predicted by
     the host ``Tree.predict``, as in the JAX package (predict.py:423-440).
@@ -458,9 +481,8 @@ def forest_predict_raw(trees, X: np.ndarray, num_features: int, device,
             out += t.predict(Xh)
         return out
     dev = forest.to(device)
-    leaf_value, *lin = forest.leaf_tables(device)
+    lin = forest.leaf_tables(device)[1:]
     grids = forest.encode_tables(device)
-    t_iota = torch.arange(forest.num_trees, device=device)[None, :]
     out = np.zeros(X.shape[0], np.float64)
     for lo in range(0, X.shape[0], chunk_rows):
         chunk = np.ascontiguousarray(X[lo:lo + chunk_rows], np.float64)
@@ -476,8 +498,8 @@ def forest_predict_raw(trees, X: np.ndarray, num_features: int, device,
         with obs.span("predict.encode", rows=chunk.shape[0]):
             inputs = encode_rows(raw, *grids, forest.encode_steps)
         with obs.span("predict.walk"):
-            leaves = forest_walk_leaves(*dev, *inputs, forest.max_depth)
             if forest.has_linear:
+                leaves = forest_walk_leaves(*dev, *inputs, forest.max_depth)
                 # the epilogue reads raw f32 values, NaN set to 0 beside
                 # the missing plane (predict.py:470-477 there)
                 raw32 = chunk.astype(np.float32)
@@ -488,7 +510,7 @@ def forest_predict_raw(trees, X: np.ndarray, num_features: int, device,
                         device, non_blocking=True)
                         for a in (raw32, raw_nan))).sum(dim=1)
             else:
-                sums = leaf_value[t_iota, leaves].sum(dim=1)
+                sums = forest_walk_sums(forest, *inputs)
         with obs.span("predict.fetch"):
             out[lo:lo + chunk_rows] = sums.cpu().numpy()
     return out

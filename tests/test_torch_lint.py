@@ -138,10 +138,13 @@ def test_r004_reads_the_ports_own_kernel_interface():
     ("ops/cuda_lambdarank.py",
      "lib.gbdt_lambdarank_tile.restype = i",
      "lib.gbdt_lambdarank_tile.restype = f"),
+    ("ops/cuda_walk.py",
+     "lib.gbdt_walk_group.argtypes = [i, i, i, i, i]",
+     "lib.gbdt_walk_group.argtypes = [i, i, i, ll, i]"),
     ("capi_shim.py",
      "lib.LGBM_GetLastError.restype = ctypes.c_char_p",
      "lib.LGBM_GetLastError.restype = ctypes.c_int")],
-    ids=["histogram", "encode", "lambdarank", "capi_shim"])
+    ids=["histogram", "encode", "lambdarank", "walk", "capi_shim"])
 def test_r004_checks_each_wrappers_declare(module, shipped, planted):
     """Every wrapper binds its C entries in its own ``declare(lib)``
     (``ops/native.load`` calls it): the shipped bindings match ``csrc/``,
