@@ -21,8 +21,8 @@ import torch
 
 from . import observability as obs
 from .config import Config, resolve_device
-from .dataset import (ConstructedDataset, Metadata, construct_dataset,
-                      sparse_span_args)
+from .dataset import (ConstructedDataset, Metadata, categorical_span_args,
+                      construct_dataset, sparse_span_args)
 from .tree import Tree
 from .utils.cache import LRUCache
 from .utils.log import Log
@@ -182,7 +182,8 @@ class Dataset:
             ref = self.reference
             ref.construct(config)
             with obs.span("construct.bin", rows=self.raw_data.shape[0],
-                          **sparse_span_args(self.raw_data)):
+                          **sparse_span_args(self.raw_data),
+                          **categorical_span_args(ref.constructed.mappers)):
                 self._binned_aligned = ref.constructed.bin_raw(
                     self.raw_data)
             meta = Metadata(self.raw_data.shape[0])

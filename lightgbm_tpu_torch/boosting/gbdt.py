@@ -82,6 +82,7 @@ re-lays it out under ``tpu_reshard_on_resume``.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import hashlib
@@ -425,6 +426,8 @@ class GBDT:
         reg.gauge("booster.tree_batch").set(tb)
         reg.gauge("booster.wave_size").set(self.spec.wave_size)
         reg.gauge("booster.hist_slots").set(self.spec.hist_slots)
+        if self.spec.use_categorical:
+            self._publish_categorical_gauges(reg, meta["num_bins"])
         if self._stream_store is not None:
             reg.gauge("stream.n_shards").set(self._stream_store.n_shards)
             reg.gauge("stream.shard_bytes").set(
@@ -452,6 +455,17 @@ class GBDT:
             reg.gauge(f"comm.bytes_per_wave.{cname}").set(nbytes)
         if comm_bytes:
             obs.event("comm_cost", strategy=self.pctx.strategy, **comm_bytes)
+
+    def _publish_categorical_gauges(self, reg, num_bins: np.ndarray) -> None:
+        """A categorical booster's shape, set once: ``categorical.features``,
+        ``.max_bins`` (the most bins of a categorical feature) and
+        ``.code_bytes`` (bytes a code takes on the card)."""
+        cat = list(self.spec.cat_features)
+        code_bytes = self.Xb.element_size() if self.Xb is not None \
+            else np.dtype(self._stream_store.dtype).itemsize
+        reg.gauge("categorical.features").set(len(cat))
+        reg.gauge("categorical.max_bins").set(int(np.max(num_bins[cat])))
+        reg.gauge("categorical.code_bytes").set(code_bytes)
 
     @staticmethod
     def _make_spec(config: Config, F: int, max_num_bin: int,
@@ -1867,7 +1881,8 @@ class GBDT:
         span recording on, ONE batched fetch of the new iterations' leaf
         counts derives each tree's wave count (``grower.waves_for_tree``)
         into the ``wave`` children of the recorded ``iteration`` spans and
-        the ``tree.waves`` / ``tree.leaves`` histograms. The captured
+        the ``tree.waves`` / ``tree.leaves`` histograms, and in a
+        categorical booster the ``tree.cat_splits`` counter. The captured
         iteration's part times still pending and its replay counts go to
         the registry (``_IterationGraphs.publish``)."""
         reg = obs.get_registry()
@@ -1882,7 +1897,18 @@ class GBDT:
                 n_new * self.num_models * self.num_data)
         if not obs.enabled() or not n_new:
             return
-        leaves = torch.stack(self._num_leaves[base:]).cpu().numpy()
+        leaves = torch.stack(self._num_leaves[base:])
+        if self.spec.use_categorical:
+            # the categorical splits of the new trees (the scratch node
+            # row left out), fetched with the leaf counts
+            cats = torch.stack([t.is_cat[:-1] for trees in
+                                self.models[base:] for t in trees]).sum()
+            fetched = torch.cat([leaves.reshape(-1).long(),
+                                 cats.reshape(1)]).cpu().numpy()
+            leaves = fetched[:-1].reshape(leaves.shape)
+            reg.counter("tree.cat_splits").inc(int(fetched[-1]))
+        else:
+            leaves = leaves.cpu().numpy()
         wave_hist = reg.histogram("tree.waves")
         leaf_hist = reg.histogram("tree.leaves")
         counts = []
@@ -1995,7 +2021,11 @@ class _IterationGraphs:
     iteration's parts are timed on the device by ``_PartClock``: ``start``
     (gradients and sampling), per tree its ``prologue``, its rounds of
     ``waves`` and its ``epilogue``. The flag reads run in
-    ``iteration.flags`` spans."""
+    ``iteration.flags`` spans. A categorical booster whose wave is
+    captured while spans are recorded also records a pair of events around
+    the categorical scan inside the wave graph, read for every wave
+    (``cat_scan``, :class:`_ScanTimer`); otherwise the graph holds no
+    event node."""
 
     # the counts ``publish`` mirrors into the registry
     MIRRORED = ("waves_run", "waves_needed", "trees")
@@ -2009,6 +2039,10 @@ class _IterationGraphs:
         self.ready = None
         self.clock = _PartClock()
         self._timing = False          # the current iteration is timed
+        # the categorical scan's timer of the wave graph (a categorical
+        # booster whose wave was captured while spans were recorded), else
+        # None: the graph then holds no event node
+        self.scan_timer = None
         # the scores the graphs bind to
         self.score = gbdt.score.clone()
         self.valid_scores = [vs.score.clone() for vs in gbdt.valid_sets]
@@ -2043,7 +2077,11 @@ class _IterationGraphs:
         """Capture ``fn`` into a CUDA graph (nothing runs) and return it."""
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        g = torch.cuda.CUDAGraph()
+        # the scan timer finds its nodes in the graph before instantiation
+        # drops it
+        timed_scan = key == "wave" and self.scan_timer is not None
+        g = torch.cuda.CUDAGraph(keep_graph=True) if timed_scan \
+            else torch.cuda.CUDAGraph()
         dev = self.gbdt.device
         reserved0 = torch.cuda.memory_stats(dev).get(
             "reserved_bytes.all.current", 0)
@@ -2052,6 +2090,9 @@ class _IterationGraphs:
             with torch.cuda.graph(g, pool=self.pool):
                 fn()
                 t1 = time.perf_counter()
+            if timed_scan:
+                g.instantiate()
+                self.scan_timer.bind(g)
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of the iteration's "
                                f"{key} part failed: {e}") from e
@@ -2125,15 +2166,24 @@ class _IterationGraphs:
         gb = self.gbdt
         flags = gb._grower.state.flags
         n = self.guess[k]
+        if "wave" not in self.graphs and gb.spec.use_categorical \
+                and obs.enabled():
+            self.scan_timer = _ScanTimer()
+            gb._grower.time_cat_scan(self.scan_timer.events)
+        timer = self.scan_timer if self._timing else None
         while True:
             self._mark(None)                  # the round's start
             for _ in range(n):
+                if timer is not None:
+                    timer.arm()
                 self._replay("wave", gb._grower.wave)
             self.waves_run += n
             read = flags if not gb._guarded else torch.cat(
                 [flags, gb._nan_flags_now()])
             vals = self._read_flags(read)
             self.syncs += 1
+            if timer is not None:
+                self.clock.add("cat_scan", timer.read())
             _, done, waves = vals[:3]
             if done:
                 break
@@ -2155,6 +2205,82 @@ class _IterationGraphs:
             self._published[name] = now
 
 
+class _ScanTimer:
+    """The categorical scan's device milliseconds in each wave of a
+    captured iteration. The wave graph holds a pair of event-record nodes
+    around the scan (``grower.TreeGrower.time_cat_scan``, with
+    :attr:`events`). Before each replay of a timed round :meth:`arm`
+    points the two nodes at a pair of events of that wave's own
+    (``cuGraphExecEventRecordNodeSetEvent``, which changes later launches
+    only), and :meth:`read` sums the round's pairs behind its flag read,
+    where the host has already waited past them: every wave is read, and
+    the timing adds no host sync."""
+
+    EVENT_RECORD = 7                  # CU_GRAPH_NODE_TYPE_EVENT_RECORD
+
+    def __init__(self):
+        self.pairs = [self._pair()]
+        self.events = self.pairs[0]
+        self.armed = 0                # waves timed, over the booster's life
+        self._used = 0                # pairs armed in the current round
+        self._lib = self._exec = self._nodes = None
+
+    @staticmethod
+    def _pair():
+        pair = tuple(torch.cuda.Event(enable_timing=True, external=True)
+                     for _ in range(2))
+        for ev in pair:
+            ev.record()               # creates the CUDA event now
+        return pair
+
+    def _call(self, name: str, *args) -> None:
+        rc = getattr(self._lib, name)(*args)
+        if rc != 0:
+            raise RuntimeError(f"{name} failed: CUDA error {rc}")
+
+    def bind(self, graph: "torch.cuda.CUDAGraph") -> None:
+        """Find :attr:`events`' two nodes in ``graph``, captured with its
+        graph kept and instantiated."""
+        # every argument goes as a ctypes pointer: no argtypes needed
+        self._lib = ctypes.CDLL("libcuda.so.1")
+        ptr = ctypes.c_void_p
+        handle = ptr(graph.raw_cuda_graph())
+        count = ctypes.c_size_t(0)
+        self._call("cuGraphGetNodes", handle, None, ctypes.byref(count))
+        nodes = (ptr * count.value)()
+        self._call("cuGraphGetNodes", handle, nodes, ctypes.byref(count))
+        by_event = {}
+        for node in map(ptr, nodes):
+            kind, event = ctypes.c_int(-1), ptr()
+            self._call("cuGraphNodeGetType", node, ctypes.byref(kind))
+            if kind.value == self.EVENT_RECORD:
+                self._call("cuGraphEventRecordNodeGetEvent", node,
+                           ctypes.byref(event))
+                by_event[event.value] = node
+        want = [ev._as_parameter_.value for ev in self.events]
+        if not all(w in by_event for w in want):
+            raise RuntimeError("the wave graph holds no event-record node "
+                               "of the categorical scan's events")
+        self._nodes = [by_event[w] for w in want]
+        self._exec = ptr(graph.raw_cuda_graph_exec())
+
+    def arm(self) -> None:
+        """Point the nodes at the round's next pair, before a replay."""
+        if self._used == len(self.pairs):
+            self.pairs.append(self._pair())
+        for node, ev in zip(self._nodes, self.pairs[self._used]):
+            self._call("cuGraphExecEventRecordNodeSetEvent", self._exec,
+                       node, ev._as_parameter_)
+        self._used += 1
+        self.armed += 1
+
+    def read(self) -> float:
+        """The armed pairs' milliseconds, summed; the round starts over."""
+        ms = sum(a.elapsed_time(b) for a, b in self.pairs[:self._used])
+        self._used = 0
+        return ms
+
+
 class _PartClock:
     """Device milliseconds of the captured iteration's parts, from timing
     events recorded on the stream between the replays, never inside a
@@ -2167,7 +2293,10 @@ class _PartClock:
     observation of each ``iteration.device_ms.<part>`` histogram and one
     ``iteration.timed``. The clock's own events return to a small pool; a
     mark may instead adopt an event its caller recorded (the flag read's
-    ``ready``)."""
+    ``ready``). :meth:`add` adds a time read elsewhere to the iteration's
+    own part (``cat_scan``: the categorical scan's events in the wave
+    graph, :class:`_ScanTimer`), which is then published with the
+    others."""
 
     PARTS = ("start", "prologue", "waves", "epilogue")
 
@@ -2185,6 +2314,10 @@ class _PartClock:
                 else torch.cuda.Event(enable_timing=True)
             event.record()
         self._chain.append((part, event, end, pooled))
+
+    def add(self, part: str, ms: float) -> None:
+        """``ms`` more of ``part`` in the iteration being timed."""
+        self._iter[part] = self._iter.get(part, 0.0) + ms
 
     def drain(self) -> None:
         """Add every segment of the chain, whose marks the host has waited

@@ -481,7 +481,8 @@ def construct_dataset(
     else:
         binner = bin_sparse_host if sparse else bin_dense_host
         with obs.span("construct.bin", rows=num_data,
-                      **sparse_span_args(data)):
+                      **sparse_span_args(data),
+                      **categorical_span_args([f.mapper for f in features])):
             X_binned = binner(
                 data, [f.mapper for f in features],
                 np.array([f.real_index for f in features], np.int64),
@@ -508,6 +509,13 @@ def sparse_span_args(data) -> Dict:
     if not hasattr(data, "tocsc"):
         return {}
     return {"sparse": True, "stored": int(data.nnz)}
+
+
+def categorical_span_args(mappers) -> Dict:
+    """The ``construct.bin`` span's attribute of categorical columns:
+    ``categorical``, their number; none where there are none."""
+    n = sum(m.bin_type == BIN_CATEGORICAL for m in mappers)
+    return {"categorical": int(n)} if n else {}
 
 
 def bin_dense_host(data: np.ndarray, mappers, real_indices: np.ndarray,

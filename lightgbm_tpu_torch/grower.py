@@ -339,6 +339,16 @@ def _apply_wave_splits(state: GrowState, new_hist: torch.Tensor,
     pg, ph, pc = state.sum_g[p], state.sum_h[p], state.cnt[p]
     rg_, rh_, rc_ = pg - lg, ph - lh, pc - lc
     l1, l2 = spec.lambda_l1, spec.lambda_l2
+    # the children of a split in the sorted-prefix categorical mode take
+    # their outputs at lambda_l2 + cat_l2, the l2 their split was scored at
+    # (the left_output / right_output of FindBestThresholdCategorical,
+    # feature_histogram.hpp:104-259)
+    l2_child = l2
+    if spec.use_categorical:
+        f_cat = torch.clamp(cand.feature[p].long(), min=0)
+        sorted_cat = cand.is_cat[p] & (num_bins[f_cat]
+                                       > spec.max_cat_to_onehot)
+        l2_child = torch.where(sorted_cat, l2 + spec.cat_l2, l2)
 
     t = state.tree
     t.split_feature[nid] = cand.feature[p]
@@ -364,8 +374,8 @@ def _apply_wave_splits(state: GrowState, new_hist: torch.Tensor,
                                             t.right_child[wire_right])
     t.leaf_parent[p] = nid32
     t.leaf_parent[q] = nid32
-    t.leaf_value[p] = leaf_output(lg, lh, l1, l2)
-    t.leaf_value[q] = leaf_output(rg_, rh_, l1, l2)
+    t.leaf_value[p] = leaf_output(lg, lh, l1, l2_child)
+    t.leaf_value[q] = leaf_output(rg_, rh_, l1, l2_child)
     t.leaf_count[p] = lc
     t.leaf_count[q] = rc_
     t.num_leaves.copy_(nl + n_apply)
@@ -564,6 +574,7 @@ class TreeGrower:
         self.cat_idx = torch.tensor(spec.cat_features, dtype=torch.long,
                                     device=dev) \
             if spec.use_categorical else None
+        self.scan_events = None
         self.bm = comm.block_meta(self.feature_ok, num_bins, missing_code,
                                   default_bin, is_cat, self.cat_idx)
         # row-sharded data-parallel: the pass's integer sums, and this
@@ -616,7 +627,8 @@ class TreeGrower:
             # the block mask is a new tensor: take this tree's features
             self.bm = self.comm.block_meta(
                 self.feature_ok, self.num_bins, self.missing_code,
-                self.default_bin, self.is_cat, self.cat_idx)
+                self.default_bin, self.is_cat, self.cat_idx)._replace(
+                    scan_events=self.scan_events)
         # the world's root sums and fixed-point scales under the row-sharded
         # strategies (parallel/comm.py), this device's otherwise
         rg, rh, rc = self.comm.root_sums(self.grad, self.hess, self.included)
@@ -641,6 +653,14 @@ class TreeGrower:
         st.seg_rows[0].fill_(self.num_rows)
         st.flags.copy_(self.flags0)
         st.perm.copy_(self.row_iota)
+
+    def time_cat_scan(self, events: Tuple[torch.cuda.Event,
+                                          torch.cuda.Event]) -> None:
+        """Record ``events`` around the categorical scan of every wave
+        from now on (a wave captured after this holds them as event-record
+        nodes)."""
+        self.scan_events = events
+        self.bm = self.bm._replace(scan_events=events)
 
     @trace_entry("grower.wave")
     def wave(self) -> None:

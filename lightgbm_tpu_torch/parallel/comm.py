@@ -81,6 +81,9 @@ class BlockMeta(NamedTuple):
     offset: int
     # inner indices of the categorical features (None: there are none)
     cat_idx: Optional[torch.Tensor] = None
+    # a pair of timing events recorded around the categorical scan (a
+    # traced booster's captured wave, ``grower.TreeGrower.time_cat_scan``)
+    scan_events: Optional[tuple] = None
 
 
 def block_per_feature(hist, pg, ph, pc, bm: BlockMeta, spec, bundle=None):
@@ -116,10 +119,14 @@ def block_per_feature(hist, pg, ph, pc, bm: BlockMeta, spec, bundle=None):
         # the scan is per feature: run it on the categorical columns only
         hist_c = hist[:, ci]
         B = hist.shape[2]
+    if bm.scan_events is not None:
+        bm.scan_events[0].record()
     pf_cat, mask_c = per_feature_best_categorical(
         hist_c, pg, ph, pc, bm.num_bins[ci], bm.missing_code[ci],
         (bm.feature_ok & bm.is_cat)[ci], **spec.hyperparams(),
         **spec.cat_hyperparams())
+    if bm.scan_events is not None:
+        bm.scan_events[1].record()
     merged = PerFeatureBest(*[nv.index_copy(1, ci, cv)
                               for nv, cv in zip(pf, pf_cat)])
     S, F = pf.gain.shape

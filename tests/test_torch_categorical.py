@@ -252,7 +252,8 @@ def _parse(text):
             trees.append(cur)
             cur = {}
         for key, name in (("split_feature=", "f"), ("decision_type=", "d"),
-                          ("cat_threshold=", "ct"), ("threshold=", "t")):
+                          ("cat_threshold=", "ct"), ("threshold=", "t"),
+                          ("leaf_value=", "lv"), ("leaf_count=", "lc")):
             if line.startswith(key):
                 cur[name] = line.split("=", 1)[1].split()
     if cur:
@@ -270,22 +271,35 @@ def _cat_det():
     return _CAT_DET["X"], _CAT_DET["y"]
 
 
-def _train_cat_det_port():
-    if "port" not in _CAT_DET:
+def _train_cat_det_port(**more):
+    key = ("port",) + tuple(sorted(more.items()))
+    if key not in _CAT_DET:
         X, y = _cat_det()
-        _CAT_DET["port"] = lgt.train(
-            dict(BASE, objective="binary", device="cpu"),
+        _CAT_DET[key] = lgt.train(
+            dict(BASE, objective="binary", device="cpu", **more),
             lgt.Dataset(X, label=y, categorical_feature=[2]),
             num_boost_round=5)
-    return _CAT_DET["port"]
+    return _CAT_DET[key]
+
+
+def _train_cat_det_jax(**more):
+    key = ("jax",) + tuple(sorted(more.items()))
+    if key not in _CAT_DET:
+        X, y = _cat_det()
+        _CAT_DET[key] = lgb.train(
+            dict(BASE, objective="binary", tpu_hist_f64=True, **more),
+            lgb.Dataset(X, label=y, categorical_feature=[2]),
+            num_boost_round=5)
+    return _CAT_DET[key]
 
 
 def test_cat_det_trees_match_jax_f64():
+    """At ``cat_l2`` 0, where the two packages' leaf rules agree: all five
+    trees' split features, decision types and bitsets equal, and the
+    predictions."""
     X, y = _cat_det()
-    ref = lgb.train(dict(BASE, objective="binary", tpu_hist_f64=True),
-                    lgb.Dataset(X, label=y, categorical_feature=[2]),
-                    num_boost_round=5)
-    ours = _train_cat_det_port()
+    ref = _train_cat_det_jax(cat_l2=0.0)
+    ours = _train_cat_det_port(cat_l2=0.0)
     rt, ot = _parse(ref.model_to_string()), _parse(ours.model_to_string())
     assert len(rt) == len(ot) == 5
     n_cat = 0
@@ -299,10 +313,62 @@ def test_cat_det_trees_match_jax_f64():
                                atol=1e-6)
 
 
+def test_cat_det_sorted_split_leaves_take_cat_l2():
+    """At the default ``cat_l2`` (10), tree by tree while both packages
+    grow at the same scores: every split feature, decision type and bitset
+    equal, and every leaf value equal but those of the children of a
+    sorted-prefix categorical split, which the port takes at ``lambda_l2 +
+    cat_l2`` (LightGBM's rule; the JAX package's is ``lambda_l2``): there,
+    the JAX package's value times ``H / (H + cat_l2)``, ``H`` the leaf's
+    hessian sum at the scores of the trees before. The scores part after
+    the first such tree."""
+    X, y = _cat_det()
+    ref = _train_cat_det_jax()
+    ours = _train_cat_det_port()
+    rt, ot = _parse(ref.model_to_string()), _parse(ours.model_to_string())
+    assert len(rt) == len(ot) == 5
+    jax_leaf = ref.predict(X, pred_leaf=True)
+    n_cat = scaled = 0
+    for t, (a, b) in enumerate(zip(rt, ot)):
+        assert a["f"] == b["f"]
+        assert a["d"] == b["d"]
+        assert a.get("ct") == b.get("ct")
+        n_cat += sum(int(d) & 1 for d in a["d"])
+        raw = ref.predict(X, raw_score=True, num_iteration=t) if t \
+            else np.zeros(len(y))
+        p = 1.0 / (1.0 + np.exp(-raw))
+        H = np.bincount(jax_leaf[:, t], weights=p * (1.0 - p))
+        want = _leaf_table(ref.dump_model()["tree_info"][t]["tree_structure"])
+        got = _leaf_table(ours.dump_model()["tree_info"][t]["tree_structure"])
+        for leaf, (value, under_cat) in want.items():
+            if under_cat:
+                value *= H[leaf] / (H[leaf] + 10.0)
+                scaled += 1
+            np.testing.assert_allclose(got[leaf][0], value, rtol=0,
+                                       atol=1e-6, err_msg=f"tree {t} leaf {leaf}")
+        if scaled:
+            break
+    assert n_cat > 0 and scaled > 0
+
+
+def _leaf_table(node, under_cat=False):
+    """``{leaf index: (value, whether its parent is a categorical split)}``
+    (every categorical column here has more than ``max_cat_to_onehot``
+    categories: the sorted-prefix mode)."""
+    if "leaf_value" in node:
+        return {node["leaf_index"]: (node["leaf_value"], under_cat)}
+    cat = node["decision_type"] == "=="
+    return {**_leaf_table(node["left_child"], cat),
+            **_leaf_table(node["right_child"], cat)}
+
+
 def test_cat_det_against_reference_engine():
-    """The JAX package's own bar (test_tree_parity.py): every decision type,
-    exactly 68/70 split features (two pinned near-tie flips), and the root
-    categorical bitset."""
+    """Against the reference CLI's model: every decision type, every split
+    feature (70/70), every categorical bitset and leaf count, and every
+    leaf value to 1e-6. The JAX package's bar (test_tree_parity.py) is
+    68/70 split features: it takes the children of a sorted-prefix
+    categorical split at ``lambda_l2``, where LightGBM and the port add
+    ``cat_l2``, and its trees leave the reference's after the first."""
     ref = _parse(open(os.path.join(HERE, "fixtures",
                                    "ref_cat_det_model.txt")).read())
     our = _parse(_train_cat_det_port().model_to_string())
@@ -313,8 +379,12 @@ def test_cat_det_against_reference_engine():
         for rf, of in zip(rt["f"], ot["f"]):
             total += 1
             feat_ok += rf == of
-    assert feat_ok == total - 2, f"{feat_ok}/{total} (expected exactly 68/70)"
-    assert ref[0]["ct"] == our[0]["ct"], "root categorical bitset differs"
+        assert rt.get("ct") == ot.get("ct"), "a categorical bitset differs"
+        assert rt["lc"] == ot["lc"], "a leaf count differs"
+        np.testing.assert_allclose(np.asarray(ot["lv"], float),
+                                   np.asarray(rt["lv"], float), rtol=0,
+                                   atol=1e-6)
+    assert feat_ok == total == 70, f"{feat_ok}/{total}"
 
 
 def test_cat_model_text_crosses_both_ways():

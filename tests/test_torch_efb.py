@@ -339,7 +339,11 @@ def _trio_data(case):
     X, y = _mixed_sparse()
     cat = np.random.RandomState(9).randint(0, 6, len(y)).astype(np.float64)
     y = np.where(cat >= 4, 1.0 - y, y)
-    return (np.column_stack([X, cat]), y, dict(min_data_per_group=5),
+    # the sorted-prefix mode at cat_l2 0, where the two packages' leaf
+    # rules agree (the port's children of such a split take lambda_l2 +
+    # cat_l2, LightGBM's rule, the JAX package's lambda_l2)
+    return (np.column_stack([X, cat]), y,
+            dict(min_data_per_group=5, cat_l2=0.0),
             {"categorical_feature": [X.shape[1]]})
 
 
@@ -361,11 +365,12 @@ def jax_trio_models():
                                   "categorical"])
 def test_trio_model_text_on_exact_arithmetic(jax_trio_models, case):
     """JAX bundled == port bundled (== port unbundled where there are no
-    conflicts), model text byte for byte."""
+    conflicts), model text byte for byte; the categorical column at the
+    default cat_l2 too, port bundled == port unbundled."""
     X, y, extra, kw = _trio_data(case)
 
     def port(**more):
-        return lgt.train(dict(BASE, **extra, **more),
+        return lgt.train({**BASE, **extra, **more},
                          lgt.Dataset(X, label=y, **kw), num_boost_round=6,
                          fobj=_exact_fobj, keep_training_booster=True)
     bundled = port()
@@ -379,6 +384,12 @@ def test_trio_model_text_on_exact_arithmetic(jax_trio_models, case):
     if case == "categorical":
         assert any((np.asarray(t.decision_type) & 1).any()
                    for t in bundled.trees)
+        # at the default cat_l2: port bundled == port unbundled
+        scaled = port(cat_l2=10.0)
+        assert any((np.asarray(t.decision_type) & 1).any()
+                   for t in scaled.trees)
+        assert scaled.model_to_string() == port(
+            cat_l2=10.0, enable_bundle=False).model_to_string()
     if case != "conflicts":
         off = port(enable_bundle=False)
         assert off._gbdt.bundle is None
